@@ -1,0 +1,219 @@
+"""The PyTorch port's kernel modules against the JAX package, on the CPU.
+
+Each wrapper in `whisperkit_tpu_torch/ops` runs its plain torch version for
+a CPU tensor (its CUDA kernel is compared with that plain version on the
+card by chip_smoke.py). Here the same numpy inputs go through the JAX
+function — the Pallas kernel in interpret mode, or its jnp reference — and
+through the port, at the tolerances the JAX package's own tests use.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisperkit_tpu.models.whisper import _q8_row_quantize as jax_q8_row_quantize
+from whisperkit_tpu.ops import attention_decode as jad
+from whisperkit_tpu.ops import mel as jmel
+from whisperkit_tpu.ops.attention import mha_encoder_pallas
+from whisperkit_tpu_torch.models.whisper import _q8_row_quantize
+from whisperkit_tpu_torch.ops import _build, attention, attention_decode, mel
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# ---------------------------------------------------------------------------
+# K1: log-mel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_bases_equal_jax(n_mels):
+    np.testing.assert_array_equal(mel.mel_filters(n_mels), jmel.mel_filters(n_mels))
+    for a, b in zip(mel._dft_window_matrices(), jmel._dft_window_matrices()):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def mel_audio():
+    rng = np.random.default_rng(0)
+    n = 400 * 160
+    a = (rng.standard_normal((2, n)) * 0.1).astype(np.float32)
+    a[1, n // 2 :] = 0.0  # a silent tail exercises the 1e-10 floor
+    return a
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_log_mel_matches_jax_xla(mel_audio, n_mels):
+    ref = np.asarray(jmel.log_mel_spectrogram(jnp.asarray(mel_audio), n_mels=n_mels, n_frames=400))
+    out = mel.log_mel_spectrogram(_t(mel_audio), n_mels=n_mels, n_frames=400).numpy()
+    assert out.shape == ref.shape == (2, n_mels, 400)
+    np.testing.assert_allclose(out, ref, atol=5e-5)
+
+
+def test_log_mel_matches_jax_pallas_interpret(mel_audio):
+    ref = np.asarray(
+        jmel.log_mel_spectrogram_pallas(jnp.asarray(mel_audio), n_mels=80, n_frames=400)
+    )
+    out = mel.log_mel_spectrogram(_t(mel_audio), n_mels=80, n_frames=400).numpy()
+    np.testing.assert_allclose(out, ref, atol=5e-5)
+
+
+def test_log_mel_single_window_and_raw_frames(mel_audio):
+    """1-D input squeezes like the JAX version; `log_mel_frames` is the raw
+    log10 output before the clamp and normalisation."""
+    single = mel.log_mel_spectrogram(_t(mel_audio[0]), n_mels=80, n_frames=400)
+    batch = mel.log_mel_spectrogram(_t(mel_audio), n_mels=80, n_frames=400)
+    assert single.shape == (80, 400)
+    torch.testing.assert_close(single, batch[0])
+    raw = mel.log_mel_frames(_t(mel_audio), 80, 400)
+    assert raw.shape == (2, 400, 80)
+    assert float(raw.min()) >= -10.0
+
+
+# ---------------------------------------------------------------------------
+# K2: encoder attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", [100, 1024])
+def test_mha_encoder_matches_pallas_interpret(s):
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.standard_normal((1, 2, s, 64)).astype(np.float32) for _ in range(3))
+    ref = np.asarray(mha_encoder_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=512))
+    out = attention.mha_encoder(_t(q), _t(k), _t(v)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_mha_encoder_bf16_keeps_rounding_points():
+    """bf16: output dtype bf16, and within 1% of the f32 result (the same
+    envelope the JAX bf16 kernel test allows)."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_t(rng.standard_normal((1, 2, 160, 64)).astype(np.float32)) for _ in range(3))
+    ref = attention.mha_encoder(q, k, v)
+    out = attention.mha_encoder(*(t.to(torch.bfloat16) for t in (q, k, v)))
+    assert out.dtype == torch.bfloat16
+    rel = (out.float() - ref).abs().mean() / ref.abs().mean()
+    assert float(rel) < 0.02
+
+
+# ---------------------------------------------------------------------------
+# K3: int8 cross-attention
+# ---------------------------------------------------------------------------
+
+
+def _q8_inputs(rng, b, h, t, s):
+    qi = rng.integers(-127, 128, (b, h, t, 64), dtype=np.int8)
+    q_scale = (rng.random((b, h, t, 1)) * 2e-5 + 1e-5).astype(np.float32)
+    k = rng.integers(-127, 128, (b, h, s, 64), dtype=np.int8)
+    v = rng.integers(-127, 128, (b, h, s, 64), dtype=np.int8)
+    v_scale = (rng.random((b, h, 1, 64)) * 0.02 + 0.005).astype(np.float32)
+    return qi, q_scale, k, v, v_scale
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_cross_attend_q8_matches_jax_reference(t):
+    rng = np.random.default_rng(10 + t)
+    args = _q8_inputs(rng, 2, 3, t, 1500)
+    ref = np.asarray(jad.cross_attend_q8_reference(*(jnp.asarray(a) for a in args)))
+    out = attention_decode.cross_attend_q8(*(_t(a) for a in args)).numpy()
+    # a ±1 flip of one requantized probability is allowed
+    np.testing.assert_allclose(out, ref, rtol=2e-3, atol=2e-4)
+
+
+def test_cross_attend_q8_matches_pallas_interpret():
+    rng = np.random.default_rng(3)
+    args = _q8_inputs(rng, 2, 2, 1, 300)
+    ref = np.asarray(jad.cross_attend_q8_pallas(*(jnp.asarray(a) for a in args)))
+    out = attention_decode.cross_attend_q8(*(_t(a) for a in args)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=2e-3, atol=2e-4)
+
+
+def test_int_dot_is_exact_past_float32():
+    """The plain versions' integer dots must be exact where float32 is not
+    (1500 · 127 · 127 > 2^24)."""
+    a = torch.full((1, 1500), 127, dtype=torch.int8)
+    b = torch.full((1500, 1), 127, dtype=torch.int8)
+    b[0, 0] = 126
+    exact = 1500 * 127 * 127 - 127
+    assert int(attention_decode._int_dot(a, b)[0, 0]) == exact
+    assert int((a.float() @ b.float())[0, 0]) != exact
+
+
+# ---------------------------------------------------------------------------
+# K4: T==1 self-attention over the cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 17, 39])
+def test_self_attend_matches_pallas_interpret(cache_dtype, pos):
+    rng = np.random.default_rng(pos)
+    b, h, s = 2, 3, 40
+    q = (rng.standard_normal((b, h, 1, 64)) * 0.125).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, s, 64)).astype(np.float32) for _ in range(2))
+    mask = np.where(np.arange(s)[None, :] <= pos, 0.0, -np.inf).astype(np.float32)
+    jdt = jnp.dtype(cache_dtype)
+    ref = np.asarray(
+        jad.self_attend_pallas(jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(mask))
+    )
+    tdt = getattr(torch, cache_dtype)
+    out = attention_decode.self_attend(_t(q), _t(k).to(tdt), _t(v).to(tdt), _t(mask)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the shared int8 row quantization
+# ---------------------------------------------------------------------------
+
+
+def test_q8_row_quantize_matches_jax():
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((4, 20, 3, 64)) * 3).astype(np.float32)
+    qj, sj = jax_q8_row_quantize(jnp.asarray(x))
+    qt, st = _q8_row_quantize(_t(x))
+    assert qt.dtype == torch.int8
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-6)
+    diff = np.abs(qt.numpy().astype(np.int32) - np.asarray(qj).astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() <= 1e-3
+
+
+def test_q8_row_quantize_rounds_half_to_even():
+    x = torch.tensor([[127.0, 2.5, -2.5, 3.5, 0.5]])
+    q, scale = _q8_row_quantize(x)
+    assert float(scale) == 1.0
+    assert q.tolist() == [[127, 2, -2, 4, 0]]
+
+
+# ---------------------------------------------------------------------------
+# wrappers and the build helper
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    _build.reset_launches()
+    rng = np.random.default_rng(1)
+    q, k, v = (_t(rng.standard_normal((1, 1, 8, 64)).astype(np.float32)) for _ in range(3))
+    attention.mha_encoder(q, k, v)
+    mask = torch.zeros((1, 8))
+    attention_decode.self_attend(q[:, :, :1], k, v, mask)
+    args = _q8_inputs(rng, 1, 1, 1, 8)
+    attention_decode.cross_attend_q8(*(_t(a) for a in args))
+    mel.log_mel_frames(torch.zeros((1, 4000)), 80, 20)
+    assert _build.launches == dict.fromkeys(_build.KERNELS, 0)
+
+
+def test_check_cuda_rejects_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.check_cuda("x", torch.zeros(2), torch.float32, 1)
+
+
+def test_library_path_follows_the_sources():
+    path = _build._library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path == _build._library_path()
+    assert {p.name for p in _build._sources()} == {"attention_decode.cu", "mel.cu", "mha_encoder.cu"}

@@ -1,0 +1,216 @@
+"""The PyTorch port's `WhisperPipeline` against the JAX pipeline, on the CPU.
+
+Both pipelines get the same random float32 weights (the JAX `init_params`
+tree carried across with `params_from_numpy`) and the same audio, and must
+give the same tokens and segments on the VAD path, the single-window seek
+path, the long seek path and the batch API. Greedy decoding only, with the
+fallback ladder off: JAX keys and torch generators draw different numbers.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from whisperkit_tpu.core.configurations import ComputeOptions, DecodingOptions, WhisperConfig
+from whisperkit_tpu.models import whisper as jmodel
+from whisperkit_tpu.pipelines.whisper import WhisperPipeline as JaxPipeline
+from whisperkit_tpu_torch.models import whisper as model
+from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+REPO = Path(__file__).resolve().parent.parent
+DIMS = model.WhisperDims(80, 207, 1500, 64, 4, 2, 64, 64, 4, 2)
+JDIMS = jmodel.WhisperDims(*dataclasses.astuple(DIMS))
+
+# greedy only, quality ladder off (as bench.pipeline_options), short budget
+GREEDY = dict(
+    language="en", sample_length=10, temperature_fallback_count=0,
+    logprob_threshold=None, compression_ratio_threshold=None,
+    no_speech_threshold=None, first_token_log_prob_threshold=None,
+)
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    return jmodel.init_params(jax.random.PRNGKey(0), JDIMS, dtype=jnp.float32)
+
+
+def _pipes(jparams, **compute):
+    jax_pipe = JaxPipeline(
+        WhisperConfig(compute_options=ComputeOptions(dp_size=1, **compute), load=False),
+        dims=JDIMS, params=jparams,
+    )
+    tparams = model.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu", torch.float32)
+    torch_pipe = WhisperPipeline(
+        WhisperConfig(compute_options=ComputeOptions(**compute), load=False),
+        dims=DIMS, params=tparams, device="cpu",
+    )
+    return jax_pipe, torch_pipe
+
+
+@pytest.fixture(scope="module")
+def pipes(jparams):
+    return _pipes(jparams)
+
+
+def _audio(seconds, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(int(16000 * seconds)) * 0.1).astype(np.float32)
+
+
+def _speechlike(seconds):
+    """Noise bursts between pauses, so the VAD finds several chunks."""
+    import bench
+
+    return bench.synth_speechlike_audio(seconds, seed=1)
+
+
+def _assert_same_result(ours, ref):
+    assert ours.language == ref.language
+    assert ours.text == ref.text
+    assert len(ours.segments) == len(ref.segments) > 0
+    for a, b in zip(ours.segments, ref.segments):
+        assert a.tokens == b.tokens
+        assert (a.id, a.seek, a.text, a.language) == (b.id, b.seek, b.text, b.language)
+        assert a.start == pytest.approx(b.start, abs=1e-6)
+        assert a.end == pytest.approx(b.end, abs=1e-6)
+        assert a.avg_logprob == pytest.approx(b.avg_logprob, abs=1e-4)
+        assert a.no_speech_prob == pytest.approx(b.no_speech_prob, abs=1e-5)
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        ("vad", 65.0, "vad"),  # VAD chunks, length-sorted groups, tail bucket
+        ("seek_short", 5.0, None),  # one window
+        ("seek_long", 40.0, None),  # seek loop over the whole-file mel
+    ],
+    ids=lambda c: c[0],
+)
+def test_transcribe_matches_jax(pipes, case):
+    _, seconds, chunking = case
+    jax_pipe, torch_pipe = pipes
+    audio = _speechlike(seconds) if chunking else _audio(seconds, 7)
+    options = DecodingOptions(chunking_strategy=chunking, concurrent_worker_count=2, **GREEDY)
+    seen = []
+    ours = torch_pipe.transcribe(audio, options, callback=lambda p: seen.append(p.window_id))
+    ref = jax_pipe.transcribe(audio, options)
+    _assert_same_result(ours, ref)
+    assert seen and ours.timings.full_pipeline > 0
+    assert ours.timings.input_audio_seconds == pytest.approx(seconds)
+
+
+def test_vad_path_groups_and_tail_bucket(pipes):
+    """65 s of speech-like audio at groups of 2: every chunk decodes once,
+    and the chunk count is what the JAX pipeline chunks."""
+    jax_pipe, torch_pipe = pipes
+    audio = _speechlike(65.0)
+    options = DecodingOptions(chunking_strategy="vad", concurrent_worker_count=2, **GREEDY)
+    chunks = torch_pipe._vad_chunks(audio, options)
+    assert len(chunks) >= 3
+    res = torch_pipe.transcribe(audio, options)
+    assert res.timings.total_decoding_windows == len(chunks)
+    assert res.timings.total_encoding_runs == len(chunks)
+
+
+def test_serving_preset_int8_cross_kv_matches_jax(jparams):
+    """ComputeOptions.serving(): the int8 cross-KV through the int8
+    cross-attention (plain version here) gives JAX's tokens and segments."""
+    jax_pipe, torch_pipe = _pipes(jparams, quantize_cross_kv=True)
+    audio = _speechlike(65.0)
+    options = DecodingOptions(chunking_strategy="vad", concurrent_worker_count=4, **GREEDY)
+    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, options))
+
+
+def test_batch_api_matches_jax(pipes):
+    jax_pipe, torch_pipe = pipes
+    items = [_audio(5.0, 1), "/nonexistent/file.wav", _audio(3.0, 2)]
+    options = DecodingOptions(**GREEDY)
+    ours = torch_pipe.transcribe(items, options)
+    ref = jax_pipe.transcribe(items, options)
+    assert isinstance(ours[1], Exception) and isinstance(ref[1], Exception)
+    for i in (0, 2):
+        _assert_same_result(ours[i], ref[i])
+
+
+def test_language_detection_matches_jax(pipes):
+    jax_pipe, torch_pipe = pipes
+    audio = _audio(5.0, 3)
+    lang, probs = torch_pipe.detect_language(audio)
+    jlang, jprobs = jax_pipe.detect_language(audio)
+    assert lang == jlang
+    assert probs.keys() == jprobs.keys()
+    for k in probs:
+        assert probs[k] == pytest.approx(jprobs[k], abs=1e-5)
+    options = DecodingOptions(**{**GREEDY, "language": None})
+    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, options))
+
+
+@pytest.mark.parametrize(
+    "kwargs, decode",
+    [
+        ({}, {"beam_size": 2}),
+        ({}, {"word_timestamps": True}),
+        ({"compute_options": ComputeOptions(quantization="w8a16")}, {}),
+        ({"compute_options": ComputeOptions(quantize_self_kv=True)}, {}),
+        ({"compute_options": ComputeOptions(segmented_decode=True)}, {}),
+        ({"compute_options": ComputeOptions(dp_size=2)}, {}),
+        ({"draft_dims": DIMS}, {}),
+    ],
+)
+def test_options_outside_the_slice_raise(jparams, kwargs, decode):
+    tparams = model.init_params(0, DIMS, torch.float32, "cpu")
+    compute = kwargs.pop("compute_options", ComputeOptions())
+    config = WhisperConfig(compute_options=compute, load=False)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        pipe = WhisperPipeline(config, dims=DIMS, params=tparams, device="cpu", **kwargs)
+        pipe.transcribe(_audio(1.0, 0), DecodingOptions(**GREEDY, **decode))
+
+
+def test_early_stop_flag_and_checkpoint_loading_raise():
+    tparams = model.init_params(0, DIMS, torch.float32, "cpu")
+    pipe = WhisperPipeline(WhisperConfig(load=False), dims=DIMS, params=tparams, device="cpu")
+    with pytest.raises(NotImplementedError):
+        pipe.early_stop_flag = object()
+    pipe.early_stop_flag = None
+    with pytest.raises(NotImplementedError):
+        WhisperPipeline(WhisperConfig(model="tiny"), device="cpu")
+
+
+def test_cuda_pipeline_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tparams = model.init_params(0, DIMS, torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WhisperPipeline(WhisperConfig(load=False), dims=DIMS, params=tparams, device="cuda")
+
+
+def test_pipeline_needs_an_explicit_device():
+    with pytest.raises(TypeError):
+        WhisperPipeline(WhisperConfig(load=False))  # `device` is keyword-only, no default
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import whisperkit_tpu_torch.pipelines.whisper\n"
+        "import whisperkit_tpu_torch.ops.attention, whisperkit_tpu_torch.ops.attention_decode\n"
+        "import whisperkit_tpu_torch.ops.mel\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

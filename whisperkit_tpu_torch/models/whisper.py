@@ -1,0 +1,444 @@
+"""Whisper encoder/decoder on torch tensors (port of
+whisperkit_tpu/models/whisper.py).
+
+Parameters are a plain tree of dicts of tensors with the JAX package's
+names and layouts (linear weights [in, out], conv weights [out, in, k]),
+except that each layer stack is a list of per-layer dicts instead of one
+[L, ...] array, and the decoder carries `token_embed_f32`, a float32 view
+(or copy, for bf16 weights) of the embedding for the float32 logits
+projection.
+
+Entry points:
+  init_params / params_from_numpy / params_to_numpy
+  encoder_forward              mel → encoder output
+  compute_cross_kv[_quantized] encoder output → per-layer cross K/V
+  decoder_forward              prefill (T > 1) and the T == 1 step
+
+Attention runs through the port's kernels where the JAX package has a
+Pallas kernel: the encoder's self-attention (ops/attention.py), the T==1
+self-attention (ops/attention_decode.self_attend) and the int8
+cross-attention (ops/attention_decode.cross_attend_q8). Prefill
+self-attention, raw cross-attention, the dense layers, the convolutions
+and the vocabulary projection are plain torch, as the JAX package leaves
+them to XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
+from whisperkit_tpu_torch.ops.attention import mha_encoder
+from whisperkit_tpu_torch.ops.attention_decode import cross_attend_q8, self_attend
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperDims:
+    """Model dimensions (mirrors openai/whisper ModelDimensions)."""
+
+    n_mels: int = 80
+    n_vocab: int = 51865
+    n_audio_ctx: int = 1500
+    n_audio_state: int = 384
+    n_audio_head: int = 6
+    n_audio_layer: int = 4
+    n_text_ctx: int = 448
+    n_text_state: int = 384
+    n_text_head: int = 6
+    n_text_layer: int = 4
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_text_state // self.n_text_head
+
+
+VARIANT_DIMS: dict[str, WhisperDims] = {
+    "tiny": WhisperDims(80, 51865, 1500, 384, 6, 4, 448, 384, 6, 4),
+    "tiny.en": WhisperDims(80, 51864, 1500, 384, 6, 4, 448, 384, 6, 4),
+    "base": WhisperDims(80, 51865, 1500, 512, 8, 6, 448, 512, 8, 6),
+    "base.en": WhisperDims(80, 51864, 1500, 512, 8, 6, 448, 512, 8, 6),
+    "small": WhisperDims(80, 51865, 1500, 768, 12, 12, 448, 768, 12, 12),
+    "small.en": WhisperDims(80, 51864, 1500, 768, 12, 12, 448, 768, 12, 12),
+    "medium": WhisperDims(80, 51865, 1500, 1024, 16, 24, 448, 1024, 16, 24),
+    "medium.en": WhisperDims(80, 51864, 1500, 1024, 16, 24, 448, 1024, 16, 24),
+    "large": WhisperDims(80, 51865, 1500, 1280, 20, 32, 448, 1280, 20, 32),
+    "large-v2": WhisperDims(80, 51865, 1500, 1280, 20, 32, 448, 1280, 20, 32),
+    "large-v3": WhisperDims(128, 51866, 1500, 1280, 20, 32, 448, 1280, 20, 32),
+    "large-v3-turbo": WhisperDims(128, 51866, 1500, 1280, 20, 32, 448, 1280, 20, 4),
+    "distil-large-v3": WhisperDims(128, 51866, 1500, 1280, 20, 32, 448, 1280, 20, 2),
+}
+
+
+def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
+    """Whisper encoder positional embedding (fixed sinusoids)."""
+    log_timescale = np.log(10000.0) / (channels // 2 - 1)
+    inv_timescales = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _with_logits_weight(params: Params) -> Params:
+    dec = params["decoder"]
+    dec["token_embed_f32"] = dec["token_embed"].float()
+    return params
+
+
+def init_params(
+    seed: int, dims: WhisperDims, dtype: torch.dtype, device: DeviceLike
+) -> Params:
+    """Random init with the parameter structure of the JAX `init_params`
+    (same shapes, scales and zero/one initialisers), drawn from a numpy
+    generator seeded with `seed`. The values differ from JAX's."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, scale):
+        x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(x).to(dev, dtype)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    def linear(d_in, d_out, bias=True):
+        p = {"w": normal((d_in, d_out), d_in**-0.5)}
+        if bias:
+            p["b"] = const((d_out,), 0.0)
+        return p
+
+    def ln(d):
+        return {"g": const((d,), 1.0), "b": const((d,), 0.0)}
+
+    def attn(d):
+        return {
+            "q": linear(d, d),
+            "k": linear(d, d, bias=False),  # whisper: no k bias
+            "v": linear(d, d),
+            "out": linear(d, d),
+        }
+
+    def block(d, cross):
+        p = {
+            "attn_ln": ln(d),
+            "attn": attn(d),
+            "mlp_ln": ln(d),
+            "fc1": linear(d, 4 * d),
+            "fc2": linear(4 * d, d),
+        }
+        if cross:
+            p["cross_attn_ln"] = ln(d)
+            p["cross_attn"] = attn(d)
+        return p
+
+    d_a, d_t = dims.n_audio_state, dims.n_text_state
+    encoder = {
+        "conv1": {
+            "w": normal((d_a, dims.n_mels, 3), (3 * dims.n_mels) ** -0.5),
+            "b": const((d_a,), 0.0),
+        },
+        "conv2": {"w": normal((d_a, d_a, 3), (3 * d_a) ** -0.5), "b": const((d_a,), 0.0)},
+        "pos_embed": torch.from_numpy(sinusoidal_positions(dims.n_audio_ctx, d_a)).to(dev, dtype),
+        "blocks": [block(d_a, cross=False) for _ in range(dims.n_audio_layer)],
+        "ln_post": ln(d_a),
+    }
+    decoder = {
+        "token_embed": normal((dims.n_vocab, d_t), d_t**-0.5),
+        "pos_embed": normal((dims.n_text_ctx, d_t), 0.01),
+        "blocks": [block(d_t, cross=True) for _ in range(dims.n_text_layer)],
+        "ln": ln(d_t),
+    }
+    return _with_logits_weight({"encoder": encoder, "decoder": decoder})
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_numpy(tree: dict, device: DeviceLike, dtype: torch.dtype) -> Params:
+    """A JAX parameter tree as numpy arrays (`jax.tree.map(np.asarray,
+    params)`, layer stacks [L, ...]) → the port's tree on `device` in
+    `dtype`, with each layer stack split into a list of per-layer dicts."""
+    dev = resolve_device(device)
+
+    def leaf(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
+
+    out = {}
+    for part in ("encoder", "decoder"):
+        blocks = tree[part]["blocks"]
+        n_layer = len(blocks["attn_ln"]["g"])
+        out[part] = _map(leaf, {k: v for k, v in tree[part].items() if k != "blocks"})
+        out[part]["blocks"] = [_map(lambda a, i=i: leaf(a[i]), blocks) for i in range(n_layer)]
+    return _with_logits_weight(out)
+
+
+def params_to_numpy(params: Params) -> dict:
+    """Inverse of `params_from_numpy`: float32 numpy arrays with the layer
+    stacks re-stacked to [L, ...] and `token_embed_f32` dropped."""
+
+    def leaf(t):
+        return t.detach().float().cpu().numpy()
+
+    def stack(blocks):
+        if isinstance(blocks[0], dict):
+            return {k: stack([b[k] for b in blocks]) for k in blocks[0]}
+        return np.stack([leaf(b) for b in blocks])
+
+    out = {}
+    for part in ("encoder", "decoder"):
+        sub = {k: v for k, v in params[part].items() if k not in ("blocks", "token_embed_f32")}
+        out[part] = _map(leaf, sub)
+        out[part]["blocks"] = stack(params[part]["blocks"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward primitives
+# ---------------------------------------------------------------------------
+
+
+def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32, cast back to x's dtype."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), p["g"].float(), p["b"].float(), eps)
+    return y.to(x.dtype)
+
+
+def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)  # [B,H,T,Dh]
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def _q8_quantize(x32: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over axis `dim` of a float32 tensor → (int8, scale
+    f32 with `dim` kept as 1); round half to even, clip ±127, scale floor
+    1e-8 (the JAX recipe)."""
+    scale = torch.clamp_min(x32.abs().amax(dim=dim, keepdim=True) / 127.0, 1e-8)
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
+
+
+def _q8_row_quantize(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 over the last axis → (int8, scale f32 [..., 1])."""
+    return _q8_quantize(x32, -1)
+
+
+def _attend(q, k, v, mask=None, force_f32_scores=False):
+    """Plain attention, q [B,H,Tq,Dh], k/v [B,H,Tk,Dh]; Whisper scales q
+    and k by dh^-0.25. Scores are float32 when an operand is float32 or
+    when `force_f32_scores` (the raw decode cross path), else in the
+    operands' dtype."""
+    scale = q.shape[-1] ** -0.25
+    qs, ks = q * scale, k * scale
+    if force_f32_scores or q.dtype == torch.float32 or k.dtype == torch.float32:
+        scores = qs.float() @ ks.float().transpose(-1, -2)
+    else:
+        scores = qs @ ks.transpose(-1, -2)
+    if mask is not None:
+        scores = scores + mask.to(scores.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    return probs.to(v.dtype) @ v
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def _conv1d(x, w, b, stride):
+    """x [B, C_in, T], w [C_out, C_in, K], 'same' padding."""
+    return F.conv1d(x.to(w.dtype), w, b, stride=stride, padding=1)
+
+
+def encoder_forward(params: Params, mel: torch.Tensor, dims: WhisperDims) -> torch.Tensor:
+    """mel [B, n_mels, 3000] → encoder output [B, 1500, d_audio]."""
+    enc = params["encoder"]
+    n_head = dims.n_audio_head
+    x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
+    x = _gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], 2))
+    x = x.transpose(1, 2)  # [B, T=1500, D]
+    x = x + enc["pos_embed"].to(x.dtype)
+    for bp in enc["blocks"]:
+        h = layer_norm(x, bp["attn_ln"])
+        q = _split_heads(dense(h, bp["attn"]["q"]), n_head).contiguous()
+        k = _split_heads(dense(h, bp["attn"]["k"]), n_head).contiguous()
+        v = _split_heads(dense(h, bp["attn"]["v"]), n_head).contiguous()
+        x = x + dense(_merge_heads(mha_encoder(q, k, v)), bp["attn"]["out"])
+        h = layer_norm(x, bp["mlp_ln"])
+        x = x + dense(_gelu(dense(h, bp["fc1"])), bp["fc2"])
+    return layer_norm(x, enc["ln_post"])
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention K/V
+# ---------------------------------------------------------------------------
+
+
+def compute_cross_kv(params: Params, enc_out: torch.Tensor, dims: WhisperDims):
+    """Per-layer cross-attention K/V: (k, v), each [L, B, H, 1500, Dh]."""
+    n_head = dims.n_text_head
+    ks, vs = [], []
+    for bp in params["decoder"]["blocks"]:
+        ks.append(_split_heads(dense(enc_out, bp["cross_attn"]["k"]), n_head))
+        vs.append(_split_heads(dense(enc_out, bp["cross_attn"]["v"]), n_head))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def compute_cross_kv_quantized(params: Params, enc_out: torch.Tensor, dims: WhisperDims):
+    """Project and int8-quantize the cross-attention K/V one layer at a
+    time, so at most one layer's bf16 K/V exists at once.
+
+    Returns ({"q8", "scale"}, {"q8", "scale"}) with q8 [L,B,H,1500,Dh]
+    int8 and scale [L,B,H,1,Dh] f32.
+    """
+    n_head, n_layer = dims.n_text_head, dims.n_text_layer
+    b, frames, _ = enc_out.shape
+    shape = (n_layer, b, n_head, frames, dims.head_dim)
+    scale_shape = (n_layer, b, n_head, 1, dims.head_dim)
+    dev = enc_out.device
+    k8 = {"q8": torch.empty(shape, dtype=torch.int8, device=dev),
+          "scale": torch.empty(scale_shape, dtype=torch.float32, device=dev)}
+    v8 = {"q8": torch.empty(shape, dtype=torch.int8, device=dev),
+          "scale": torch.empty(scale_shape, dtype=torch.float32, device=dev)}
+    for li, bp in enumerate(params["decoder"]["blocks"]):
+        for out, name in ((k8, "k"), (v8, "v")):
+            # per-channel (Dh) scales over the frame axis
+            x = _split_heads(dense(enc_out, bp["cross_attn"][name]), n_head)
+            q8, scale = _q8_quantize(x.float(), -2)
+            out["q8"][li] = q8
+            out["scale"][li] = scale
+    return k8, v8
+
+
+def _layer(cross, li):
+    if isinstance(cross, dict):
+        return {k: v[li] for k, v in cross.items()}
+    return cross[li]
+
+
+def _cross_attend(cq, ck, cv):
+    """Cross-attention over one layer's cached K/V: raw [B,H,1500,Dh]
+    tensors (plain attention, float32 scores), or int8 {"q8", "scale"}
+    dicts (the int8 kernel, any number of query rows)."""
+    if not isinstance(ck, dict):
+        return _attend(cq, ck, cv, force_f32_scores=True)
+    scale = cq.shape[-1] ** -0.25  # same dh^-.25 on q as _attend (k's is folded)
+    qs = cq.float() * (scale * scale) * ck["scale"]
+    qi, q_scale = _q8_row_quantize(qs)
+    out = cross_attend_q8(
+        qi.contiguous(), q_scale.contiguous(), ck["q8"], cv["q8"], cv["scale"]
+    )
+    return out.to(cq.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(dims: WhisperDims, batch: int, length: int, dtype, device):
+    """Self-attention KV cache, two [L, B, H, length, Dh] zero tensors."""
+    shape = (dims.n_text_layer, batch, dims.n_text_head, length, dims.head_dim)
+    return (
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def decoder_forward(
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] int
+    pos_offset: int,  # position of tokens[:, 0]
+    kv_k: torch.Tensor,  # [L, B, H, S, Dh], written in place
+    kv_v: torch.Tensor,
+    cross_k,  # [L, B, H, 1500, Dh] or int8 {"q8", "scale"}
+    cross_v,
+    dims: WhisperDims,
+    mask_row: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Run T tokens through the decoder → logits [B, T, V] float32.
+
+    Unlike the JAX version, which returns an updated cache, this writes the
+    new keys and values into `kv_k`/`kv_v` IN PLACE at positions
+    [pos_offset, pos_offset + T): the cache is the largest decode-time
+    buffer, and a copy per step would double its traffic.
+
+    T > 1 (prefill) attends with plain torch under a causal mask; T == 1
+    (the decode step) runs the self-attention kernel over the cache with
+    the additive mask row (0 up to `pos_offset`, -inf after), which the
+    caller may pass in (`mask_row`, [1, S] float32) to avoid rebuilding it.
+    """
+    dec = params["decoder"]
+    b, t = tokens.shape
+    n_head = dims.n_text_head
+    s_max = kv_k.shape[3]
+    dev = tokens.device
+
+    x = dec["token_embed"][tokens]
+    pos = dec["pos_embed"][pos_offset : pos_offset + t]
+    x = (x + pos[None]).to(dec["token_embed"].dtype)
+
+    if t == 1 and mask_row is None:
+        mask_row = torch.zeros((1, s_max), dtype=torch.float32, device=dev)
+        mask_row[:, pos_offset + 1 :] = float("-inf")
+    elif t > 1:
+        key_pos = torch.arange(s_max, device=dev)[None, :]
+        query_pos = pos_offset + torch.arange(t, device=dev)[:, None]
+        mask = torch.zeros((t, s_max), dtype=torch.float32, device=dev)
+        mask = mask.masked_fill(key_pos > query_pos, float("-inf"))[None, None]
+
+    dh = dims.head_dim
+    for li, bp in enumerate(dec["blocks"]):
+        kk, vv = kv_k[li], kv_v[li]
+        h = layer_norm(x, bp["attn_ln"])
+        q = _split_heads(dense(h, bp["attn"]["q"]), n_head)
+        kk[:, :, pos_offset : pos_offset + t] = _split_heads(dense(h, bp["attn"]["k"]), n_head)
+        vv[:, :, pos_offset : pos_offset + t] = _split_heads(dense(h, bp["attn"]["v"]), n_head)
+        if t == 1:
+            q_scaled = (q * dh**-0.5).float().contiguous()
+            attn = self_attend(q_scaled, kk, vv, mask_row).to(q.dtype)
+        else:
+            attn = _attend(q, kk, vv, mask)
+        x = x + dense(_merge_heads(attn), bp["attn"]["out"])
+
+        h = layer_norm(x, bp["cross_attn_ln"])
+        cq = _split_heads(dense(h, bp["cross_attn"]["q"]), n_head)
+        cross_out = _cross_attend(cq, _layer(cross_k, li), _layer(cross_v, li))
+        x = x + dense(_merge_heads(cross_out), bp["cross_attn"]["out"])
+
+        h = layer_norm(x, bp["mlp_ln"])
+        x = x + dense(_gelu(dense(h, bp["fc1"])), bp["fc2"])
+
+    x = layer_norm(x, dec["ln"])
+    # float32 operands: the JAX einsum accumulates and returns float32
+    return x.float() @ dec["token_embed_f32"].T

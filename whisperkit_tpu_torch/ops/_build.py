@@ -1,0 +1,155 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+All `csrc/*.cu` sources compile with nvcc into ONE shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers: a build takes
+seconds, not minutes). Each exported function takes its pointers and the
+CUDA stream as `void*`, launches on that stream, and returns
+`cudaGetLastError()` as an int; the Python wrappers raise when it is not 0.
+
+The library is built at first use into `build/whisperkit_tpu_torch/` beside
+the package, named by a hash of the sources and flags so an edited kernel
+never loads a stale build. Nothing here runs at import time: the CPU tests
+import every module on hosts that have no nvcc.
+
+`launches` counts kernel launches per kernel: each wrapper adds one where
+it launches its kernel, and nowhere else, so a run can show that its main
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple, Optional
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "whisperkit_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend")
+launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the exported launchers (csrc/*.cu), all returning int
+_SIGNATURES = {
+    # padded, cos, sin, mel_w, out, batch, n_frames, n_mels, stream
+    "wk_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, out, batch, heads, seq, is_bf16, scale, stream
+    "wk_mha_encoder": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # qi, q_scale, k, v, v_scale, out, batch*heads, t, s, stream
+    "wk_cross_attend_q8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, mask, out, batch*heads, s, is_bf16, stream
+    "wk_self_attend": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+
+class BuildResult(NamedTuple):
+    path: Path
+    seconds: float  # 0 when an identical earlier build was reused
+    log: str  # nvcc's output, with the `-Xptxas -v` report
+
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libwktpu_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> BuildResult:
+    """Compile csrc/*.cu into the shared library, or reuse an identical
+    earlier build."""
+    path = _library_path()
+    if path.exists() and not force:
+        return BuildResult(path, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{log}")
+    os.replace(tmp, path)
+    return BuildResult(path, seconds, log)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(kernel: str, fn_name: str, *args) -> None:
+    """Call one exported launcher on the current stream, raise on a
+    non-zero launch status, and count the launch."""
+    fn = getattr(library(), fn_name)
+    status = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if status != 0:
+        raise RuntimeError(f"{fn_name} launch failed with CUDA error {status}")
+    launches[kernel] += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and rank."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected rank {ndim}, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

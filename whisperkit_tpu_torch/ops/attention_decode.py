@@ -1,0 +1,113 @@
+"""Decode-step attention (port of whisperkit_tpu/ops/attention_decode.py).
+
+  cross_attend_q8  int8 cross-attention over the int8 cross-KV (K3), for
+                   one or more query rows (the T==1 step and the prefill)
+  self_attend      T==1 self-attention over the raw bf16/f32 cache (K4)
+
+For CUDA tensors each launches its hand-written kernel in
+csrc/attention_decode.cu; for CPU tensors it runs the plain torch version
+beside it. The plain versions compute the integer dots in float64, which
+is exact for these sizes on CPU and CUDA alike (torch's int8 matmul
+returns int8 and overflows, and float32 is not exact past 2^24).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from whisperkit_tpu_torch.ops import _build
+
+
+def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer matmul of int8 operands, as float64."""
+    return a.double() @ b.double()
+
+
+def cross_attend_q8_reference(qi, q_scale, k_q8, v_q8, v_scale) -> torch.Tensor:
+    """Plain torch version of K3 (the JAX `cross_attend_q8_reference`):
+    qi [B,H,T,Dh] i8, q_scale [B,H,T,1] f32, k/v [B,H,S,Dh] i8,
+    v_scale [B,H,1,Dh] f32 → [B,H,T,Dh] f32."""
+    scores_i = _int_dot(qi, k_q8.transpose(-1, -2))
+    probs = torch.softmax(scores_i.float() * q_scale, dim=-1)
+    p_scale = torch.clamp_min(probs.amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    pi = torch.clamp(torch.round(probs / p_scale), 0, 127)
+    out_i = _int_dot(pi, v_q8)
+    return out_i.float() * p_scale * v_scale
+
+
+def cross_attend_q8(qi, q_scale, k_q8, v_q8, v_scale) -> torch.Tensor:
+    """int8 cross-attention, shapes as in `cross_attend_q8_reference`.
+    CUDA: csrc/attention_decode.cu; CPU: the plain version."""
+    if not qi.is_cuda:
+        return cross_attend_q8_reference(qi, q_scale, k_q8, v_q8, v_scale)
+    _build.check_cuda("qi", qi, torch.int8, 4)
+    _build.check_cuda("q_scale", q_scale, torch.float32, 4)
+    _build.check_cuda("k", k_q8, torch.int8, 4)
+    _build.check_cuda("v", v_q8, torch.int8, 4)
+    _build.check_cuda("v_scale", v_scale, torch.float32, 4)
+    b, h, t, dh = qi.shape
+    s = k_q8.shape[2]
+    if dh != 64:
+        raise ValueError(f"cross_attend_q8 takes head dim 64, got {dh}")
+    expected = {
+        "q_scale": (q_scale, (b, h, t, 1)),
+        "k": (k_q8, (b, h, s, dh)),
+        "v": (v_q8, (b, h, s, dh)),
+        "v_scale": (v_scale, (b, h, 1, dh)),
+    }
+    for name, (x, shape) in expected.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
+    for name, x in (("k", k_q8), ("v", v_q8)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+    out = torch.empty((b, h, t, dh), dtype=torch.float32, device=qi.device)
+    with torch.cuda.device(qi.device):
+        _build.launch(
+            "cross_attend_q8", "wk_cross_attend_q8",
+            _build.ptr(qi), _build.ptr(q_scale), _build.ptr(k_q8), _build.ptr(v_q8),
+            _build.ptr(v_scale), _build.ptr(out), b * h, t, s,
+        )
+    return out
+
+
+def self_attend_reference(q, k, v, mask_row) -> torch.Tensor:
+    """Plain torch version of K4: q [B,H,1,Dh] f32 with dh^-0.5 folded in,
+    k/v [B,H,S,Dh], mask_row [1,S] f32 additive → [B,H,1,Dh] f32."""
+    scores = q.float() @ k.float().transpose(-1, -2)
+    probs = torch.softmax(scores + mask_row, dim=-1)
+    return probs @ v.float()
+
+
+def self_attend(q, k, v, mask_row) -> torch.Tensor:
+    """T==1 self-attention over the raw cache, shapes as in
+    `self_attend_reference`. CUDA: csrc/attention_decode.cu; CPU: the
+    plain version."""
+    if not q.is_cuda:
+        return self_attend_reference(q, k, v, mask_row)
+    _build.check_cuda("q", q, torch.float32, 4)
+    _build.check_cuda("k", k, k.dtype, 4)
+    _build.check_cuda("v", v, k.dtype, 4)
+    _build.check_cuda("mask_row", mask_row, torch.float32, 2)
+    if k.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"self_attend takes a bfloat16 or float32 cache, got {k.dtype}")
+    b, h, s, dh = k.shape
+    if dh != 64:
+        raise ValueError(f"self_attend takes head dim 64, got {dh}")
+    if tuple(q.shape) != (b, h, 1, dh) or tuple(v.shape) != (b, h, s, dh):
+        raise ValueError(
+            f"self_attend: q {tuple(q.shape)} / v {tuple(v.shape)} do not match k {tuple(k.shape)}"
+        )
+    if tuple(mask_row.shape) != (1, s):
+        raise ValueError(f"mask_row: expected shape (1, {s}), got {tuple(mask_row.shape)}")
+    for name, x in (("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+    out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _build.launch(
+            "self_attend", "wk_self_attend",
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_row),
+            _build.ptr(out), b * h, s, int(k.dtype == torch.bfloat16),
+        )
+    return out

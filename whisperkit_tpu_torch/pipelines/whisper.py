@@ -1,0 +1,780 @@
+"""WhisperPipeline — the transcription façade (port of
+whisperkit_tpu/pipelines/whisper.py).
+
+Reference: Sources/WhisperKit/Core/WhisperKit.swift and
+TranscribeTask.swift. VAD chunks are stacked into a real batch dimension
+and decoded together, in length-sorted groups of `concurrent_worker_count`
+windows with a power-of-two bucket for the last, partial group; audio of at
+most one window takes the seek path.
+
+This slice covers greedy and top-k decoding with the temperature-fallback
+ladder, timestamp rules, language detection, bf16/f32 weights and the int8
+cross-KV serving mode (`ComputeOptions.serving()`). Options outside it
+raise NotImplementedError and name the later work that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from pathlib import Path
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from whisperkit_tpu.audio.chunker import VADAudioChunker
+from whisperkit_tpu.audio.io import SAMPLE_RATE, load_audio, pad_or_trim
+from whisperkit_tpu.core.configurations import (
+    ChunkingStrategy,
+    DecodingOptions,
+    DecodingTask,
+    WhisperConfig,
+)
+from whisperkit_tpu.core.errors import ModelsUnavailable
+from whisperkit_tpu.core.modelstate import ModelState
+from whisperkit_tpu.core.results import (
+    DecodingFallback,
+    TranscriptionProgress,
+    TranscriptionResult,
+    TranscriptionSegment,
+)
+from whisperkit_tpu.core.timings import TranscriptionTimings
+from whisperkit_tpu.text.languages import LANGUAGES
+from whisperkit_tpu.text.segment_seeker import (
+    FRAMES_PER_SECOND,
+    WINDOW_FRAMES,
+    find_seek_point_and_segments,
+)
+from whisperkit_tpu.text.tokenizer import FakeTokenizer
+from whisperkit_tpu.text.utils import compression_ratio_text
+from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
+from whisperkit_tpu_torch.decoding.filters import non_speech_token_ids, suppress_tokens_bias
+from whisperkit_tpu_torch.decoding.loop import (
+    DecodeScalars,
+    decode_loop,
+    detect_language_logits,
+    encode_window,
+    prefill_window,
+)
+from whisperkit_tpu_torch.models.whisper import WhisperDims, _map
+from whisperkit_tpu_torch.ops.mel import log_mel_spectrogram
+
+WINDOW_SAMPLES = 480_000  # Constants.windowSamples (Models.swift:1457)
+MAX_TOKEN_CONTEXT = 224  # Constants.maxTokenContext (Models.swift:1334)
+MEL_BATCH = 32  # windows per mel launch
+
+
+@dataclasses.dataclass
+class _WindowDecode:
+    """Per-window decode outcome after the fallback ladder."""
+
+    tokens: list[int]
+    logprobs: list[float]
+    avg_logprob: float
+    compression_ratio: float
+    no_speech_prob: float
+    temperature: float
+    language: str
+    sample_begin: int = 0
+
+
+def _not_in_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to whisperkit_tpu_torch yet (a later PR of the "
+        "port brings it; see ROADMAP.md); use whisperkit_tpu meanwhile"
+    )
+
+
+class WhisperPipeline:
+    """Reference: `WhisperKit` class (WhisperKit.swift)."""
+
+    def __init__(
+        self,
+        config: Optional[WhisperConfig] = None,
+        *,
+        dims: Optional[WhisperDims] = None,
+        params=None,
+        tokenizer=None,
+        alignment_heads: Optional[np.ndarray] = None,
+        draft_dims: Optional[WhisperDims] = None,
+        draft_params=None,
+        device: DeviceLike,
+        **kwargs,
+    ):
+        self.device = resolve_device(device)
+        self.config = config or WhisperConfig(**kwargs)
+        self._check_compute_options()
+        if draft_dims is not None or draft_params is not None:
+            raise _not_in_slice("speculative decoding with a draft model")
+        self.model_state = ModelState.UNLOADED
+        self.dims = dims
+        self.tokenizer = tokenizer
+        self.alignment_heads = alignment_heads  # read by word timestamps, later
+        self.timings = TranscriptionTimings()
+        self._suppress_cache: dict[tuple, torch.Tensor] = {}
+        self._detected_language: Optional[str] = None
+        self.params = None
+        if params is not None and dims is not None:
+            self.params = _map(lambda t: t.to(self.device), params)
+            if self.tokenizer is None:
+                self.tokenizer = FakeTokenizer(dims.n_vocab)
+            self.model_state = ModelState.LOADED
+        elif self.config.load:
+            raise _not_in_slice("loading a checkpoint (models/loader.load_whisper)")
+
+    def _check_compute_options(self) -> None:
+        co = self.config.compute_options
+        if co.quantization:
+            raise _not_in_slice(f"weight quantization {co.quantization!r} (ops/quant.py)")
+        if co.quantize_self_kv:
+            raise _not_in_slice("the int8 self-KV cache (quantize_self_kv)")
+        if co.segmented_decode:
+            raise _not_in_slice("segmented decode with batch compaction")
+        if (co.dp_size or 1) * co.tp_size * co.dcn_size > 1:
+            raise _not_in_slice("running on more than one device")
+
+    @property
+    def early_stop_flag(self):
+        """Mid-window cancellation flag; only None is supported so far."""
+        return None
+
+    @early_stop_flag.setter
+    def early_stop_flag(self, flag) -> None:
+        if flag is not None:
+            raise _not_in_slice("mid-window cancellation (early_stop_flag)")
+
+    def unload_models(self) -> None:
+        self.params = None
+        self.model_state = ModelState.UNLOADED
+
+    @property
+    def is_multilingual(self) -> bool:
+        return self.dims.n_vocab != 51864 if self.dims else True
+
+    # -- helpers ------------------------------------------------------------
+
+    def _suppress_bias(self, options: DecodingOptions) -> torch.Tensor:
+        sp = self.tokenizer.special
+        ids = list(options.suppress_tokens or ())
+        if -1 in ids:
+            ids = [t for t in ids if t != -1] + non_speech_token_ids(sp, self.tokenizer)
+        key = tuple(sorted(set(ids)))
+        if key not in self._suppress_cache:
+            self._suppress_cache[key] = torch.from_numpy(
+                suppress_tokens_bias(sp.n_vocab, key)
+            ).to(self.device)
+        return self._suppress_cache[key]
+
+    def _build_prompt(self, options: DecodingOptions, language: str) -> tuple[list[int], int]:
+        """Prefill prompt tokens (reference: TextDecoder.swift:163-216).
+        Returns (tokens, sot_index)."""
+        sp = self.tokenizer.special
+        prompt: list[int] = []
+        if options.prompt_tokens:
+            keep = MAX_TOKEN_CONTEXT // 2 - 1
+            prompt = [sp.startofprev] + list(options.prompt_tokens)[-keep:]
+        sot_index = len(prompt)
+        prompt.append(sp.sot)
+        if self.is_multilingual and options.use_prefill_prompt:
+            prompt.append(sp.language_token(language))
+            prompt.append(
+                sp.translate if options.task == DecodingTask.TRANSLATE else sp.transcribe
+            )
+        if options.without_timestamps:
+            prompt.append(sp.notimestamps)
+        if options.prefix_tokens:
+            keep = MAX_TOKEN_CONTEXT // 2 - 1
+            prompt.extend(list(options.prefix_tokens)[-keep:])
+        return prompt, sot_index
+
+    def _decode_scalars(self, options: DecodingOptions, temperature: float, seed_step: int) -> DecodeScalars:
+        max_initial = (
+            int(round(options.max_initial_timestamp / 0.02))
+            if options.max_initial_timestamp is not None
+            else 1500
+        )
+        ft = (
+            options.first_token_log_prob_threshold
+            if options.first_token_log_prob_threshold is not None and temperature == 0.0
+            else float("-inf")
+        )
+        generator = None
+        if temperature > 0.0:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(options.seed + seed_step)
+        return DecodeScalars(temperature, max_initial, ft, generator)
+
+    def _sync(self) -> None:
+        """With ComputeOptions.sync_timings, wait for the device so the
+        surrounding stage stamp measures execution, not enqueue."""
+        if self.config.compute_options.sync_timings and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _mel(self, window: np.ndarray) -> torch.Tensor:
+        """[n_mels, 3000] for one ≤30 s window."""
+        audio = torch.from_numpy(np.ascontiguousarray(window, np.float32)).to(self.device)
+        return log_mel_spectrogram(audio, n_mels=self.dims.n_mels)
+
+    def _mel_batch(self, windows: list) -> torch.Tensor:
+        """One [N, n_mels, 3000] tensor for N ≤30 s windows, computed in
+        launches of ≤ MEL_BATCH windows."""
+        parts = []
+        for start in range(0, len(windows), MEL_BATCH):
+            stacked = np.stack(
+                [pad_or_trim(np.asarray(w, np.float32)) for w in windows[start : start + MEL_BATCH]]
+            )
+            audio = torch.from_numpy(stacked).to(self.device)
+            parts.append(log_mel_spectrogram(audio, n_mels=self.dims.n_mels))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+    def _encode(self, mel_batch: torch.Tensor, options: DecodingOptions):
+        """encode_window with the serving-mode int8 cross-KV fused in."""
+        return encode_window(
+            self.params, mel_batch, self.dims,
+            quantize_kv=self.config.compute_options.quantize_cross_kv,
+        )
+
+    # -- language detection -------------------------------------------------
+
+    def detect_language(self, audio: Union[str, Path, np.ndarray]) -> tuple[str, dict[str, float]]:
+        """Reference: WhisperKit.swift:534-581 `detectLangauge` [sic]."""
+        if isinstance(audio, (str, Path)):
+            audio = load_audio(audio)
+        mel = self._mel(pad_or_trim(np.asarray(audio, np.float32)))[None]
+        _, ck, cv = encode_window(self.params, mel, self.dims)
+        probs = detect_language_logits(
+            self.params, ck, cv, dims=self.dims, special=self.tokenizer.special
+        ).cpu().numpy()[0]
+        order = np.argsort(probs)[::-1]
+        lang_probs = {LANGUAGES[i][0]: float(probs[i]) for i in order[:10]}
+        return LANGUAGES[int(order[0])][0], lang_probs
+
+    def _language_probs(self, ck, cv, n_rows=None) -> np.ndarray:
+        probs = detect_language_logits(
+            self.params, ck, cv, dims=self.dims, special=self.tokenizer.special
+        )
+        return probs.cpu().numpy()[: (n_rows or None)]
+
+    def _detect_language_from_encoded(self, ck, cv, n_rows=None) -> str:
+        """One masked decode step over all rows; languages ranked by mean
+        probability over the first `n_rows` real rows."""
+        probs = self._language_probs(ck, cv, n_rows).mean(axis=0)
+        return LANGUAGES[int(np.argmax(probs))][0]
+
+    def _detect_languages_per_row(self, ck, cv, n_rows=None) -> list[str]:
+        """Per-row language detection over an encoded batch (argmax per row)."""
+        probs = self._language_probs(ck, cv, n_rows)
+        return [LANGUAGES[int(i)][0] for i in np.argmax(probs, axis=-1)]
+
+    def _group_languages(
+        self, options: DecodingOptions, ck, cv, n_real: int, *,
+        pad_to: Optional[int] = None, per_row: bool = False,
+    ) -> list[str]:
+        """The language-resolution ladder for a batch of encoded windows:
+        explicit language → non-multilingual "en" → per-row argmax → once-
+        per-file cached detection. Pad rows repeat the first language."""
+        if options.language:
+            langs = [options.language] * n_real
+        elif not self.is_multilingual:
+            langs = ["en"] * n_real
+        elif per_row:
+            langs = list(self._detect_languages_per_row(ck, cv, n_real))
+        else:
+            langs = [self._resolve_language(options, ck, cv, n_real)] * n_real
+        if pad_to is not None and pad_to > n_real:
+            langs = langs + [langs[0]] * (pad_to - n_real)
+        return langs
+
+    def _resolve_language(self, options: DecodingOptions, ck, cv, n_rows=None) -> str:
+        """`detect_language=True` re-detects for every window/group; an unset
+        language is detected once per call and cached."""
+        if options.language:
+            return options.language
+        if not self.is_multilingual:
+            return "en"
+        if options.detect_language:
+            return self._detect_language_from_encoded(ck, cv, n_rows)
+        if self._detected_language is None:
+            self._detected_language = self._detect_language_from_encoded(ck, cv, n_rows)
+        return self._detected_language
+
+    @staticmethod
+    def _majority_language(window_langs: list, options: DecodingOptions) -> str:
+        """Majority language across a file's decoded windows (ties break to
+        the earlier-seen language)."""
+        if not window_langs:
+            return options.language or "en"
+        counts: dict[str, int] = {}
+        for lg in window_langs:
+            counts[lg] = counts.get(lg, 0) + 1
+        return max(counts, key=counts.get)
+
+    # -- decode with fallback -----------------------------------------------
+
+    def _decode_with_fallback(
+        self, cross_k, cross_v, options: DecodingOptions, language, window_index: int
+    ) -> list[_WindowDecode]:
+        """Temperature ladder over a batch of encoded windows (reference:
+        TranscribeTask.swift:316-411). Failed rows are re-decoded at the
+        next temperature; accepted rows keep their first passing result.
+        `language` is one code, or one per row."""
+        sp = self.tokenizer.special
+        b = (cross_k["q8"] if isinstance(cross_k, dict) else cross_k).shape[1]
+        langs = [language] * b if isinstance(language, str) else list(language)
+        if len(langs) != b:
+            raise ValueError(f"per-row languages: got {len(langs)} for batch of {b}")
+        prompts = [self._build_prompt(options, lg) for lg in langs]
+        prompt, sot_index = prompts[0]
+        prompt_arr = torch.tensor([p for p, _ in prompts], dtype=torch.long, device=self.device)
+        suppress = self._suppress_bias(options)
+        max_new = min(options.sample_length, MAX_TOKEN_CONTEXT - len(prompt))
+
+        prefill = None  # one prompt pass, reused by every rung of the ladder
+
+        def get_prefill():
+            nonlocal prefill
+            if prefill is None:
+                t_pre = time.perf_counter()
+                prefill = prefill_window(
+                    self.params, cross_k, cross_v, prompt_arr,
+                    dims=self.dims, special=sp, sample_begin=len(prompt),
+                    max_new_tokens=max_new, sot_index=sot_index,
+                )
+                self._sync()
+                self.timings.prefill += time.perf_counter() - t_pre
+            else:
+                self.timings.prefill_cache_hits += 1
+            return prefill
+
+        results: list[Optional[_WindowDecode]] = [None] * b
+        for rung, temperature in enumerate(options.temperatures):
+            t0 = time.perf_counter()
+            scalars = self._decode_scalars(options, temperature, window_index * 101 + rung)
+            out = decode_loop(
+                self.params, cross_k, cross_v, prompt_arr, suppress, scalars,
+                dims=self.dims, special=sp, sample_begin=len(prompt),
+                max_new_tokens=max_new, top_k=options.top_k, sot_index=sot_index,
+                use_timestamp_rules=not options.without_timestamps,
+                suppress_blank=options.suppress_blank, prefill=get_prefill(),
+            )
+            tokens_np = out.tokens.cpu().numpy()
+            lps_np = out.token_logprobs.cpu().numpy()
+            nsp_np = out.no_speech_prob.float().cpu().numpy()
+            self.timings.decoding_loop += time.perf_counter() - t0
+            if rung > 0:
+                self.timings.decoding_fallback += time.perf_counter() - t0
+                self.timings.total_decoding_fallbacks += b
+
+            any_pending = False
+            for i in range(b):
+                if results[i] is not None:
+                    continue
+                row = tokens_np[i, len(prompt):]
+                eots = np.nonzero(row == sp.eot)[0]
+                n = int(eots[0]) if len(eots) else len(row)
+                sampled = row[:n].tolist()
+                lps = lps_np[i, len(prompt) : len(prompt) + n].tolist()
+                eot_lp = float(lps_np[i, len(prompt) + n]) if n < len(row) else 0.0
+                self.timings.total_decoding_loops += n + (1 if n < len(row) else 0)
+                avg_lp = (sum(lps) + eot_lp) / (n + 1) if n else eot_lp
+                text = self.tokenizer.decode(sampled)
+                cr = compression_ratio_text(text)
+                first_lp = lps[0] if lps else None
+                fallback = DecodingFallback.evaluate(
+                    logprob_threshold=options.logprob_threshold,
+                    first_token_logprob_threshold=options.first_token_log_prob_threshold,
+                    no_speech_threshold=options.no_speech_threshold,
+                    compression_ratio_threshold=options.compression_ratio_threshold,
+                    compression_ratio=cr,
+                    avg_logprob=avg_lp,
+                    first_token_logprob=first_lp,
+                    no_speech_prob=float(nsp_np[i]),
+                )
+                is_last_rung = rung == len(options.temperatures) - 1
+                if fallback is None or not fallback.need_fallback or is_last_rung:
+                    results[i] = _WindowDecode(
+                        tokens=sampled, logprobs=lps, avg_logprob=avg_lp,
+                        compression_ratio=cr, no_speech_prob=float(nsp_np[i]),
+                        temperature=temperature, language=langs[i],
+                        sample_begin=len(prompt),
+                    )
+                else:
+                    any_pending = True
+            if not any_pending:
+                break
+        return results  # type: ignore[return-value]
+
+    # -- transcribe ---------------------------------------------------------
+
+    def _check_options(self, options: DecodingOptions) -> None:
+        if options.beam_size > 1:
+            raise _not_in_slice("beam search (decoding/beam.py)")
+        if options.word_timestamps:
+            raise _not_in_slice("word timestamps (text/word_timestamps.py)")
+
+    def transcribe(
+        self,
+        audio: Union[str, Path, np.ndarray, Sequence],
+        decode_options: Optional[DecodingOptions] = None,
+        callback: Optional[Callable[[TranscriptionProgress], Optional[bool]]] = None,
+    ) -> Union[TranscriptionResult, list]:
+        """Transcribe a path, an array, or a list of either (a list returns
+        a list of per-item results, exceptions preserved per item)."""
+        options = decode_options or DecodingOptions()
+        self._check_options(options)
+        if isinstance(audio, (list, tuple)):
+            return self._transcribe_batch(list(audio), options, callback)
+        t0 = time.perf_counter()
+        timings = TranscriptionTimings(pipeline_start=t0)
+        self.timings = timings
+        self._detected_language = None  # per call; never reused across files
+        if isinstance(audio, (str, Path)):
+            audio = load_audio(audio)
+            timings.audio_loading = time.perf_counter() - t0
+        audio = np.asarray(audio, np.float32)
+        timings.input_audio_seconds = max(len(audio) / SAMPLE_RATE, 1e-3)
+
+        if self.params is None:
+            raise ModelsUnavailable("models not loaded")
+
+        use_vad = (
+            options.chunking_strategy == ChunkingStrategy.VAD
+            and len(audio) > WINDOW_SAMPLES
+        )
+        if use_vad:
+            result = self._transcribe_vad_chunked(audio, options, callback)
+        else:
+            result = self._transcribe_array(audio, options, callback)
+        timings.full_pipeline = time.perf_counter() - t0
+        result.timings = timings
+        return result
+
+    def _transcribe_batch(self, items: list, options: DecodingOptions, callback=None) -> list:
+        """Short items (≤ one window) are stacked into one batched decode;
+        longer ones run through their own paths. Per-item failures are
+        preserved in order."""
+        loaded: list = [None] * len(items)
+        results: list = [None] * len(items)
+        for i, item in enumerate(items):
+            try:
+                loaded[i] = (
+                    load_audio(item) if isinstance(item, (str, Path))
+                    else np.asarray(item, np.float32)
+                )
+            except Exception as e:  # per-item failure, returned in its slot
+                results[i] = e
+        short_idx = [
+            i for i, a in enumerate(loaded)
+            if results[i] is None and len(a) <= WINDOW_SAMPLES
+        ]
+        group = max(1, options.concurrent_worker_count)
+        for start in range(0, len(short_idx), group):
+            batch_ids = short_idx[start : start + group]
+            try:
+                batch_results = self._transcribe_short_batch(
+                    [loaded[i] for i in batch_ids], options
+                )
+                for i, r in zip(batch_ids, batch_results):
+                    results[i] = r
+            except Exception as e:  # the batch's failure, returned per item
+                for i in batch_ids:
+                    results[i] = e
+        for i, a in enumerate(loaded):
+            if results[i] is None:
+                try:
+                    results[i] = self.transcribe(a, options, callback)
+                except Exception as e:  # per-item failure, returned in its slot
+                    results[i] = e
+        return results
+
+    def _transcribe_short_batch(self, audios: list, options: DecodingOptions) -> list:
+        """Decode N ≤30 s clips as one batch, language resolved per row."""
+        t0 = time.perf_counter()
+        mel_batch = self._mel_batch(audios)
+        _, ck, cv = self._encode(mel_batch, options)
+        self._detected_language = None
+        langs = self._group_languages(options, ck, cv, len(audios), per_row=True)
+        decodes = self._decode_with_fallback(ck, cv, options, langs, 0)
+        sp = self.tokenizer.special
+        out = []
+        for a, wd in zip(audios, decodes):
+            window_frames = min(WINDOW_FRAMES, math.ceil(len(a) / 160))
+            if self._should_skip_silent(wd, options):
+                segments = []
+            else:
+                segments = find_seek_point_and_segments(
+                    tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
+                    time_offset=0.0, window_frames=window_frames, seek=0,
+                    decode_fn=self.tokenizer.decode, temperature=wd.temperature,
+                    avg_logprob=wd.avg_logprob, compression_ratio=wd.compression_ratio,
+                    no_speech_prob=wd.no_speech_prob,
+                ).segments
+                for s in segments:
+                    s.language = wd.language
+            result = TranscriptionResult(
+                text="".join(s.text for s in segments).strip(),
+                segments=segments, language=wd.language,
+            )
+            result.timings.input_audio_seconds = len(a) / SAMPLE_RATE
+            result.timings.full_pipeline = time.perf_counter() - t0
+            out.append(result)
+        return out
+
+    def _vad_chunks(self, audio: np.ndarray, options: DecodingOptions) -> list:
+        """VAD chunks of each clip region, with absolute sample offsets."""
+        chunker = VADAudioChunker()
+        chunks = []
+        for clip_start_f, clip_end_f in self._prepare_seek_clips(options, len(audio) // 160):
+            region = audio[clip_start_f * 160 : clip_end_f * 160]
+            for c in chunker.chunk_all(region, max_chunk_length=WINDOW_SAMPLES):
+                c.seek_offset_index += clip_start_f * 160
+                chunks.append(c)
+        return chunks
+
+    def _transcribe_vad_chunked(
+        self, audio: np.ndarray, options: DecodingOptions, callback=None
+    ) -> TranscriptionResult:
+        """VAD-chunk + batched decode in groups of `concurrent_worker_count`
+        windows (reference: WhisperKit.swift:867-931)."""
+        t_chunk = time.perf_counter()
+        chunks = self._vad_chunks(audio, options)
+        self.timings.audio_processing += time.perf_counter() - t_chunk
+        self.timings.total_audio_processing_runs += 1
+
+        t_mel = time.perf_counter()
+        windows = [
+            audio[c.seek_offset_index : c.seek_offset_index + min(len(c.audio_samples), WINDOW_SAMPLES)]
+            for c in chunks
+        ]
+        mels = self._mel_batch(windows) if windows else None
+        self._sync()
+        self.timings.log_mels += time.perf_counter() - t_mel
+        self.timings.total_log_mel_runs += len(windows)
+        metas = [
+            (c.seek_offset_index, min(WINDOW_FRAMES, math.ceil(len(c.audio_samples) / 160)))
+            for c in chunks
+        ]
+
+        group = max(1, options.concurrent_worker_count)
+        # clamp to the chunk-count bucket: a group decodes until its slowest
+        # row, so pad rows beyond the power-of-two bucket cost a full decode
+        if chunks:
+            group = min(group, 1 << max(0, math.ceil(math.log2(len(chunks)))))
+        pad_mel = None
+
+        # length-sorted groups: similar-length chunks finish together
+        order = sorted(range(len(chunks)), key=lambda i: len(chunks[i].audio_samples))
+        decodes: list[Optional[_WindowDecode]] = [None] * len(chunks)
+        decoded_count = 0
+        cancelled = False
+        for start in range(0, len(order), group):
+            batch_ids = order[start : start + group]
+            n_real = len(batch_ids)
+            # the final partial group decodes at the power-of-two bucket
+            # covering its real rows, not at the full group width
+            gsize = group
+            if n_real < group:
+                gsize = min(1 << max(0, math.ceil(math.log2(n_real))), group)
+            mel_batch = mels[torch.tensor(batch_ids, device=self.device)]
+            if n_real < gsize:
+                if pad_mel is None:
+                    pad_mel = self._mel(np.zeros(WINDOW_SAMPLES, np.float32))
+                pad = pad_mel[None].expand(gsize - n_real, *pad_mel.shape)
+                mel_batch = torch.cat([mel_batch, pad], 0)
+            for i in batch_ids:
+                self.window_preprocess(chunks[i].audio_samples, metas[i][0] // 160, metas[i][1])
+            t_enc = time.perf_counter()
+            _, ck, cv = self._encode(mel_batch, options)
+            self._sync()
+            self.timings.encoding += time.perf_counter() - t_enc
+            self.timings.total_encoding_runs += n_real
+            group_langs = self._group_languages(
+                options, ck, cv, n_real, pad_to=gsize, per_row=options.detect_language
+            )
+            batch_decodes = self._decode_with_fallback(ck, cv, options, group_langs, start)[:n_real]
+            del ck, cv
+            if self.timings.first_token_time == 0.0:
+                self.timings.first_token_time = time.perf_counter()
+            for i, wd in zip(batch_ids, batch_decodes):
+                decodes[i] = wd
+            if callback is not None:
+                for i, wd in zip(batch_ids, batch_decodes):
+                    decoded_count += 1
+                    progress = TranscriptionProgress(
+                        timings=self.timings,
+                        text=self.tokenizer.decode(wd.tokens),
+                        tokens=wd.tokens,
+                        temperature=wd.temperature,
+                        avg_logprob=wd.avg_logprob,
+                        compression_ratio=wd.compression_ratio,
+                        window_id=i,
+                        windows_decoded=decoded_count,
+                    )
+                    if callback(progress) is False:
+                        cancelled = True
+                        break
+                if cancelled:
+                    break
+        self.timings.total_decoding_windows += sum(1 for wd in decodes if wd is not None)
+
+        all_segments: list[TranscriptionSegment] = []
+        sp = self.tokenizer.special
+        t_windowing = time.perf_counter()
+        for (start_sample, window_frames), wd in zip(metas, decodes):
+            if wd is None or self._should_skip_silent(wd, options):
+                continue
+            segs = find_seek_point_and_segments(
+                tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
+                time_offset=start_sample / SAMPLE_RATE, window_frames=window_frames,
+                seek=start_sample // 160, decode_fn=self.tokenizer.decode,
+                temperature=wd.temperature, avg_logprob=wd.avg_logprob,
+                compression_ratio=wd.compression_ratio, no_speech_prob=wd.no_speech_prob,
+                segment_id_start=len(all_segments),
+            ).segments
+            for s in segs:
+                s.language = wd.language
+            all_segments.extend(self.window_post_process(start_sample // 160, window_frames, segs))
+        self.timings.decoding_windowing += time.perf_counter() - t_windowing
+        language = self._majority_language(
+            [wd.language for wd in decodes if wd is not None], options
+        )
+        return TranscriptionResult(
+            text="".join(s.text for s in all_segments).strip(),
+            segments=all_segments, language=language,
+        )
+
+    def _should_skip_silent(self, wd: _WindowDecode, options: DecodingOptions) -> bool:
+        """openai-style no-speech window skip."""
+        if options.no_speech_threshold is None:
+            return False
+        if wd.no_speech_prob <= options.no_speech_threshold:
+            return False
+        if options.logprob_threshold is not None and wd.avg_logprob >= options.logprob_threshold:
+            return False
+        return True
+
+    def _transcribe_array(
+        self, audio: np.ndarray, options: DecodingOptions, callback=None
+    ) -> TranscriptionResult:
+        """Sequential seek-window loop (reference: TranscribeTask.swift:57-296).
+
+        Audio longer than one window follows openai/whisper `transcribe()`:
+        the log-mel is computed once over the whole audio (zero-padded to a
+        30 s boundary plus one window) with the clamp global over the file,
+        and each seek window is a slice of it."""
+        sp = self.tokenizer.special
+        content_frames = len(audio) // 160
+        seek_clips = self._prepare_seek_clips(options, content_frames)
+
+        full_mel = None
+        if content_frames > WINDOW_FRAMES:
+            total_frames = (content_frames // WINDOW_FRAMES + 2) * WINDOW_FRAMES
+            padded = np.zeros(total_frames * 160, np.float32)
+            padded[: len(audio)] = audio
+            t_mel = time.perf_counter()
+            full_mel = log_mel_spectrogram(
+                torch.from_numpy(padded).to(self.device), n_mels=self.dims.n_mels,
+                n_frames=total_frames,
+            )
+            self.timings.log_mels += time.perf_counter() - t_mel
+            self.timings.total_log_mel_runs += 1
+
+        all_segments: list[TranscriptionSegment] = []
+        window_langs: list[str] = []
+        window_index = 0
+        for clip_start, clip_end in seek_clips:
+            seek = clip_start
+            window_padding = max(1, int(options.window_clip_time * FRAMES_PER_SECOND))
+            while seek < min(clip_end, content_frames):
+                remaining = content_frames - seek
+                if seek > clip_start and remaining < window_padding:
+                    break  # trailing sliver, reference windowClipTime padding
+                window_frames = min(WINDOW_FRAMES, min(remaining, clip_end - seek))
+                window = audio[seek * 160 : seek * 160 + WINDOW_SAMPLES]
+                self.window_preprocess(window, seek, window_frames)
+                if full_mel is not None:
+                    mel = full_mel[:, seek : seek + WINDOW_FRAMES][None]
+                else:
+                    t_mel = time.perf_counter()
+                    mel = self._mel(pad_or_trim(window))[None]
+                    self.timings.log_mels += time.perf_counter() - t_mel
+                    self.timings.total_log_mel_runs += 1
+                t_enc = time.perf_counter()
+                _, ck, cv = self._encode(mel, options)
+                self.timings.encoding += time.perf_counter() - t_enc
+                self.timings.total_encoding_runs += 1
+
+                language = self._resolve_language(options, ck, cv)
+                wd = self._decode_with_fallback(ck, cv, options, language, window_index)[0]
+                window_langs.append(wd.language)
+                self.timings.total_decoding_windows += 1
+                if self.timings.first_token_time == 0.0:
+                    self.timings.first_token_time = time.perf_counter()
+
+                if self._should_skip_silent(wd, options):
+                    seek += window_frames
+                    window_index += 1
+                    continue
+
+                res = find_seek_point_and_segments(
+                    tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
+                    time_offset=seek / FRAMES_PER_SECOND, window_frames=window_frames,
+                    seek=seek, decode_fn=self.tokenizer.decode,
+                    temperature=wd.temperature, avg_logprob=wd.avg_logprob,
+                    compression_ratio=wd.compression_ratio,
+                    no_speech_prob=wd.no_speech_prob,
+                    segment_id_start=len(all_segments),
+                )
+                segs = res.segments
+                for s in segs:
+                    s.language = wd.language
+                all_segments.extend(self.window_post_process(seek, window_frames, segs))
+
+                advance = res.seek_advance_frames
+                if options.max_window_seek is not None:
+                    advance = min(advance, int(options.max_window_seek * FRAMES_PER_SECOND))
+                seek += max(advance, 1)
+                window_index += 1
+
+                if callback is not None:
+                    progress = TranscriptionProgress(
+                        timings=self.timings,
+                        text=self.tokenizer.decode(wd.tokens),
+                        tokens=wd.tokens,
+                        temperature=wd.temperature,
+                        avg_logprob=wd.avg_logprob,
+                        compression_ratio=wd.compression_ratio,
+                        window_id=window_index,
+                    )
+                    if callback(progress) is False:
+                        seek = clip_end  # early stop (EarlyStopActor semantics)
+                        break
+
+        return TranscriptionResult(
+            text="".join(s.text for s in all_segments).strip(),
+            segments=all_segments,
+            language=self._majority_language(window_langs, options),
+        )
+
+    # -- subclass hooks ------------------------------------------------------
+
+    def window_preprocess(self, window_audio: np.ndarray, seek: int, segment_size: int) -> None:
+        """Hook invoked before each window is decoded (reference:
+        TranscribeTask.swift:42-47 `windowPreprocess`)."""
+
+    def window_post_process(self, seek: int, segment_size: int, segments: list) -> list:
+        """Hook invoked after a window's segments are built; may replace
+        them (reference: TranscribeTask.swift:49-55 `windowPostProcess`)."""
+        return segments
+
+    def _prepare_seek_clips(self, options: DecodingOptions, content_frames: int) -> list[tuple[int, int]]:
+        """clip_timestamps (seconds) → [start_frame, end_frame) pairs."""
+        ts = list(options.clip_timestamps or ())
+        if not ts:
+            return [(0, content_frames)]
+        frames = [int(t * FRAMES_PER_SECOND) for t in ts]
+        if len(frames) % 2 == 1:
+            frames.append(content_frames)
+        return [(frames[i], frames[i + 1]) for i in range(0, len(frames), 2)]
