@@ -6,18 +6,27 @@
 Phases, one line each; any failure exits non-zero:
 
   1. the card: name, count, and `nvidia-smi` name + power limit
-  2. build the hand-written kernels (csrc/*.cu) with nvcc for sm_90a
-  3. each kernel against its plain torch version at the main path's
+  2. build the hand-written kernels (csrc/*.cu) with nvcc for sm_90a, one
+     nvcc per source, all started together
+  3. each kernel against its plain torch version at the main paths'
      shapes: max abs error, tolerance, CUDA-event times
-  4. the main path: WhisperPipeline.transcribe on large-v3 (random bf16
+  4. the bf16 path: WhisperPipeline.transcribe on large-v3 (random bf16
      weights from the port's init_params(seed=0)), ComputeOptions.serving()
      (int8 cross-KV), bench.pipeline_options(32), 10 minutes of synthetic
      speech-like audio; launch counts, wall time, RTF, tokens/s, peak memory
-  5. one decoder step after prefill at large-v3 width, through the kernels
-     and through the plain versions, on the same weights and inputs
+  5. one decoder step after prefill at large-v3 width over the bf16 cache,
+     through the kernels and through the plain versions
+  6. the int8 path: the phase-4 weights quantized to W8A16 on the card,
+     ComputeOptions.serving(quantization="w8a16", quantize_self_kv=True),
+     the same audio and options; the same figures, and the weight bytes
+  7. phase 5 over the int8 self-KV cache with the W8A16 weights
+  8. W4A16 and W8A8: one transcribe each on 60 s of the audio, and the
+     encoder of 4 windows timed with W8A16 and with W8A8 (int8 activations)
 
-The line before last is a JSON object with one entry per kernel; the last
-line is the JSON result {"ok": true, "device": {...}}.
+Each path's kernels must all launch between the counts' reset just before
+it and their reading just after it. The line before last is a JSON object
+with one entry per kernel; the last line is the JSON result
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -82,7 +91,8 @@ def phase_build() -> None:
 
     res = _build.build(force=True)
     _build.library()
-    say(f"phase 2 build: {len(_build._sources())} sources -> {res.path.name} in {res.seconds:.1f} s")
+    say(f"phase 2 build: {len(_build._sources())} sources, one nvcc each, -> {res.path.name} "
+        f"in {res.seconds:.1f} s")
     for line in res.log.splitlines():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             say(f"  {line.strip()}")
@@ -194,27 +204,96 @@ def phase_kernels(torch, card: str) -> dict:
     ms = cuda_ms(torch, lambda i: attention_decode.self_attend(q, *caches[i % 4], mask_row), 50)
     plain = cuda_ms(torch, lambda i: attention_decode.self_attend_reference(q, *caches[i % 4], mask_row), 50)
     record("self_attend", max(errs), 1e-5, ms, plain, f" | bf16 cache B=32 S={s} pos {s // 2} and {s - 1}")
+    del caches
+
+    # K5: self-attention over the int8 cache, B=32 H=20 S=227
+    err, tol, ms, plain, extra = check_self_attend_q8(torch, g, dev)
+    record("self_attend_q8", err, tol, ms, plain, extra)
     return results
 
 
-def phase_main_path(torch, card: str) -> dict:
-    import bench
-    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
-    from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
-    from whisperkit_tpu_torch.ops import _build
-    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+# K5's limit: ±1 flips of the probability requantization (another exp and
+# sum order) are allowed, at most this many per row; one flip moves an
+# output of its row by at most 127 · p_scale (one int8 V code)
+K5_FLIPS = 2
 
-    dims = VARIANT_DIMS["large-v3"]
-    t0 = time.perf_counter()
-    params = init_params(SEED, dims, torch.bfloat16, "cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    pipe = WhisperPipeline(
-        WhisperConfig(compute_options=ComputeOptions.serving(), load=False),
-        dims=dims, params=params, device="cuda",
-    )
-    audio = bench.synth_speechlike_audio(AUDIO_SECONDS)
-    options = bench.pipeline_options(GROUP)
+
+def check_self_attend_q8(torch, g, dev):
+    """K5 against its plain version at B=32 H=20 S=227, with the mask open
+    to positions S/2 and S-1 and the rows after them unwritten (zero codes
+    and scales). Scores span several units (std ~1), so the softmax is
+    peaked and a wrong scale or rounding rule shows; each row's error must
+    stay within K5_FLIPS · 127 · p_scale of that row. Rows built to round
+    at exact ties must give the exact half-to-even output. Four cache sets
+    (codes and per-token scales, 79 MB) rotate for the timing, so launches
+    read device memory. Returns (max abs err, the largest row limit, kernel
+    ms, plain ms, a note)."""
+    from whisperkit_tpu_torch.models.whisper import _q8_row_quantize
+    from whisperkit_tpu_torch.ops import attention_decode
+
+    b, h, s = GROUP, 20, 3 + 224
+
+    def q8_rows(shape):
+        return _q8_row_quantize(torch.randn(shape, generator=g, device=dev) * 0.5)
+
+    caches = []
+    for _ in range(4):
+        (k8, ks), (v8, vs) = q8_rows((b, h, s, 64)), q8_rows((b, h, s, 64))
+        caches.append((k8, ks, v8, vs))
+    # query std 2 / sqrt(64) against keys of std 0.5: scores of std ~1
+    qi, q_scale = _q8_row_quantize(torch.randn((b, h, 1, 64), generator=g, device=dev) * 2 * 64**-0.5)
+    errs, tols, worst = [], [], 0.0
+    for pos in (s // 2, s - 1):
+        mask_row = torch.zeros((1, s), device=dev)
+        mask_row[:, pos + 1 :] = float("-inf")
+        cache = [t.clone() for t in caches[0]]
+        for t in cache:
+            t[:, :, pos + 1 :] = 0
+        k8, ks, v8, vs = cache
+        out = attention_decode.self_attend_q8(qi, q_scale, *cache, mask_row)
+        ref = attention_decode.self_attend_q8_reference(qi, q_scale, *cache, mask_row)
+        _, p_scale = attention_decode.self_attend_q8_probs(qi, q_scale, k8, ks, vs, mask_row)
+        tol_row = K5_FLIPS * 127 * p_scale  # [B,H,1,1]
+        ratio = float(((out - ref).abs() / tol_row).max())
+        if not ratio <= 1.0:
+            fail(f"self_attend_q8 pos {pos}: error {ratio:.2f}× its row limit of {K5_FLIPS} requantization "
+                 f"flips (max abs {max_abs(torch, out, ref):.3e})")
+        errs.append(max_abs(torch, out, ref))
+        tols.append(tol_row)
+        worst = max(worst, ratio)
+    tol_row = torch.cat([t.flatten() for t in tols])
+
+    # round half to even: keys 0 and 1 alike (probabilities 1/2 each), with
+    # v_scale 127 at key 0 and 2j + 1/2 at key 1 (j = row mod 64), so that
+    # p_scale is 1/2 and key 1's code is the tie 2j + 1/2: rintf gives 2j,
+    # roundf 2j + 1. The output is exact, 0.5 · (127 · v[0] + 2j · v[1]).
+    tie_mask = torch.zeros((1, s), device=dev)
+    tie_mask[:, 2:] = float("-inf")
+    k8, ks, v8, vs = [t.clone() for t in caches[0]]
+    for t in (k8, ks, v8, vs):
+        t[:, :, 2:] = 0
+    k8[:, :, 1], ks[:, :, 1] = k8[:, :, 0], ks[:, :, 0]
+    j = (torch.arange(b * h, device=dev) % 64).view(b, h, 1).float()
+    vs[:, :, 0], vs[:, :, 1] = 127.0, 2 * j + 0.5
+    exact = 0.5 * (127 * v8[:, :, :1].float() + 2 * j[..., None] * v8[:, :, 1:2].float())
+    out = attention_decode.self_attend_q8(qi, q_scale, k8, ks, v8, vs, tie_mask)
+    ref = attention_decode.self_attend_q8_reference(qi, q_scale, k8, ks, v8, vs, tie_mask)
+    if not (torch.equal(out, exact) and torch.equal(ref, exact)):
+        fail(f"self_attend_q8 ties: not rounded half to even (kernel max abs {max_abs(torch, out, exact):.3e}, "
+             f"plain {max_abs(torch, ref, exact):.3e} from the exact output)")
+    ms = cuda_ms(torch, lambda i: attention_decode.self_attend_q8(qi, q_scale, *caches[i % 4], mask_row), 50)
+    plain = cuda_ms(torch, lambda i: attention_decode.self_attend_q8_reference(qi, q_scale, *caches[i % 4], mask_row),
+                    50)
+    extra = (f" | int8 cache B=32 S={s} pos {s // 2} and {s - 1}; limit per row {K5_FLIPS} flips × 127 × p_scale, "
+             f"{float(tol_row.min()):.3e} to {float(tol_row.max()):.3e}; worst row at {worst:.4f} of its limit; "
+             "ties at 2j + 1/2 exact")
+    return max(errs), float(tol_row.max()), ms, plain, extra
+
+
+def transcribe_twice(torch, pipe, audio, options) -> dict:
+    """One warm pass, then one timed pass with the launch counts set to 0
+    just before it and read just after it."""
+    from whisperkit_tpu_torch.ops import _build
 
     windows = []
 
@@ -232,21 +311,27 @@ def phase_main_path(torch, card: str) -> dict:
     result = pipe.transcribe(audio, options, callback=on_window)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(_build.launches)
-    peak = torch.cuda.max_memory_allocated()
+    return {"result": result, "wall": wall, "warm": warm, "counts": dict(_build.launches),
+            "peak": torch.cuda.max_memory_allocated(), "windows": windows}
 
-    n_chunks = len(pipe._vad_chunks(audio, options))
-    if any(counts[k] <= 0 for k in counts):
-        fail(f"main path skipped a kernel: launches {counts}")
-    for k in ("cross_attend_q8", "self_attend"):
-        if counts[k] % dims.n_text_layer:
-            fail(f"{k} launched {counts[k]} times, not a multiple of {dims.n_text_layer} layers")
-    if len(windows) != n_chunks or not all(windows):
-        fail(f"{n_chunks} VAD chunks but {len(windows)} decoded windows, "
-             f"{sum(1 for w in windows if not w)} without tokens")
-    segs = result.segments
+
+def check_launches(label, counts, launched, per_layer, idle, n_layer) -> None:
+    """Fail unless every kernel of the path launched, those launched once
+    per decoder layer a multiple of the layer count, and none of `idle`."""
+    missing = [k for k in launched if counts[k] <= 0]
+    if missing:
+        fail(f"{label} skipped kernels {missing}: launches {counts}")
+    for k in per_layer:
+        if counts[k] % n_layer:
+            fail(f"{label}: {k} launched {counts[k]} times, not a multiple of {n_layer} layers")
+    stray = [k for k in idle if counts[k]]
+    if stray:
+        fail(f"{label} launched {stray}, which it does not run: launches {counts}")
+
+
+def check_segments(label, segs) -> None:
     if not segs:
-        fail("no segments")
+        fail(f"{label}: no segments")
     # windows come in time order (by seek); inside a window, timestamps
     # increase and lie within its 30 s (random-init text may run past the
     # chunk's speech into the next chunk's time)
@@ -254,24 +339,103 @@ def phase_main_path(torch, card: str) -> dict:
     if keys != sorted(keys) or any(
         not (s.seek / 100.0 <= s.start <= s.end <= s.seek / 100.0 + 30.0) for s in segs
     ):
-        fail("segment timestamps are not increasing and in range")
-    timings = result.timings
+        fail(f"{label}: segment timestamps are not increasing and in range")
+    import math
+
+    if not all(math.isfinite(s.avg_logprob) for s in segs):
+        fail(f"{label}: a segment's avg log-prob is not finite")
+
+
+def report_path(label, run, n_chunks, card, extra="") -> None:
+    timings = run["result"].timings
     say(
-        f"phase 4 main path: large-v3 bf16 serving, {AUDIO_SECONDS:.0f} s audio, {n_chunks} VAD chunks, "
-        f"{len(segs)} segments | wall {wall:.3f} s (first run {warm:.3f} s, init_params {t_init:.1f} s) "
-        f"| RTF {wall / AUDIO_SECONDS:.6f} | {timings.tokens_per_second:.1f} tok/s "
-        f"| peak {peak / 2**30:.2f} GiB | launches {json.dumps(counts)} | {card}"
+        f"{label}: {AUDIO_SECONDS:.0f} s audio, {n_chunks} VAD chunks, {len(run['result'].segments)} segments "
+        f"| wall {run['wall']:.3f} s (first run {run['warm']:.3f} s{extra}) "
+        f"| RTF {run['wall'] / AUDIO_SECONDS:.6f} | {timings.tokens_per_second:.1f} tok/s "
+        f"| peak {run['peak'] / 2**30:.2f} GiB | launches {json.dumps(run['counts'])} | {card}"
     )
     say(
         f"  stages (host clock, no stage sync): mel {timings.log_mels:.3f} s, encode "
         f"{timings.encoding:.3f} s, prefill {timings.prefill:.3f} s, decode loop "
         f"{timings.decoding_loop:.3f} s, windowing {timings.decoding_windowing:.3f} s"
     )
-    return {"counts": counts, "pipe": pipe, "audio": audio}
 
 
-def phase_step_parity(torch, pipe, audio) -> None:
-    """One decoder step after prefill at large-v3 width: kernels vs plain."""
+def run_path(torch, label, pipe, audio, card, launched, per_layer, idle, extra="") -> dict:
+    import bench
+
+    options = bench.pipeline_options(GROUP)
+    run = transcribe_twice(torch, pipe, audio, options)
+    n_chunks = len(pipe._vad_chunks(audio, options))
+    check_launches(label, run["counts"], launched, per_layer, idle, pipe.dims.n_text_layer)
+    windows = run["windows"]
+    if len(windows) != n_chunks or not all(windows):
+        fail(f"{label}: {n_chunks} VAD chunks but {len(windows)} decoded windows, "
+             f"{sum(1 for w in windows if not w)} without tokens")
+    check_segments(label, run["result"].segments)
+    report_path(label, run, n_chunks, card, extra)
+    return run
+
+
+def phase_main_path(torch, card: str) -> dict:
+    import bench
+    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+    dims = VARIANT_DIMS["large-v3"]
+    t0 = time.perf_counter()
+    params = init_params(SEED, dims, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    pipe = WhisperPipeline(
+        WhisperConfig(compute_options=ComputeOptions.serving(), load=False),
+        dims=dims, params=params, device="cuda",
+    )
+    audio = bench.synth_speechlike_audio(AUDIO_SECONDS)
+    run = run_path(
+        torch, "phase 4 bf16 path: large-v3 bf16 serving", pipe, audio, card,
+        launched=("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"),
+        per_layer=("cross_attend_q8", "self_attend"), idle=("self_attend_q8",),
+        extra=f", init_params {t_init:.1f} s",
+    )
+    return {"counts": run["counts"], "pipe": pipe, "audio": audio}
+
+
+def phase_int8_path(torch, card: str, bf16_pipe, audio) -> dict:
+    """The int8 serving configuration: W8A16 weights, int8 cross-KV and the
+    int8 self-KV cache, on the phase-4 weights quantized on the card."""
+    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params, quantized_size_bytes
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+    dims = bf16_pipe.dims
+    t0 = time.perf_counter()
+    qparams = quantize_whisper_params(bf16_pipe.params)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    q_bytes, bf16_bytes = quantized_size_bytes(qparams), quantized_size_bytes(bf16_pipe.params)
+    pipe = WhisperPipeline(
+        WhisperConfig(
+            compute_options=ComputeOptions.serving(quantization="w8a16", quantize_self_kv=True),
+            load=False,
+        ),
+        dims=dims, params=qparams, device="cuda",
+    )
+    run = run_path(
+        torch, "phase 6 int8 path: large-v3 W8A16 + int8 cross-KV + int8 self-KV", pipe, audio, card,
+        launched=("log_mel", "mha_encoder", "cross_attend_q8", "self_attend_q8"),
+        per_layer=("cross_attend_q8", "self_attend_q8"), idle=("self_attend",),
+        extra=f", quantize {t_quant:.3f} s",
+    )
+    say(f"  weights: W8A16 {q_bytes} bytes ({q_bytes / 2**30:.3f} GiB) vs bf16 {bf16_bytes} bytes "
+        f"({bf16_bytes / 2**30:.3f} GiB); peak counts both trees resident")
+    return {"counts": run["counts"], "pipe": pipe}
+
+
+def phase_step_parity(torch, label, pipe, audio, card) -> None:
+    """One decoder step after prefill at large-v3 width: kernels vs plain,
+    over the cache form the pipe's ComputeOptions select."""
     from unittest import mock
 
     from whisperkit_tpu_torch.decoding.loop import encode_window, prefill_window
@@ -279,6 +443,7 @@ def phase_step_parity(torch, pipe, audio) -> None:
     from whisperkit_tpu_torch.ops import attention_decode as ad
 
     dims, params, sp = pipe.dims, pipe.params, pipe.tokenizer.special
+    q8_self = pipe.config.compute_options.quantize_self_kv
     mel = pipe._mel_batch([audio[i * 480_000 : (i + 1) * 480_000] for i in range(4)])
     _, ck, cv = encode_window(params, mel, dims, quantize_kv=True)
     prompt = torch.tensor([[sp.sot, sp.language_token("en"), sp.transcribe]] * 4, device=pipe.device)
@@ -286,12 +451,13 @@ def phase_step_parity(torch, pipe, audio) -> None:
 
     def step():
         pre = prefill_window(params, ck, cv, prompt, dims=dims, special=sp, sample_begin=3,
-                             max_new_tokens=224, sot_index=0)
+                             max_new_tokens=224, sot_index=0, quantize_self_kv=q8_self)
         with torch.inference_mode():
             return model.decoder_forward(params, token, 3, pre.kv_k, pre.kv_v, ck, cv, dims)[:, -1]
 
     kernel_logits = step()
     with mock.patch.object(model, "self_attend", ad.self_attend_reference), \
+            mock.patch.object(model, "self_attend_q8", ad.self_attend_q8_reference), \
             mock.patch.object(model, "cross_attend_q8", ad.cross_attend_q8_reference):
         plain_logits = step()
     err = max_abs(torch, kernel_logits, plain_logits)
@@ -304,19 +470,75 @@ def phase_step_parity(torch, pipe, audio) -> None:
     top2 = plain_logits.float().topk(2, dim=-1).values
     gaps = (top2[:, 0] - top2[:, 1]).tolist()
     same = (kernel_logits.argmax(-1) == plain_logits.argmax(-1)).tolist()
-    say(f"phase 5 decoder step: max |Δlogit| {err:.3e} (tol {tol:.3e}, max |logit| {scale:.3f}) "
-        f"| argmax equal per row {same}, plain top-2 gaps {[round(g, 4) for g in gaps]}")
+    say(f"{label}: max |Δlogit| {err:.3e} (tol {tol:.3e}, max |logit| {scale:.3f}) "
+        f"| argmax equal per row {same}, plain top-2 gaps {[round(g, 4) for g in gaps]} | {card}")
     if not err <= tol:
-        fail(f"decoder step logits differ by {err:.3e} > {tol:.3e}")
+        fail(f"{label}: logits differ by {err:.3e} > {tol:.3e}")
     if any(not eq and gap > 2 * err for eq, gap in zip(same, gaps)):
-        fail("a decoder step picked another token where the top-2 gap exceeds the logit error")
+        fail(f"{label}: picked another token where the top-2 gap exceeds the logit error")
 
 
+def phase_w4_w8a8(torch, card: str, bf16_pipe, int8_pipe, audio) -> None:
+    """W4A16 and W8A8 transcribe 60 s of the audio once each (serving
+    preset, stage syncs on); the encoder of 4 windows is timed with W8A16
+    and with W8A8, whose int8-activation dots run in float64."""
+    import bench
+    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.decoding.loop import encode_window
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params, quantized_size_bytes
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+    dims = bf16_pipe.dims
+    clip = audio[: 60 * 16_000]
+    options = bench.pipeline_options(GROUP)
+    trees = {"w4a16": quantize_whisper_params(bf16_pipe.params, bits=4), "w8a8": int8_pipe.params}
+    for scheme, tree in trees.items():
+        pipe = WhisperPipeline(
+            WhisperConfig(
+                compute_options=ComputeOptions.serving(quantization=scheme, sync_timings=True),
+                load=False,
+            ),
+            dims=dims, params=tree, device="cuda",
+        )
+        label = f"phase 8 {scheme}"
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = pipe.transcribe(clip, options)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"),
+                       ("cross_attend_q8", "self_attend"), ("self_attend_q8",), dims.n_text_layer)
+        check_segments(label, result.segments)
+        t = result.timings
+        say(f"{label}: 60 s audio, one pass (first run), {len(result.segments)} segments, "
+            f"{quantized_size_bytes(tree)} weight bytes | wall {wall:.3f} s | encode {t.encoding:.3f} s, "
+            f"decode loop {t.decoding_loop:.3f} s (stage syncs on) | {t.tokens_per_second:.1f} tok/s "
+            f"| launches {json.dumps(counts)} | {card}")
+        del pipe
+
+    mel = int8_pipe._mel_batch([audio[i * 480_000 : (i + 1) * 480_000] for i in range(4)])
+    times = {}
+    for scheme, act8 in (("w8a16", False), ("w8a8", True), ("w8a8 again", True), ("w8a16 again", False)):
+        with torch.inference_mode():
+            times[scheme] = cuda_ms(
+                torch, lambda i: encode_window(int8_pipe.params, mel, dims, quantize_kv=True, act8=act8), 2
+            )
+    say("phase 8 encoder, 4 windows, int8 cross-KV (CUDA events, mean of 2 after a warm-up): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()) + f" | {card}")
+
+
+# (kernel, source, TPU kernel it replaces, the path whose launch count it reports)
 KERNEL_TABLE = (
-    ("log_mel", "whisperkit_tpu_torch/csrc/mel.cu", "whisperkit_tpu/ops/mel.py:227"),
-    ("mha_encoder", "whisperkit_tpu_torch/csrc/mha_encoder.cu", "whisperkit_tpu/ops/attention.py:85"),
-    ("cross_attend_q8", "whisperkit_tpu_torch/csrc/attention_decode.cu", "whisperkit_tpu/ops/attention_decode.py:81"),
-    ("self_attend", "whisperkit_tpu_torch/csrc/attention_decode.cu", "whisperkit_tpu/ops/attention_decode.py:191"),
+    ("log_mel", "whisperkit_tpu_torch/csrc/mel.cu", "whisperkit_tpu/ops/mel.py:227", "int8"),
+    ("mha_encoder", "whisperkit_tpu_torch/csrc/mha_encoder.cu", "whisperkit_tpu/ops/attention.py:85", "int8"),
+    ("cross_attend_q8", "whisperkit_tpu_torch/csrc/attention_decode.cu",
+     "whisperkit_tpu/ops/attention_decode.py:81", "int8"),
+    ("self_attend", "whisperkit_tpu_torch/csrc/attention_decode.cu",
+     "whisperkit_tpu/ops/attention_decode.py:191", "bf16"),
+    ("self_attend_q8", "whisperkit_tpu_torch/csrc/attention_decode.cu",
+     "whisperkit_tpu/ops/attention_decode.py:216", "int8"),
 )
 
 
@@ -334,15 +556,20 @@ def main() -> None:
     name, card = phase_card(torch)
     phase_build()
     kernel_results = phase_kernels(torch, card)
-    main_path = phase_main_path(torch, card)
-    phase_step_parity(torch, main_path["pipe"], main_path["audio"])
+    bf16 = phase_main_path(torch, card)
+    phase_step_parity(torch, "phase 5 decoder step, bf16 cache", bf16["pipe"], bf16["audio"], card)
+    int8 = phase_int8_path(torch, card, bf16["pipe"], bf16["audio"])
+    phase_step_parity(torch, "phase 7 decoder step, W8A16 + int8 self-KV cache", int8["pipe"], bf16["audio"],
+                      card)
+    phase_w4_w8a8(torch, card, bf16["pipe"], int8["pipe"], bf16["audio"])
 
+    counts = {"bf16": bf16["counts"], "int8": int8["counts"]}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main_path["counts"][key], **kernel_results[key],
+            "launches": counts[path][key], "path": path, **kernel_results[key],
         }
-        for key, source, replaces in KERNEL_TABLE
+        for key, source, replaces, path in KERNEL_TABLE
     ]
     say(f"card: {card}")
     say(json.dumps({"kernels": kernels}))

@@ -225,6 +225,77 @@ def test_incremental_decoding_equals_prefill(tparams, cross, kind):
     torch.testing.assert_close(k2[:, :, :, :4], k1[:, :, :, :4])
 
 
+def _jax_q8_cache(s, b=2):
+    shape = (DIMS.n_text_layer, b, DIMS.n_text_head, s, DIMS.head_dim)
+    return tuple(
+        {"q8": jnp.zeros(shape, jnp.int8), "scale": jnp.zeros(shape[:-1] + (1,), jnp.float32)}
+        for _ in range(2)
+    )
+
+
+def _assert_q8_cache_close(ours, ref, upto):
+    """int8 cache rows [0, upto): scales equal to float32 rounding, codes
+    equal up to ±1 on at most 1% of entries (a value at a rounding
+    boundary); rows after `upto` untouched (zero codes and scales)."""
+    q8, scale = ours["q8"].numpy(), ours["scale"].numpy()
+    np.testing.assert_allclose(scale[..., :upto, :], np.asarray(ref["scale"])[..., :upto, :], rtol=1e-5)
+    diff = np.abs(q8[..., :upto, :].astype(np.int32) - np.asarray(ref["q8"])[..., :upto, :].astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-2
+    assert not q8[..., upto:, :].any() and not scale[..., upto:, :].any()
+
+
+def test_init_kv_cache_int8_form():
+    k, v = model.init_kv_cache(DIMS, 3, 10, torch.float32, "cpu", quantize=True)
+    for c in (k, v):
+        assert c["q8"].dtype == torch.int8 and c["q8"].shape == (2, 3, 4, 10, 16)
+        assert c["scale"].dtype == torch.float32 and c["scale"].shape == (2, 3, 4, 10, 1)
+        assert not c["q8"].any() and not c["scale"].any()
+    assert k["q8"].data_ptr() != v["q8"].data_ptr()
+
+
+@pytest.mark.parametrize("kind", ["raw", "q8"])
+def test_decoder_int8_self_cache_matches_jax(jparams, tparams, cross, kind):
+    """The int8 self-KV cache: a 3-token prefill (plain `_attend_self_q8`)
+    and one T==1 step (K5's plain version) against JAX's decoder, whose
+    step runs `_attend_self_q8` too: logits within 2e-3 (a probability at
+    a requantization boundary may round the other way), and the cache's
+    codes and scales as JAX writes them."""
+    jc, tc = cross[kind]
+    s = 16
+    prompt = np.asarray([PROMPT, PROMPT], np.int64)
+    jl, jkv = _jax_decode(jparams, prompt, 0, _jax_q8_cache(s), jc)
+    tk, tv = model.init_kv_cache(DIMS, 2, s, torch.float32, "cpu", quantize=True)
+    tl = model.decoder_forward(tparams, _t(prompt), 0, tk, tv, *tc, DIMS)
+    np.testing.assert_allclose(_np(tl), jl, rtol=2e-3, atol=2e-3)
+    _assert_q8_cache_close(tk, jkv[0], 3)
+    _assert_q8_cache_close(tv, jkv[1], 3)
+
+    step = np.asarray([[SP.timestamp_begin], [SP.timestamp_begin + 3]], np.int64)
+    jl1, jkv = _jax_decode(jparams, step, 3, jkv, jc)
+    tl1 = model.decoder_forward(tparams, _t(step), 3, tk, tv, *tc, DIMS)
+    np.testing.assert_allclose(_np(tl1), jl1, rtol=2e-3, atol=2e-3)
+    _assert_q8_cache_close(tk, jkv[0], 4)
+    _assert_q8_cache_close(tv, jkv[1], 4)
+
+
+@pytest.mark.parametrize("kind", ["raw", "q8"])
+def test_incremental_decoding_equals_prefill_int8_self_cache(tparams, cross, kind):
+    """With the int8 self-KV cache, prefill of 3 tokens + one T==1 step
+    (K5's plain version) gives the logits and the cache of a 4-token
+    prefill (`_attend_self_q8`): the same int8 recipe on the same rows."""
+    _, tc = cross[kind]
+    toks = torch.tensor([PROMPT + [SP.timestamp_begin]] * 2)
+    k1, v1 = model.init_kv_cache(DIMS, 2, 16, torch.float32, "cpu", quantize=True)
+    full = model.decoder_forward(tparams, toks, 0, k1, v1, *tc, DIMS)
+    k2, v2 = model.init_kv_cache(DIMS, 2, 16, torch.float32, "cpu", quantize=True)
+    model.decoder_forward(tparams, toks[:, :3], 0, k2, v2, *tc, DIMS)
+    step = model.decoder_forward(tparams, toks[:, 3:], 3, k2, v2, *tc, DIMS)
+    torch.testing.assert_close(step[:, 0], full[:, 3], rtol=1e-4, atol=1e-4)
+    for a, b in ((k1, k2), (v1, v2)):
+        torch.testing.assert_close(a["scale"], b["scale"], rtol=1e-6, atol=0)
+        assert (a["q8"].int() - b["q8"].int()).abs().max() <= 1
+
+
 def test_cross_attend_raw_keeps_f32_scores():
     """bf16 operands: the raw cross path scores in float32 like JAX's
     force_f32_scores, so it agrees with an all-f32 attention to bf16
@@ -313,7 +384,7 @@ LOOP_KW = dict(
 )
 
 
-def _jax_loop(jparams, jc, suppress, first_threshold=float("-inf")):
+def _jax_loop(jparams, jc, suppress, first_threshold=float("-inf"), quantize_self_kv=False):
     scalars = jloop.DecodeScalars(
         temperature=jnp.float32(0.0),
         max_initial_timestamp_index=jnp.int32(1500),
@@ -321,23 +392,29 @@ def _jax_loop(jparams, jc, suppress, first_threshold=float("-inf")):
         rng_key=jax.random.PRNGKey(0),
     )
     prompt = jnp.asarray([PROMPT, PROMPT], jnp.int32)
-    return jloop.decode_loop(jparams, *jc, prompt, jnp.asarray(suppress), scalars, dims=JDIMS, **LOOP_KW)
+    return jloop.decode_loop(
+        jparams, *jc, prompt, jnp.asarray(suppress), scalars, dims=JDIMS,
+        quantize_self_kv=quantize_self_kv, **LOOP_KW,
+    )
 
 
-def _torch_loop(tparams, tc, suppress, stop_check_interval=16, first_threshold=float("-inf")):
+def _torch_loop(
+    tparams, tc, suppress, stop_check_interval=16, first_threshold=float("-inf"),
+    quantize_self_kv=False,
+):
     scalars = loop.DecodeScalars(0.0, 1500, first_threshold)
     prompt = torch.tensor([PROMPT, PROMPT])
     return loop.decode_loop(
         tparams, *tc, prompt, _t(suppress), scalars, dims=DIMS,
-        stop_check_interval=stop_check_interval, **LOOP_KW,
+        stop_check_interval=stop_check_interval, quantize_self_kv=quantize_self_kv, **LOOP_KW,
     )
 
 
-def _filtered_jax_logits(jparams, jc, suppress, tokens_row, pos):
+def _filtered_jax_logits(jparams, jc, suppress, tokens_row, pos, q8_self=False):
     """JAX's filtered step logits at `pos` for row tokens_row[:pos]."""
     s = len(tokens_row)
     shape = (JDIMS.n_text_layer, 1, JDIMS.n_text_head, s, JDIMS.head_dim)
-    kv = (jnp.zeros(shape, jnp.float32), jnp.zeros(shape, jnp.float32))
+    kv = _jax_q8_cache(s, 1) if q8_self else (jnp.zeros(shape, jnp.float32), jnp.zeros(shape, jnp.float32))
     one_row = jax.tree.map(lambda a: a[:, :1], jc)
     logits, _ = _jax_decode(jparams, np.asarray([tokens_row[:pos]]), 0, kv, one_row)
     f = jnp.asarray(logits[:, -1]) + jnp.asarray(suppress)[None]
@@ -374,6 +451,26 @@ def test_decode_loop_greedy_tokens_int8_cross_kv(jparams, tparams, cross):
             assert top[0] - top[1] < 1e-3, f"row {r} diverged at {pos} with gap {top[0] - top[1]}"
 
 
+@pytest.mark.parametrize("kind", ["raw", "q8"])
+def test_decode_loop_greedy_tokens_int8_self_kv(jparams, tparams, cross, kind):
+    """quantize_self_kv: the int8 self-KV cache through prefill and K5's
+    plain version gives JAX's greedy tokens, up to the first step where
+    JAX's own top-2 filtered logit gap is below 1e-3 (a requantization flip
+    may decide such a near-tie either way)."""
+    suppress = filters.suppress_tokens_bias(V, [SP.translate, SP.sot])
+    jc, tc = cross[kind]
+    ref = _jax_loop(jparams, jc, suppress, quantize_self_kv=True)
+    out = _torch_loop(tparams, tc, suppress, quantize_self_kv=True)
+    ref_tokens, out_tokens = np.asarray(ref.tokens), out.tokens.numpy()
+    for r in range(2):
+        diff = np.nonzero(out_tokens[r] != ref_tokens[r])[0]
+        if len(diff):
+            pos = int(diff[0])
+            top = _filtered_jax_logits(jparams, jc, suppress, ref_tokens[r], pos, q8_self=True)
+            assert top[0] - top[1] < 1e-3, f"row {r} diverged at {pos} with gap {top[0] - top[1]}"
+    np.testing.assert_allclose(out.no_speech_prob.numpy(), np.asarray(ref.no_speech_prob), rtol=2e-3, atol=1e-5)
+
+
 @pytest.mark.parametrize("interval", [1, 16])
 def test_decode_loop_early_stop_matches_jax(jparams, tparams, cross, interval):
     """A first-token floor of 0 ends every row at its first step. JAX's
@@ -405,6 +502,29 @@ def test_prefill_is_reusable_across_rungs(tparams, cross):
                      prefill=pre, **kw)
     again = loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars, prefill=pre, **kw)
     assert torch.equal(first.tokens, again.tokens)
+
+
+def test_prefill_is_reusable_across_rungs_int8_self_kv(tparams, cross):
+    """A sampled rung over the same int8-cache prefill leaves nothing the
+    next greedy rung can read: each step writes codes and scale at its
+    position before K5 reads it, and later positions are masked."""
+    suppress = filters.suppress_tokens_bias(V, [])
+    _, tc = cross["q8"]
+    prompt = torch.tensor([PROMPT, PROMPT])
+    pre = loop.prefill_window(
+        tparams, *tc, prompt, dims=DIMS, special=SP, sample_begin=3, max_new_tokens=20,
+        sot_index=0, quantize_self_kv=True,
+    )
+    assert isinstance(pre.kv_k, dict) and pre.kv_k["q8"].shape[3] == 23
+    scalars = loop.DecodeScalars(0.0, 1500, float("-inf"))
+    kw = dict(dims=DIMS, **LOOP_KW)
+    first = loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars, prefill=pre, **kw)
+    g = torch.Generator().manual_seed(3)
+    loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars._replace(temperature=1.0, generator=g),
+                     prefill=pre, **kw)
+    again = loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars, prefill=pre, **kw)
+    assert torch.equal(first.tokens, again.tokens)
+    assert torch.equal(first.token_logprobs, again.token_logprobs)
 
 
 def test_detect_language_logits_match_jax(jparams, tparams, cross):

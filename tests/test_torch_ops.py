@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from whisperkit_tpu.models.whisper import _attend_self_q8 as jax_attend_self_q8
 from whisperkit_tpu.models.whisper import _q8_row_quantize as jax_q8_row_quantize
+from whisperkit_tpu.models.whisper import _q8_rows as jax_q8_rows
 from whisperkit_tpu.ops import attention_decode as jad
 from whisperkit_tpu.ops import mel as jmel
 from whisperkit_tpu.ops.attention import mha_encoder_pallas
@@ -166,6 +168,78 @@ def test_self_attend_matches_pallas_interpret(cache_dtype, pos):
 
 
 # ---------------------------------------------------------------------------
+# K5: T==1 self-attention over the int8 cache
+# ---------------------------------------------------------------------------
+
+
+def _q8_cache(rng, b, h, s, pos):
+    """A query and an int8 per-token-scale cache as the decode step sees
+    them (the JAX test's recipe): rows after `pos` unwritten, all-zero with
+    scale 0, and masked to -inf."""
+    q = (rng.standard_normal((b, h, 1, 64)) * 0.3).astype(np.float32)
+    written = (np.arange(s) <= pos)[None, None, :, None]
+    cache = []
+    for _ in range(2):
+        x = (rng.standard_normal((b, h, s, 64)) * 0.5).astype(np.float32)
+        q8, scale = (np.array(a) for a in jax_q8_rows(jnp.asarray(x)))
+        cache += [q8 * written, (scale * written).astype(np.float32)]
+    mask = np.where(np.arange(s)[None, :] <= pos, 0.0, -np.inf).astype(np.float32)
+    return q, cache, mask
+
+
+@pytest.mark.parametrize("pos", [0, 17, 39])
+def test_self_attend_q8_reference_matches_jax_attend_self_q8(pos):
+    """The plain K5 on the port's row-quantized query against JAX's
+    `_attend_self_q8` (which quantizes the query itself). A ±1 flip of one
+    requantized probability is allowed (the JAX kernel-vs-einsum test's
+    rtol 2e-2 / atol 2e-3)."""
+    rng = np.random.default_rng(20 + pos)
+    q, (k8, ks, v8, vs), mask = _q8_cache(rng, 2, 3, 40, pos)
+    ref = np.asarray(jax_attend_self_q8(
+        jnp.asarray(q), {"q8": jnp.asarray(k8), "scale": jnp.asarray(ks)},
+        {"q8": jnp.asarray(v8), "scale": jnp.asarray(vs)}, jnp.asarray(mask)[None, None],
+    ))
+    qi, q_scale = _q8_row_quantize(_t(q) * 64**-0.5)
+    out = attention_decode.self_attend_q8(qi, q_scale, _t(k8), _t(ks), _t(v8), _t(vs), _t(mask))
+    assert out.dtype == torch.float32 and out.shape == (2, 3, 1, 64)
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("pos", [0, 17, 39])
+def test_self_attend_q8_matches_pallas_interpret(pos):
+    """The Pallas kernel in interpret mode and the port on the same int8
+    inputs (tolerance as above)."""
+    rng = np.random.default_rng(30 + pos)
+    q, (k8, ks, v8, vs), mask = _q8_cache(rng, 2, 3, 40, pos)
+    qi, q_scale = (np.array(a) for a in jax_q8_row_quantize(jnp.asarray(q) * 64**-0.5))
+    args = (qi, q_scale, k8, ks, v8, vs, mask)
+    ref = np.asarray(jad.self_attend_q8_pallas(*(jnp.asarray(a) for a in args)))
+    out = attention_decode.self_attend_q8(*(_t(a) for a in args)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=2e-2, atol=2e-3)
+
+
+def test_self_attend_q8_integer_dots_are_exact_in_float32():
+    """The plain K5 runs its integer dots in float32: exact, since the
+    largest sums (64 · 127² for the scores, 448 · 127² for P·V) stay below
+    2^24. All-127 codes with unit scales and one visible key make both
+    dots hit their bounds."""
+    s = 448
+    qi = torch.full((1, 1, 1, 64), 127, dtype=torch.int8)
+    k = torch.full((1, 1, s, 64), -127, dtype=torch.int8)
+    v = torch.full((1, 1, s, 64), 127, dtype=torch.int8)
+    ones = torch.ones((1, 1, s, 1))
+    mask = torch.zeros((1, s))  # every key visible: equal scores, equal probs
+    out = attention_decode.self_attend_q8_reference(qi, torch.ones((1, 1, 1, 1)), k, ones, v, ones, mask)
+    # probs 1/448 each → p_scale 1/(448·127), pi = 127 each → P·V = 448 · 127²
+    assert 448 * 127 * 127 < 2**24
+    expected = np.float32(448 * 127 * 127) * np.float32(max((1 / 448) / 127, 1e-8))
+    np.testing.assert_allclose(out.numpy(), expected, rtol=1e-6)
+    scores = qi.float() @ k.float().transpose(-1, -2)
+    assert int(scores[0, 0, 0, 0]) == -64 * 127 * 127
+
+
+# ---------------------------------------------------------------------------
 # the shared int8 row quantization
 # ---------------------------------------------------------------------------
 
@@ -203,6 +277,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     attention_decode.self_attend(q[:, :, :1], k, v, mask)
     args = _q8_inputs(rng, 1, 1, 1, 8)
     attention_decode.cross_attend_q8(*(_t(a) for a in args))
+    _, cache, mask8 = _q8_cache(rng, 1, 1, 8, 3)
+    attention_decode.self_attend_q8(_t(args[0]), _t(args[1]), *(_t(a) for a in cache), _t(mask8))
     mel.log_mel_frames(torch.zeros((1, 4000)), 80, 20)
     assert _build.launches == dict.fromkeys(_build.KERNELS, 0)
 

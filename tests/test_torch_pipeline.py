@@ -21,6 +21,7 @@ import torch
 
 from whisperkit_tpu.core.configurations import ComputeOptions, DecodingOptions, WhisperConfig
 from whisperkit_tpu.models import whisper as jmodel
+from whisperkit_tpu.ops import quant as jquant
 from whisperkit_tpu.pipelines.whisper import WhisperPipeline as JaxPipeline
 from whisperkit_tpu_torch.models import whisper as model
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
@@ -72,7 +73,7 @@ def _speechlike(seconds):
     return bench.synth_speechlike_audio(seconds, seed=1)
 
 
-def _assert_same_result(ours, ref):
+def _assert_same_result(ours, ref, logprob_tol=1e-4, no_speech_tol=1e-5):
     assert ours.language == ref.language
     assert ours.text == ref.text
     assert len(ours.segments) == len(ref.segments) > 0
@@ -81,8 +82,8 @@ def _assert_same_result(ours, ref):
         assert (a.id, a.seek, a.text, a.language) == (b.id, b.seek, b.text, b.language)
         assert a.start == pytest.approx(b.start, abs=1e-6)
         assert a.end == pytest.approx(b.end, abs=1e-6)
-        assert a.avg_logprob == pytest.approx(b.avg_logprob, abs=1e-4)
-        assert a.no_speech_prob == pytest.approx(b.no_speech_prob, abs=1e-5)
+        assert a.avg_logprob == pytest.approx(b.avg_logprob, abs=logprob_tol)
+        assert a.no_speech_prob == pytest.approx(b.no_speech_prob, abs=no_speech_tol)
 
 
 @pytest.mark.parametrize(
@@ -129,6 +130,35 @@ def test_serving_preset_int8_cross_kv_matches_jax(jparams):
     _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, options))
 
 
+@pytest.mark.parametrize(
+    "compute",
+    [  # ComputeOptions.serving(**...) less the serving preset's quantize_cross_kv
+        dict(quantization="w8a16", quantize_self_kv=True),
+        dict(quantization="w4a16"),
+        dict(quantization="w8a8"),
+    ],
+    ids=["w8a16_int8_self_kv", "w4a16", "w8a8"],
+)
+def test_quantized_serving_matches_jax(jparams, compute):
+    """The int8 side of ComputeOptions on the VAD path: JAX's quantized tree
+    (`quantize_whisper_params`, taken by both pipelines as the JAX one takes
+    it) under the serving preset with W8A16 weights and the int8 self-KV
+    cache (K5's plain version), with W4A16 weights, and with W8A8 (int8
+    encoder activations) gives JAX's tokens and segments. W8A8's encoder
+    output carries the row-quantization flips that
+    test_torch_quant.test_encoder_forward_act8_matches_jax bounds (up to
+    ~1% of single entries), so its log-probabilities agree to 2e-3 and its
+    no-speech probabilities to 1e-4 instead of 1e-4 and 1e-5."""
+    bits = 4 if compute["quantization"] == "w4a16" else 8
+    jq = jquant.quantize_whisper_params(jparams, min_size=1, bits=bits)
+    jax_pipe, torch_pipe = _pipes(jq, quantize_cross_kv=True, **compute)
+    assert torch_pipe._act8 == (compute["quantization"] == "w8a8")
+    audio = _speechlike(65.0)
+    options = DecodingOptions(chunking_strategy="vad", concurrent_worker_count=4, **GREEDY)
+    tols = dict(logprob_tol=2e-3, no_speech_tol=1e-4) if torch_pipe._act8 else {}
+    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, options), **tols)
+
+
 def test_batch_api_matches_jax(pipes):
     jax_pipe, torch_pipe = pipes
     items = [_audio(5.0, 1), "/nonexistent/file.wav", _audio(3.0, 2)]
@@ -158,8 +188,6 @@ def test_language_detection_matches_jax(pipes):
     [
         ({}, {"beam_size": 2}),
         ({}, {"word_timestamps": True}),
-        ({"compute_options": ComputeOptions(quantization="w8a16")}, {}),
-        ({"compute_options": ComputeOptions(quantize_self_kv=True)}, {}),
         ({"compute_options": ComputeOptions(segmented_decode=True)}, {}),
         ({"compute_options": ComputeOptions(dp_size=2)}, {}),
         ({"draft_dims": DIMS}, {}),
@@ -201,7 +229,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import whisperkit_tpu_torch.pipelines.whisper\n"
         "import whisperkit_tpu_torch.ops.attention, whisperkit_tpu_torch.ops.attention_decode\n"
-        "import whisperkit_tpu_torch.ops.mel\n"
+        "import whisperkit_tpu_torch.ops.mel, whisperkit_tpu_torch.ops.quant\n"
+        "import whisperkit_tpu_torch.tools.profile_step\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -214,3 +243,11 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_profile_step_busy_time_is_the_union_of_intervals():
+    from whisperkit_tpu_torch.tools.profile_step import _busy_us
+
+    assert _busy_us([]) == 0.0
+    # overlapping, nested, touching and disjoint intervals, unsorted
+    assert _busy_us([(5.0, 7.0), (0.0, 2.0), (1.0, 3.0), (1.5, 1.8), (3.0, 4.0)]) == 6.0

@@ -1,16 +1,19 @@
 // Decode-step attention kernels for Hopper (sm_90a): the int8
-// cross-attention and the self-attention over the raw KV cache.
+// cross-attention, and the self-attention over the raw KV cache and over
+// the int8 KV cache.
 //
 // Replaces the TPU kernels in whisperkit_tpu/ops/attention_decode.py:
 //   cross_attend_q8_kernel  <- cross_attend_q8_pallas (_cross_decode_kernel)
 //   self_attend_kernel      <- self_attend_pallas (_self_decode_kernel)
+//   self_attend_q8_kernel   <- self_attend_q8_pallas (_self_decode_q8_kernel)
 //
 // What bounds them: device-memory bandwidth. Each is a pair of
 // matrix-vector products per (batch, head, query row) that reads the whole
-// K and V once and does 2 operations per byte read (cross, int8) or 1 per
-// byte (self, bf16), far under the card's ~295 operations per byte. At the
+// K and V once and does 2 operations per byte read (int8) or 1 per byte
+// (self, bf16), far under the card's ~295 operations per byte. At the
 // serving shape (B = 32, H = 20) one decode step reads 3.9 GB of int8
-// cross-K/V and up to 1.2 GB of bf16 self-K/V over all 32 layers.
+// cross-K/V, and up to 1.2 GB of bf16 self-K/V or 0.6 GB of int8 self-K/V
+// (plus 38 MB of per-token scales) over all 32 layers.
 //
 // Design (simple and right first): one block of 256 threads per (batch,
 // head[, query row]); B x H = 640 blocks over 132 SMs. Pass 1: each thread
@@ -271,6 +274,124 @@ self_attend_kernel(const float* __restrict__ q,     // [BH, DH]
   }
 }
 
+// ---------------------------------------------------------------------------
+// Self-attention over the int8 cache with per-token scales (K5). Same math
+// as the JAX kernel (_self_decode_q8_kernel) and _attend_self_q8:
+//   scores = (qi . k)[int32] * q_scale * k_scale[s] + mask[s]   f32
+//   probs  = softmax(scores)                                    f32
+//   pw     = probs * v_scale[s]               (fold the per-token V scales)
+//   p_scale = max(max(pw) / 127, 1e-8)
+//   pi = clip(rint(pw / p_scale), 0, 127)                       round half to even
+//   out = (pi . v)[int32] * p_scale                             f32
+// Laid out as K3 (int8 __dp4a scores, int8 P.V in int32) over K4's grid
+// (one block per (batch, head)). Keys whose mask entry is -inf are not
+// read, neither codes nor scales: an unwritten cache row has scale 0, and
+// 0 * -inf is never evaluated. Position 0 is always visible, so the row
+// max is finite. At B = 32, S = 227 a launch reads 18.6 MB of int8 K/V and
+// 1.2 MB of scales, half of K4's bytes; one block per (b, h) row gives
+// 640 blocks of 227 keys, too little work each to reach full bandwidth
+// (K4 reaches 26% with the same layout). Splitting the key axis is later
+// speed work.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NT)
+self_attend_q8_kernel(const int8_t* __restrict__ qi,      // [BH, DH]
+                      const float* __restrict__ q_scale,  // [BH]
+                      const int8_t* __restrict__ k,       // [BH, S, DH]
+                      const float* __restrict__ k_scale,  // [BH, S]
+                      const int8_t* __restrict__ v,       // [BH, S, DH]
+                      const float* __restrict__ v_scale,  // [BH, S]
+                      const float* __restrict__ mask,     // [S]
+                      float* __restrict__ out,            // [BH, DH]
+                      int S) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem);                // S scores / weighted probs
+  signed char* pq = reinterpret_cast<signed char*>(sc + S);  // S int8 probs
+  __shared__ int qw[DH / 4];
+  __shared__ float red[NWARP];
+  __shared__ int vred[NT / 16][DH];
+
+  const int tid = threadIdx.x;
+  const long bh = blockIdx.x;
+  if (tid < DH / 4) qw[tid] = reinterpret_cast<const int*>(qi + bh * DH)[tid];
+  __syncthreads();
+  const float qs = q_scale[bh];
+
+  const int8_t* kb = k + bh * S * DH;
+  const float* ksb = k_scale + bh * S;
+  float lmax = -INFINITY;
+  for (int s = tid; s < S; s += NT) {
+    const float mk = mask[s];
+    float x = -INFINITY;
+    if (mk != -INFINITY) {
+      const int4* kr = reinterpret_cast<const int4*>(kb + (long)s * DH);
+      int acc = 0;
+#pragma unroll
+      for (int c = 0; c < DH / 16; ++c) {
+        const int4 w = kr[c];
+        acc = __dp4a(w.x, qw[4 * c + 0], acc);
+        acc = __dp4a(w.y, qw[4 * c + 1], acc);
+        acc = __dp4a(w.z, qw[4 * c + 2], acc);
+        acc = __dp4a(w.w, qw[4 * c + 3], acc);
+      }
+      x = (float)acc * qs * ksb[s] + mk;
+    }
+    sc[s] = x;
+    lmax = fmaxf(lmax, x);
+  }
+  const float mx = block_max(lmax, red);
+
+  float lsum = 0.f;
+  for (int s = tid; s < S; s += NT) {
+    const float e = expf(sc[s] - mx);
+    sc[s] = e;
+    lsum += e;
+  }
+  const float sum = block_sum(lsum, red);
+
+  const float* vsb = v_scale + bh * S;
+  float lpmax = 0.f;
+  for (int s = tid; s < S; s += NT) {
+    const float e = sc[s];
+    const float pw = e > 0.f ? (e / sum) * vsb[s] : 0.f;  // masked keys: no scale read
+    sc[s] = pw;
+    lpmax = fmaxf(lpmax, pw);
+  }
+  const float p_scale = fmaxf(block_max(lpmax, red) / 127.f, 1e-8f);
+
+  for (int s = tid; s < S; s += NT) {
+    const float r = fminf(fmaxf(rintf(sc[s] / p_scale), 0.f), 127.f);
+    pq[s] = (signed char)(int)r;
+  }
+  __syncthreads();
+
+  // pass 2: 16 groups over the key axis, lane l owns channels 4l .. 4l+3;
+  // a zero probability (every masked key) adds nothing, so its row of V is
+  // not read
+  const int g = tid >> 4, l = tid & 15;
+  const int8_t* vb = v + bh * S * DH;
+  int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+  for (int s = g; s < S; s += NT / 16) {
+    const int p = pq[s];
+    if (p == 0) continue;
+    const char4 vv = reinterpret_cast<const char4*>(vb + (long)s * DH)[l];
+    a0 += p * vv.x;
+    a1 += p * vv.y;
+    a2 += p * vv.z;
+    a3 += p * vv.w;
+  }
+  vred[g][4 * l + 0] = a0;
+  vred[g][4 * l + 1] = a1;
+  vred[g][4 * l + 2] = a2;
+  vred[g][4 * l + 3] = a3;
+  __syncthreads();
+  if (tid < DH) {
+    int tot = 0;
+#pragma unroll
+    for (int i = 0; i < NT / 16; ++i) tot += vred[i][tid];
+    out[bh * DH + tid] = (float)tot * p_scale;
+  }
+}
+
 size_t aligned16(size_t n) { return (n + 15) & ~size_t(15); }
 
 }  // namespace
@@ -318,5 +439,21 @@ extern "C" int wk_self_attend(const void* q, const void* k, const void* v,
         (const float*)q, (const float*)k, (const float*)v, (const float*)mask,
         (float*)out, s);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wk_self_attend_q8(const void* qi, const void* q_scale, const void* k,
+                                 const void* k_scale, const void* v, const void* v_scale,
+                                 const void* mask, void* out, int bh, int s, void* stream) {
+  if (bh <= 0 || s <= 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = aligned16((size_t)s * (sizeof(float) + 1));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        self_attend_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  self_attend_q8_kernel<<<bh, NT, smem, (cudaStream_t)stream>>>(
+      (const int8_t*)qi, (const float*)q_scale, (const int8_t*)k, (const float*)k_scale,
+      (const int8_t*)v, (const float*)v_scale, (const float*)mask, (float*)out, s);
   return (int)cudaGetLastError();
 }

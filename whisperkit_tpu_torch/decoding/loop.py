@@ -14,7 +14,7 @@ mask for heterogeneous finish times.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -40,6 +40,11 @@ class DecodeScalars(NamedTuple):
     generator: Optional[torch.Generator] = None  # for temperature > 0
 
 
+# a self-attention KV cache: raw [L, B, H, S, Dh], or the int8 form
+# {"q8": int8 [L, B, H, S, Dh], "scale": f32 [L, B, H, S, 1]}
+KVCache = Union[torch.Tensor, dict[str, torch.Tensor]]
+
+
 class DecodeLoopOutput(NamedTuple):
     tokens: torch.Tensor  # [B, TOTAL] (prompt + sampled, EOT-padded)
     token_logprobs: torch.Tensor  # [B, TOTAL] f32 (0 in the prompt region)
@@ -52,10 +57,16 @@ class PrefillState(NamedTuple):
 
     The decode loop writes the cache in place at positions ≥ sample_begin,
     and each step writes its position before reading it, so a later rung
-    that reuses this state never reads a value an earlier rung left."""
+    that reuses this state never reads a value an earlier rung left. The
+    int8 cache is no different: a step writes the codes AND the scale of
+    position `pos` before its attention reads them, and the positions after
+    `pos`, where an earlier rung's rows may linger, are masked to -inf.
+    The kernel does not read them at all; the plain version gives them
+    probability 0, and their stale codes and scales are finite, so nothing
+    of them reaches the output."""
 
-    kv_k: torch.Tensor  # [L, B, H, TOTAL, Dh] with the prompt rows filled
-    kv_v: torch.Tensor
+    kv_k: KVCache  # [L, B, H, TOTAL, Dh] (or int8 form) with the prompt rows filled
+    kv_v: KVCache
     last_logits: torch.Tensor  # [B, V] logits at the last prompt position
     no_speech_prob: torch.Tensor  # [B]
 
@@ -65,13 +76,16 @@ def _batch(cross) -> int:
 
 
 @torch.inference_mode()
-def encode_window(params, mel: torch.Tensor, dims: WhisperDims, quantize_kv: bool = False):
+def encode_window(
+    params, mel: torch.Tensor, dims: WhisperDims, quantize_kv: bool = False, act8: bool = False
+):
     """mel [B, n_mels, 3000] → (enc_out [B,1500,D], cross_k, cross_v).
 
     `quantize_kv=True` emits the int8 {"q8", "scale"} cross-KV through the
     per-layer fused project+quantize, so the whole-batch bf16 cross-KV
-    never exists."""
-    enc_out = encoder_forward(params, mel, dims)
+    never exists. `act8=True` (the "w8a8" scheme) runs the int8-quantized
+    encoder linears with int8 activations."""
+    enc_out = encoder_forward(params, mel, dims, act8=act8)
     if quantize_kv:
         cross_k, cross_v = compute_cross_kv_quantized(params, enc_out, dims)
     else:
@@ -91,14 +105,20 @@ def prefill_window(
     sample_begin: int,
     max_new_tokens: int,
     sot_index: int,
+    quantize_self_kv: bool = False,
 ) -> PrefillState:
-    """Run the prompt through the decoder once; see PrefillState."""
+    """Run the prompt through the decoder once; see PrefillState.
+
+    `quantize_self_kv=True` allocates the self-attention cache in the int8
+    per-token-scale form: rows are quantized as they are written, and the
+    decode step reads them through K5 (half the bytes of the bf16 cache).
+    The cache's form is fixed here; the decode loop uses whichever it gets."""
     b, p = prompt.shape
     if p != sample_begin:
         raise ValueError(f"prompt length {p} != sample_begin {sample_begin}")
     total = sample_begin + max_new_tokens
     dtype = params["decoder"]["token_embed"].dtype
-    kv_k, kv_v = init_kv_cache(dims, b, total, dtype, prompt.device)
+    kv_k, kv_v = init_kv_cache(dims, b, total, dtype, prompt.device, quantize=quantize_self_kv)
     logits = decoder_forward(params, prompt, 0, kv_k, kv_v, cross_k, cross_v, dims)
     no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, special.nospeech]
     return PrefillState(kv_k, kv_v, logits[:, -1], no_speech_prob)
@@ -123,9 +143,11 @@ def decode_loop(
     suppress_blank: bool,
     prefill: Optional[PrefillState] = None,
     stop_check_interval: int = 16,
+    quantize_self_kv: bool = False,
 ) -> DecodeLoopOutput:
     """Greedy (temperature 0) or top-k sampled decode of up to
-    `max_new_tokens` tokens per row after the prompt."""
+    `max_new_tokens` tokens per row after the prompt. `quantize_self_kv`
+    selects the int8 self-KV cache when there is no `prefill` to reuse."""
     b, p = prompt.shape
     total = sample_begin + max_new_tokens
     dev = prompt.device
@@ -134,9 +156,10 @@ def decode_loop(
             params, cross_k, cross_v, prompt,
             dims=dims, special=special, sample_begin=sample_begin,
             max_new_tokens=max_new_tokens, sot_index=sot_index,
+            quantize_self_kv=quantize_self_kv,
         )
     kv_k, kv_v = prefill.kv_k, prefill.kv_v
-    s_max = kv_k.shape[3]
+    s_max = (kv_k["q8"] if isinstance(kv_k, dict) else kv_k).shape[3]
 
     tokens = torch.full((b, total), special.eot, dtype=torch.long, device=dev)
     tokens[:, :p] = prompt
@@ -187,7 +210,8 @@ def decode_loop(
 def detect_language_logits(
     params, cross_k, cross_v, *, dims: WhisperDims, special: SpecialTokens
 ) -> torch.Tensor:
-    """One decode step from SOT → language probabilities [B, n_languages]."""
+    """One decode step from SOT → language probabilities [B, n_languages].
+    Its tiny cache is always raw, whatever the serving mode (as in JAX)."""
     b = _batch(cross_k)
     dev = (cross_k["q8"] if isinstance(cross_k, dict) else cross_k).device
     dtype = params["decoder"]["token_embed"].dtype

@@ -16,11 +16,16 @@ Entry points:
 
 Attention runs through the port's kernels where the JAX package has a
 Pallas kernel: the encoder's self-attention (ops/attention.py), the T==1
-self-attention (ops/attention_decode.self_attend) and the int8
+self-attention over the raw cache (ops/attention_decode.self_attend) or
+the int8 cache (ops/attention_decode.self_attend_q8) and the int8
 cross-attention (ops/attention_decode.cross_attend_q8). Prefill
-self-attention, raw cross-attention, the dense layers, the convolutions
-and the vocabulary projection are plain torch, as the JAX package leaves
-them to XLA.
+self-attention, raw cross-attention, the dense layers (plain, W8A16, W4A16
+and W8A8, ops/quant.py), the convolutions and the vocabulary projection
+are plain torch, as the JAX package leaves them to XLA.
+
+A quantized tree (`ops/quant.quantize_whisper_params`) keeps its int8 and
+uint8 codes and its bf16 scales through `params_from_numpy` and
+`params_to_numpy`.
 """
 
 from __future__ import annotations
@@ -33,8 +38,14 @@ import torch
 import torch.nn.functional as F
 
 from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
+from whisperkit_tpu_torch.ops import quant
 from whisperkit_tpu_torch.ops.attention import mha_encoder
-from whisperkit_tpu_torch.ops.attention_decode import cross_attend_q8, self_attend
+from whisperkit_tpu_torch.ops.attention_decode import (
+    cross_attend_q8,
+    self_attend,
+    self_attend_q8,
+    self_attend_q8_reference,
+)
 
 Params = dict[str, Any]
 
@@ -161,43 +172,58 @@ def init_params(
     return _with_logits_weight({"encoder": encoder, "decoder": decoder})
 
 
-def _map(fn, tree):
+def _map(fn, tree, key=None):
+    """`fn(key, leaf)` over a tree of dicts and lists; `key` is the leaf's
+    dict key (a list's items take the list's)."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: _map(fn, v, k) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
+        return [_map(fn, v, key) for v in tree]
+    return fn(key, tree)
 
 
 def params_from_numpy(tree: dict, device: DeviceLike, dtype: torch.dtype) -> Params:
     """A JAX parameter tree as numpy arrays (`jax.tree.map(np.asarray,
-    params)`, layer stacks [L, ...]) → the port's tree on `device` in
-    `dtype`, with each layer stack split into a list of per-layer dicts."""
+    params)`, layer stacks [L, ...]) → the port's tree on `device`, with
+    each layer stack split into a list of per-layer dicts.
+
+    Float leaves become `dtype`, except the weight scales of a quantized
+    tree ("scale", "scale4"), which stay bf16 as ops/quant.py makes them;
+    integer leaves (int8 "w_q", uint8 "w_q4") keep their dtype."""
     dev = resolve_device(device)
 
-    def leaf(x):
-        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, dtype)
+    def leaf(key, x):
+        x = np.asarray(x)
+        if np.issubdtype(x.dtype, np.integer):
+            return torch.from_numpy(np.array(x)).to(dev)
+        to = torch.bfloat16 if key in quant.SCALE_KEYS else dtype
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dev, to)
 
     out = {}
     for part in ("encoder", "decoder"):
         blocks = tree[part]["blocks"]
         n_layer = len(blocks["attn_ln"]["g"])
         out[part] = _map(leaf, {k: v for k, v in tree[part].items() if k != "blocks"})
-        out[part]["blocks"] = [_map(lambda a, i=i: leaf(a[i]), blocks) for i in range(n_layer)]
+        out[part]["blocks"] = [
+            _map(lambda key, a, i=i: leaf(key, a[i]), blocks) for i in range(n_layer)
+        ]
     return _with_logits_weight(out)
 
 
 def params_to_numpy(params: Params) -> dict:
-    """Inverse of `params_from_numpy`: float32 numpy arrays with the layer
-    stacks re-stacked to [L, ...] and `token_embed_f32` dropped."""
+    """Inverse of `params_from_numpy`: numpy arrays with the layer stacks
+    re-stacked to [L, ...] and `token_embed_f32` dropped. Float leaves come
+    out as float32 (bf16 scales exactly: numpy has no bf16), integer leaves
+    in their own dtype."""
 
-    def leaf(t):
-        return t.detach().float().cpu().numpy()
+    def leaf(_, t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
 
     def stack(blocks):
         if isinstance(blocks[0], dict):
             return {k: stack([b[k] for b in blocks]) for k in blocks[0]}
-        return np.stack([leaf(b) for b in blocks])
+        return np.stack([leaf(None, b) for b in blocks])
 
     out = {}
     for part in ("encoder", "decoder"):
@@ -218,8 +244,16 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def dense(x: torch.Tensor, p: Params) -> torch.Tensor:
-    y = x @ p["w"]
+def dense(x: torch.Tensor, p: Params, a8: bool = False) -> torch.Tensor:
+    """Linear layer; dispatches on the weight's form like the JAX `dense`:
+    "w_q4" → W4A16, "w_q" → W8A16 (W8A8 when `a8`), else the plain
+    product. `a8` is a no-op for unquantized and int4 weights."""
+    if "w_q4" in p:
+        y = quant.quantized_matmul_w4(x, p)
+    elif "w_q" in p:
+        y = quant.quantized_matmul_w8a8(x, p) if a8 else quant.quantized_matmul(x, p)
+    else:
+        y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
@@ -253,11 +287,51 @@ def _q8_row_quantize(x32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _q8_quantize(x32, -1)
 
 
+def _q8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8 over the last (Dh) axis for the int8 self-KV cache:
+    (q8, scale f32 [..., 1]) with x ≈ q8 * scale. Each written row carries
+    its own scale, so the cache quantizes incrementally at write time."""
+    return _q8_row_quantize(x.float())
+
+
+def _self_kv_write(cache, new: torch.Tensor, pos: int) -> None:
+    """Write one layer's new K/V rows [B,H,T,Dh] into its cache at
+    positions [pos, pos+T), quantizing on write when the cache is the int8
+    {"q8", "scale"} form.
+
+    In place, where the JAX version returns an updated cache: the cache is
+    the largest decode-time buffer, and eager torch cannot alias a
+    functional update the way XLA does inside jit, so a copy per step
+    would double the step's cache traffic."""
+    t = new.shape[2]
+    if isinstance(cache, dict):
+        q8, scale = _q8_rows(new)
+        cache["q8"][:, :, pos : pos + t] = q8
+        cache["scale"][:, :, pos : pos + t] = scale
+    else:
+        cache[:, :, pos : pos + t] = new
+
+
+def _attend_self_q8(q, k, v, mask):
+    """Self-attention over the int8 per-token-scale cache, any number of
+    query rows (the prefill; the T==1 step runs the same math in K5).
+    k/v: {"q8": int8 [B,H,S,Dh], "scale": f32 [B,H,S,1]}. The query is
+    scaled by dh^-0.5 in float32 and row-quantized; the rest is the plain
+    version of K5, whose integer dots are exact in float32 here."""
+    dh = q.shape[-1]
+    qi, q_scale = _q8_row_quantize(q.float() * dh**-0.5)
+    out = self_attend_q8_reference(qi, q_scale, k["q8"], k["scale"], v["q8"], v["scale"], mask)
+    return out.to(q.dtype)
+
+
 def _attend(q, k, v, mask=None, force_f32_scores=False):
     """Plain attention, q [B,H,Tq,Dh], k/v [B,H,Tk,Dh]; Whisper scales q
     and k by dh^-0.25. Scores are float32 when an operand is float32 or
     when `force_f32_scores` (the raw decode cross path), else in the
-    operands' dtype."""
+    operands' dtype. An int8 {"q8", "scale"} cache goes to
+    `_attend_self_q8`."""
+    if isinstance(k, dict):
+        return _attend_self_q8(q, k, v, mask)
     scale = q.shape[-1] ** -0.25
     qs, ks = q * scale, k * scale
     if force_f32_scores or q.dtype == torch.float32 or k.dtype == torch.float32:
@@ -280,8 +354,14 @@ def _conv1d(x, w, b, stride):
     return F.conv1d(x.to(w.dtype), w, b, stride=stride, padding=1)
 
 
-def encoder_forward(params: Params, mel: torch.Tensor, dims: WhisperDims) -> torch.Tensor:
-    """mel [B, n_mels, 3000] → encoder output [B, 1500, d_audio]."""
+def encoder_forward(
+    params: Params, mel: torch.Tensor, dims: WhisperDims, act8: bool = False
+) -> torch.Tensor:
+    """mel [B, n_mels, 3000] → encoder output [B, 1500, d_audio].
+
+    act8: W8A8, the "w8a8" scheme: int8-quantized block linears (q, k, v,
+    out, fc1, fc2) run with int8 activations (`dense(a8=True)`); attention
+    and the convolutions stay as they are. No-op on unquantized weights."""
     enc = params["encoder"]
     n_head = dims.n_audio_head
     x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
@@ -290,12 +370,12 @@ def encoder_forward(params: Params, mel: torch.Tensor, dims: WhisperDims) -> tor
     x = x + enc["pos_embed"].to(x.dtype)
     for bp in enc["blocks"]:
         h = layer_norm(x, bp["attn_ln"])
-        q = _split_heads(dense(h, bp["attn"]["q"]), n_head).contiguous()
-        k = _split_heads(dense(h, bp["attn"]["k"]), n_head).contiguous()
-        v = _split_heads(dense(h, bp["attn"]["v"]), n_head).contiguous()
-        x = x + dense(_merge_heads(mha_encoder(q, k, v)), bp["attn"]["out"])
+        q = _split_heads(dense(h, bp["attn"]["q"], act8), n_head).contiguous()
+        k = _split_heads(dense(h, bp["attn"]["k"], act8), n_head).contiguous()
+        v = _split_heads(dense(h, bp["attn"]["v"], act8), n_head).contiguous()
+        x = x + dense(_merge_heads(mha_encoder(q, k, v)), bp["attn"]["out"], act8)
         h = layer_norm(x, bp["mlp_ln"])
-        x = x + dense(_gelu(dense(h, bp["fc1"])), bp["fc2"])
+        x = x + dense(_gelu(dense(h, bp["fc1"], act8)), bp["fc2"], act8)
     return layer_norm(x, enc["ln_post"])
 
 
@@ -366,21 +446,47 @@ def _cross_attend(cq, ck, cv):
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(dims: WhisperDims, batch: int, length: int, dtype, device):
-    """Self-attention KV cache, two [L, B, H, length, Dh] zero tensors."""
+def init_kv_cache(dims: WhisperDims, batch: int, length: int, dtype, device, quantize: bool = False):
+    """Self-attention KV cache (k, v): two [L, B, H, length, Dh] zero
+    tensors of `dtype`, or with `quantize` the int8 form, two
+    {"q8": int8 [L, B, H, length, Dh], "scale": f32 [L, B, H, length, 1]}
+    dicts, zero-filled (the JAX prefill's allocation)."""
     shape = (dims.n_text_layer, batch, dims.n_text_head, length, dims.head_dim)
-    return (
-        torch.zeros(shape, dtype=dtype, device=device),
-        torch.zeros(shape, dtype=dtype, device=device),
-    )
+
+    def one():
+        if quantize:
+            return {
+                "q8": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device),
+            }
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return one(), one()
+
+
+def _self_attend_step(q, kk, vv, mask_row):
+    """T==1 self-attention of one layer over its cache through the kernels:
+    K4 over the raw cache (q scaled by dh^-0.5 in its dtype, then float32),
+    K5 over the int8 cache (q cast to float32, scaled, row-quantized: the
+    JAX Pallas-gate recipe, the kernel form of `_attend_self_q8`)."""
+    dh = q.shape[-1]
+    if isinstance(kk, dict):
+        qi, q_scale = _q8_row_quantize(q.float() * dh**-0.5)
+        out = self_attend_q8(
+            qi.contiguous(), q_scale.contiguous(), kk["q8"], kk["scale"],
+            vv["q8"], vv["scale"], mask_row,
+        )
+    else:
+        out = self_attend((q * dh**-0.5).float().contiguous(), kk, vv, mask_row)
+    return out.to(q.dtype)
 
 
 def decoder_forward(
     params: Params,
     tokens: torch.Tensor,  # [B, T] int
     pos_offset: int,  # position of tokens[:, 0]
-    kv_k: torch.Tensor,  # [L, B, H, S, Dh], written in place
-    kv_v: torch.Tensor,
+    kv_k,  # [L, B, H, S, Dh] or int8 {"q8", "scale"}, written in place
+    kv_v,
     cross_k,  # [L, B, H, 1500, Dh] or int8 {"q8", "scale"}
     cross_v,
     dims: WhisperDims,
@@ -390,18 +496,20 @@ def decoder_forward(
 
     Unlike the JAX version, which returns an updated cache, this writes the
     new keys and values into `kv_k`/`kv_v` IN PLACE at positions
-    [pos_offset, pos_offset + T): the cache is the largest decode-time
-    buffer, and a copy per step would double its traffic.
+    [pos_offset, pos_offset + T) (`_self_kv_write`). The cache is raw
+    tensors or the int8 per-token-scale form (`init_kv_cache(quantize=
+    True)`), whose rows are quantized as they are written.
 
     T > 1 (prefill) attends with plain torch under a causal mask; T == 1
-    (the decode step) runs the self-attention kernel over the cache with
-    the additive mask row (0 up to `pos_offset`, -inf after), which the
-    caller may pass in (`mask_row`, [1, S] float32) to avoid rebuilding it.
+    (the decode step) runs the self-attention kernel over the cache (K4
+    raw, K5 int8) with the additive mask row (0 up to `pos_offset`, -inf
+    after), which the caller may pass in (`mask_row`, [1, S] float32) to
+    avoid rebuilding it.
     """
     dec = params["decoder"]
     b, t = tokens.shape
     n_head = dims.n_text_head
-    s_max = kv_k.shape[3]
+    s_max = (kv_k["q8"] if isinstance(kv_k, dict) else kv_k).shape[3]
     dev = tokens.device
 
     x = dec["token_embed"][tokens]
@@ -417,16 +525,14 @@ def decoder_forward(
         mask = torch.zeros((t, s_max), dtype=torch.float32, device=dev)
         mask = mask.masked_fill(key_pos > query_pos, float("-inf"))[None, None]
 
-    dh = dims.head_dim
     for li, bp in enumerate(dec["blocks"]):
-        kk, vv = kv_k[li], kv_v[li]
+        kk, vv = _layer(kv_k, li), _layer(kv_v, li)
         h = layer_norm(x, bp["attn_ln"])
         q = _split_heads(dense(h, bp["attn"]["q"]), n_head)
-        kk[:, :, pos_offset : pos_offset + t] = _split_heads(dense(h, bp["attn"]["k"]), n_head)
-        vv[:, :, pos_offset : pos_offset + t] = _split_heads(dense(h, bp["attn"]["v"]), n_head)
+        _self_kv_write(kk, _split_heads(dense(h, bp["attn"]["k"]), n_head), pos_offset)
+        _self_kv_write(vv, _split_heads(dense(h, bp["attn"]["v"]), n_head), pos_offset)
         if t == 1:
-            q_scaled = (q * dh**-0.5).float().contiguous()
-            attn = self_attend(q_scaled, kk, vv, mask_row).to(q.dtype)
+            attn = _self_attend_step(q, kk, vv, mask_row)
         else:
             attn = _attend(q, kk, vv, mask)
         x = x + dense(_merge_heads(attn), bp["attn"]["out"])

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All `csrc/*.cu` sources compile with nvcc into ONE shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers: a build takes
-seconds, not minutes). Each exported function takes its pointers and the
+All `csrc/*.cu` sources compile with nvcc, one process per source, all
+started together, and link into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers: a build takes seconds,
+not minutes). Each exported function takes its pointers and the
 CUDA stream as `void*`, launches on that stream, and returns
 `cudaGetLastError()` as an int; the Python wrappers raise when it is not 0.
 
@@ -35,11 +36,12 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "whisperkit_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend")
+KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend", "self_attend_q8")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -55,6 +57,8 @@ _SIGNATURES = {
     "wk_cross_attend_q8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, mask, out, batch*heads, s, is_bf16, stream
     "wk_self_attend": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # qi, q_scale, k, k_scale, v, v_scale, mask, out, batch*heads, s, stream
+    "wk_self_attend_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -90,7 +94,7 @@ def _nvcc() -> str:
 
 
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -99,21 +103,48 @@ def _library_path() -> Path:
 
 def build(force: bool = False) -> BuildResult:
     """Compile csrc/*.cu into the shared library, or reuse an identical
-    earlier build."""
+    earlier build. Each source compiles in its own nvcc process, all
+    running at once, then one nvcc links the objects."""
     path = _library_path()
     if path.exists() and not force:
         return BuildResult(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    stem = f"{path.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n{log}")
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        log = BUILD_DIR / f"{stem}.{src.stem}.log"
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=out, stderr=subprocess.STDOUT,
+            )
+        jobs.append((src, obj, log, proc))
+    logs, failed, objs = [], [], []
+    for src, obj, log, proc in jobs:
+        rc = proc.wait()
+        text = log.read_text()
+        log.unlink()
+        logs.append(f"{src.name}:\n{text}")
+        if rc != 0:
+            failed.append(f"{src.name} (rc={rc}):\n{text}")
+        objs.append(obj)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            failed.append(f"link (rc={link.returncode}):\n{link.stdout}{link.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, path)
-    return BuildResult(path, seconds, log)
+    return BuildResult(path, time.perf_counter() - t0, "\n".join(logs))
 
 
 def library() -> ctypes.CDLL:

@@ -3,12 +3,16 @@
   cross_attend_q8  int8 cross-attention over the int8 cross-KV (K3), for
                    one or more query rows (the T==1 step and the prefill)
   self_attend      T==1 self-attention over the raw bf16/f32 cache (K4)
+  self_attend_q8   T==1 self-attention over the int8 per-token-scale
+                   cache (K5)
 
 For CUDA tensors each launches its hand-written kernel in
 csrc/attention_decode.cu; for CPU tensors it runs the plain torch version
-beside it. The plain versions compute the integer dots in float64, which
-is exact for these sizes on CPU and CUDA alike (torch's int8 matmul
-returns int8 and overflows, and float32 is not exact past 2^24).
+beside it. torch's int8 matmul returns int8 and overflows, so the plain
+versions compute the integer dots in floats: in float64 for K3, whose
+1500-key dot passes 2^24 (1500 · 127² > 2^24), and in float32 for K5,
+whose dots stay below it (64 · 127² and 448 · 127²), exact on CPU and CUDA
+alike.
 """
 
 from __future__ import annotations
@@ -109,5 +113,70 @@ def self_attend(q, k, v, mask_row) -> torch.Tensor:
             "self_attend", "wk_self_attend",
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_row),
             _build.ptr(out), b * h, s, int(k.dtype == torch.bfloat16),
+        )
+    return out
+
+
+def self_attend_q8_probs(qi, q_scale, k_q8, k_scale, v_scale, mask_row):
+    """K5's requantized probabilities: (pi [B,H,T,S] f32 holding the int8
+    codes in [0, 127], p_scale [B,H,T,1] f32), the per-token V scales
+    folded in. Shapes as in `self_attend_q8_reference`."""
+    scores_i = qi.float() @ k_q8.float().transpose(-1, -2)
+    scores = scores_i * q_scale * k_scale.transpose(-1, -2) + mask_row
+    probs = torch.softmax(scores, dim=-1)
+    pw = probs * v_scale.transpose(-1, -2)  # fold the per-token V scales
+    p_scale = torch.clamp_min(pw.amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    return torch.clamp(torch.round(pw / p_scale), 0, 127), p_scale
+
+
+def self_attend_q8_reference(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row) -> torch.Tensor:
+    """Plain torch version of K5 (the JAX `_self_decode_q8_kernel` and
+    `_attend_self_q8` math): qi [B,H,T,Dh] i8 (row-quantized query with
+    dh^-0.5 folded in), q_scale [B,H,T,1] f32, k/v [B,H,S,Dh] i8,
+    k_scale/v_scale [B,H,S,1] f32 per-token, mask_row additive f32
+    broadcasting to [B,H,T,S] → [B,H,T,Dh] f32. The integer dots are exact
+    in float32 (at most 448 · 127² < 2^24)."""
+    pi, p_scale = self_attend_q8_probs(qi, q_scale, k_q8, k_scale, v_scale, mask_row)
+    return (pi @ v_q8.float()) * p_scale
+
+
+def self_attend_q8(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row) -> torch.Tensor:
+    """T==1 self-attention over the int8 cache: qi [B,H,1,Dh] i8, q_scale
+    [B,H,1,1] f32, k/v [B,H,S,Dh] i8, k_scale/v_scale [B,H,S,1] f32,
+    mask_row [1,S] f32 → [B,H,1,Dh] f32. CUDA: csrc/attention_decode.cu;
+    CPU: the plain version."""
+    if not qi.is_cuda:
+        return self_attend_q8_reference(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row)
+    _build.check_cuda("qi", qi, torch.int8, 4)
+    _build.check_cuda("q_scale", q_scale, torch.float32, 4)
+    _build.check_cuda("k", k_q8, torch.int8, 4)
+    _build.check_cuda("k_scale", k_scale, torch.float32, 4)
+    _build.check_cuda("v", v_q8, torch.int8, 4)
+    _build.check_cuda("v_scale", v_scale, torch.float32, 4)
+    _build.check_cuda("mask_row", mask_row, torch.float32, 2)
+    b, h, s, dh = k_q8.shape
+    if dh != 64:
+        raise ValueError(f"self_attend_q8 takes head dim 64, got {dh}")
+    expected = {
+        "qi": (qi, (b, h, 1, dh)),
+        "q_scale": (q_scale, (b, h, 1, 1)),
+        "k_scale": (k_scale, (b, h, s, 1)),
+        "v": (v_q8, (b, h, s, dh)),
+        "v_scale": (v_scale, (b, h, s, 1)),
+        "mask_row": (mask_row, (1, s)),
+    }
+    for name, (x, shape) in expected.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
+    for name, x in (("qi", qi), ("k", k_q8), ("v", v_q8)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+    out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=qi.device)
+    with torch.cuda.device(qi.device):
+        _build.launch(
+            "self_attend_q8", "wk_self_attend_q8",
+            _build.ptr(qi), _build.ptr(q_scale), _build.ptr(k_q8), _build.ptr(k_scale),
+            _build.ptr(v_q8), _build.ptr(v_scale), _build.ptr(mask_row), _build.ptr(out),
+            b * h, s,
         )
     return out

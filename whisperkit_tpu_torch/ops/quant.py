@@ -1,0 +1,196 @@
+"""Weight quantization for Whisper (port of the Whisper part of
+whisperkit_tpu/ops/quant.py).
+
+Three schemes, with the JAX package's layouts and rounding points:
+
+  W8A16  {"w_q": int8 [in, out], "scale": bf16 [out], "b": ...}; the weight
+         is dequantized in the activation dtype, then multiplied
+  W4A16  {"w_q4": uint8 [in/2, out], "scale4": bf16 [in/group, out], ...};
+         half-plane nibbles (byte row p holds row p in the low nibble and
+         row p + in/2 in the high), two half-dots summed
+  W8A8   the W8A16 tree with the activation row-quantized to int8 and an
+         exact integer dot (the encoder's `act8` path)
+
+`models/whisper.dense` dispatches on the keys. None of these products runs
+in a Pallas kernel in the JAX package (XLA fuses the dequant into the
+matmul), so here they are plain torch: the dequantized weight is formed per
+call and multiplied with `torch.matmul`. A fused-dequant GEMV and an int8
+GEMM are speed work for later (ROADMAP.md A.1).
+
+The TTS, speaker and conv quantizers wait for their models, and
+`QUANT_FORMATS` for the checkpoint loader.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from whisperkit_tpu_torch.ops.attention_decode import _int_dot
+
+Params = dict[str, Any]
+
+W4_GROUP = 64  # rows per scale group; divides every Whisper linear's d_model
+
+# leaves that hold weight scales: bf16 whatever the tree's float dtype
+SCALE_KEYS = ("scale", "scale4")
+
+
+def quantize_weight(w: torch.Tensor) -> dict:
+    """[in, out] float → {"w_q" int8, "scale" bf16 [out]} (symmetric,
+    per output channel)."""
+    w32 = w.float()
+    scale = torch.clamp_min(w32.abs().amax(dim=0) / 127.0, 1e-8)
+    w_q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127).to(torch.int8)
+    return {"w_q": w_q, "scale": scale.to(torch.bfloat16)}
+
+
+def dequantize_weight(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
+    """The [in, out] weight in `dtype` (float32 or bfloat16), in one pass:
+    the int8 codes times the scales, computed in float and rounded once.
+    That is JAX's `dequantize_weight` (an f32 product, then a cast) and its
+    `quantized_matmul` operand (a product in the activation dtype) alike:
+    the code, the bf16 scale and their product are exact in float32."""
+    return q["w_q"] * q["scale"].to(dtype)[None, :]
+
+
+def quantized_matmul(x: torch.Tensor, q: dict) -> torch.Tensor:
+    """x [..., in] @ dequant(w), the weight dequantized in x's dtype."""
+    return x @ dequantize_weight(q, x.dtype)
+
+
+def quantized_matmul_w8a8(x: torch.Tensor, q: dict) -> torch.Tensor:
+    """x [..., in] @ int8 w through an exact integer dot (W8A8): x is
+    row-quantized (symmetric per-token absmax, round half to even) and the
+    integer accumulator is rescaled by (row scale × per-output-channel
+    weight scale).
+
+    torch has no int8 × int8 → int32 product on CUDA, and float32 is not
+    exact here (1280 · 127² > 2^24), so the dot runs in float64, which is
+    exact for these sizes on the CPU and the card alike."""
+    x32 = x.float()
+    a_scale = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    xq = torch.clamp(torch.round(x32 / a_scale), -127, 127).to(torch.int8)
+    acc = _int_dot(xq, q["w_q"])
+    y = acc.float() * a_scale * q["scale"].float()
+    return y.to(x.dtype)
+
+
+# --- W4A16 -------------------------------------------------------------------
+
+
+def quantize_weight_w4(w: torch.Tensor, group: int = W4_GROUP) -> dict:
+    """[in, out] float → {"w_q4" uint8 [in/2, out] (half-plane nibbles),
+    "scale4" bf16 [in/group, out]} (symmetric per (group × output channel);
+    one group when `group` does not divide the input dim). The input dim
+    must be even."""
+    w32 = w.float()
+    din, dout = w32.shape
+    if din % 2:
+        raise ValueError(f"W4A16 needs an even input dim, got {din}")
+    if din % group:
+        group = din
+    wg = w32.reshape(din // group, group, dout)
+    scale = torch.clamp_min(wg.abs().amax(dim=1) / 7.0, 1e-8)  # [g, out]
+    q = torch.clamp(torch.round(wg / scale[:, None, :]), -7, 7).reshape(din, dout)
+    u = (q.to(torch.int8) + 8).to(torch.uint8)  # codes in [1, 15]
+    half = din // 2
+    return {"w_q4": u[:half] | (u[half:] << 4), "scale4": scale.to(torch.bfloat16)}
+
+
+def _scale4_full(q: dict, dtype) -> torch.Tensor:
+    """The [g, out] group scales broadcast to the full [in, out] shape."""
+    din, dout = 2 * q["w_q4"].shape[0], q["w_q4"].shape[1]
+    g = q["scale4"].shape[0]
+    return q["scale4"].to(dtype)[:, None, :].expand(g, din // g, dout).reshape(din, dout)
+
+
+def _unpack4_planes(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint8 [in/2, out] → (lo, hi) int8 codes in [-7, 7]: lo is rows
+    [0, in/2), hi is rows [in/2, in)."""
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    return lo, hi
+
+
+def _w4_planes(q: dict, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dequantized weight's rows [0, in/2) and [in/2, in) in `dtype`:
+    each plane's codes times its group scales."""
+    lo, hi = _unpack4_planes(q["w_q4"])
+    s = _scale4_full(q, dtype)
+    half = lo.shape[0]
+    return lo * s[:half], hi * s[half:]
+
+
+def w4_dequant(q: dict, dtype) -> torch.Tensor:
+    """The full [in, out] weight of a {"w_q4", "scale4"} dict."""
+    return torch.cat(_w4_planes(q, dtype), dim=0)
+
+
+def quantized_matmul_w4(x: torch.Tensor, q: dict) -> torch.Tensor:
+    """x [..., in] @ dequant4(w) as two half-dots (x's low features against
+    the low-nibble plane, its high features against the high plane) summed,
+    each plane dequantized in x's dtype."""
+    lo, hi = _w4_planes(q, x.dtype)
+    half = lo.shape[0]
+    return x[..., :half] @ lo + x[..., half:] @ hi
+
+
+# --- parameter trees ---------------------------------------------------------
+
+# param-dict keys that hold linear weights [in, out]
+_LINEAR_KEYS = {"q", "k", "v", "out", "fc1", "fc2"}
+
+
+def quantize_whisper_params(params: Params, min_size: int = 1 << 16, bits: int = 8) -> Params:
+    """Quantize every linear weight of a port parameter tree
+    (`models/whisper.init_params` / `params_from_numpy`); embeddings,
+    norms, convolutions and biases stay as they are. bits=8 gives the
+    W8A16 form (also the W8A8 scheme's weights), bits=4 the W4A16 form.
+
+    `min_size` applies to the layer stack's size, as in the JAX package,
+    whose stacks are one [L, in, out] array: a linear is quantized when
+    L · in · out ≥ min_size. The new leaves lie on the weights' device."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    qfn = quantize_weight if bits == 8 else quantize_weight_w4
+
+    def quantize_linear(node: dict) -> dict:
+        out = {k: v for k, v in node.items() if k != "w"}
+        out.update(qfn(node["w"]))
+        return out
+
+    def walk(node, key=None, n_stack=1):
+        if isinstance(node, list):  # a layer stack: one dict per layer
+            return [walk(v, key, len(node)) for v in node]
+        if isinstance(node, dict):
+            if (
+                key in _LINEAR_KEYS
+                and isinstance(node.get("w"), torch.Tensor)
+                and node["w"].numel() * n_stack >= min_size
+            ):
+                return quantize_linear(node)
+            return {k: walk(v, k, n_stack) for k, v in node.items()}
+        return node
+
+    return walk(params)
+
+
+def quantized_size_bytes(params: Params) -> int:
+    """Device-resident parameter bytes, each storage counted once (for
+    float32 weights `token_embed_f32` is `token_embed` itself)."""
+    seen: dict[tuple, int] = {}
+
+    def visit(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                visit(v)
+        elif isinstance(node, list):
+            for v in node:
+                visit(v)
+        elif isinstance(node, torch.Tensor):
+            seen[(node.device, node.data_ptr())] = node.numel() * node.element_size()
+
+    visit(params)
+    return sum(seen.values())

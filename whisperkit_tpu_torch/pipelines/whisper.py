@@ -7,10 +7,15 @@ and decoded together, in length-sorted groups of `concurrent_worker_count`
 windows with a power-of-two bucket for the last, partial group; audio of at
 most one window takes the seek path.
 
-This slice covers greedy and top-k decoding with the temperature-fallback
-ladder, timestamp rules, language detection, bf16/f32 weights and the int8
-cross-KV serving mode (`ComputeOptions.serving()`). Options outside it
-raise NotImplementedError and name the later work that brings them.
+The port covers greedy and top-k decoding with the temperature-fallback
+ladder, timestamp rules, language detection, bf16/f32 weights and
+`ComputeOptions`' int8 side: the int8 cross-KV serving mode
+(`ComputeOptions.serving()`), the int8 self-KV cache (`quantize_self_kv`)
+and W8A16/W4A16/W8A8 weights. Params come in already quantized
+(`ops/quant.quantize_whisper_params`, as the JAX pipeline takes them when
+it does not load a checkpoint); `quantization` selects only the W8A8
+encoder's int8 activations here. Options outside the port so far raise
+NotImplementedError and name the later work that brings them.
 """
 
 from __future__ import annotations
@@ -117,7 +122,7 @@ class WhisperPipeline:
         self._detected_language: Optional[str] = None
         self.params = None
         if params is not None and dims is not None:
-            self.params = _map(lambda t: t.to(self.device), params)
+            self.params = _map(lambda _, t: t.to(self.device), params)
             if self.tokenizer is None:
                 self.tokenizer = FakeTokenizer(dims.n_vocab)
             self.model_state = ModelState.LOADED
@@ -126,10 +131,6 @@ class WhisperPipeline:
 
     def _check_compute_options(self) -> None:
         co = self.config.compute_options
-        if co.quantization:
-            raise _not_in_slice(f"weight quantization {co.quantization!r} (ops/quant.py)")
-        if co.quantize_self_kv:
-            raise _not_in_slice("the int8 self-KV cache (quantize_self_kv)")
         if co.segmented_decode:
             raise _not_in_slice("segmented decode with batch compaction")
         if (co.dp_size or 1) * co.tp_size * co.dcn_size > 1:
@@ -152,6 +153,12 @@ class WhisperPipeline:
     @property
     def is_multilingual(self) -> bool:
         return self.dims.n_vocab != 51864 if self.dims else True
+
+    @property
+    def _act8(self) -> bool:
+        """W8A8: int8-activation encoder matmuls (quantization="w8a8"; its
+        int8 weights are the W8A16 tree's)."""
+        return self.config.compute_options.quantization == "w8a8"
 
     # -- helpers ------------------------------------------------------------
 
@@ -233,7 +240,7 @@ class WhisperPipeline:
         """encode_window with the serving-mode int8 cross-KV fused in."""
         return encode_window(
             self.params, mel_batch, self.dims,
-            quantize_kv=self.config.compute_options.quantize_cross_kv,
+            quantize_kv=self.config.compute_options.quantize_cross_kv, act8=self._act8,
         )
 
     # -- language detection -------------------------------------------------
@@ -243,7 +250,7 @@ class WhisperPipeline:
         if isinstance(audio, (str, Path)):
             audio = load_audio(audio)
         mel = self._mel(pad_or_trim(np.asarray(audio, np.float32)))[None]
-        _, ck, cv = encode_window(self.params, mel, self.dims)
+        _, ck, cv = encode_window(self.params, mel, self.dims, act8=self._act8)
         probs = detect_language_logits(
             self.params, ck, cv, dims=self.dims, special=self.tokenizer.special
         ).cpu().numpy()[0]
@@ -332,6 +339,8 @@ class WhisperPipeline:
         max_new = min(options.sample_length, MAX_TOKEN_CONTEXT - len(prompt))
 
         prefill = None  # one prompt pass, reused by every rung of the ladder
+        # the self-KV cache's form is fixed where the prefill allocates it
+        qskv = self.config.compute_options.quantize_self_kv
 
         def get_prefill():
             nonlocal prefill
@@ -340,7 +349,7 @@ class WhisperPipeline:
                 prefill = prefill_window(
                     self.params, cross_k, cross_v, prompt_arr,
                     dims=self.dims, special=sp, sample_begin=len(prompt),
-                    max_new_tokens=max_new, sot_index=sot_index,
+                    max_new_tokens=max_new, sot_index=sot_index, quantize_self_kv=qskv,
                 )
                 self._sync()
                 self.timings.prefill += time.perf_counter() - t_pre

@@ -1,0 +1,154 @@
+"""Profile the port's decode step on one CUDA card.
+
+    python -m whisperkit_tpu_torch.tools.profile_step
+
+large-v3 at full width and depth (random weights from `init_params(SEED)`),
+BATCH windows of random audio through the log-mel kernel, the encoder and
+the int8 cross-KV, then `decode_loop` for STEPS decoder steps after a
+prompt of START tokens, so the steps attend over positions START ..
+START + STEPS.
+
+Two configurations: bf16 weights with the bf16 self-KV cache (the
+`ComputeOptions.serving()` decode), and the same weights quantized to
+W8A16 with the int8 self-KV cache (`serving(quantization="w8a16",
+quantize_self_kv=True)`). For each it prints one JSON line:
+
+  step_ms_unprofiled  wall per step of three loops after a warm-up one
+                      (host clock, the device synced before and after)
+  device_busy_ms      per step: the union of the device activities'
+                      intervals (kernels, copies, sets) in a
+                      `torch.profiler` trace of one more loop
+  launches_per_step   device activities per step in that trace
+  port_kernels        the port's kernel launches per step (`_build.launches`)
+  top                 the 12 kernel names with the most device time:
+                      [name (first 70 characters), count in the trace,
+                      ms per step]
+
+The card's name and power limit (`nvidia-smi`) come first.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+BATCH, STEPS, START, SEED = 32, 32, 60, 0
+
+
+def _busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile_config(pipe, mel, steps: int, start: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperkit_tpu.core.configurations import DecodingOptions
+    from whisperkit_tpu_torch.decoding.loop import decode_loop, prefill_window
+    from whisperkit_tpu_torch.ops import _build
+
+    sp = pipe.tokenizer.special
+    options = DecodingOptions(language="en", first_token_log_prob_threshold=None)
+    _, ck, cv = pipe._encode(mel, options)
+    base, sot_index = pipe._build_prompt(options, "en")
+    prompt = base + list(range(1000, 1000 + start - len(base)))  # text tokens
+    prompt_arr = torch.tensor([prompt] * mel.shape[0], dtype=torch.long, device=pipe.device)
+    kwargs = dict(
+        dims=pipe.dims, special=sp, sample_begin=start, max_new_tokens=steps + 1,
+        sot_index=sot_index,
+    )
+    pre = prefill_window(pipe.params, ck, cv, prompt_arr, **kwargs,
+                         quantize_self_kv=pipe.config.compute_options.quantize_self_kv)
+
+    def loop():
+        # steps + 1 sampled tokens, `steps` decoder steps
+        return decode_loop(
+            pipe.params, ck, cv, prompt_arr, pipe._suppress_bias(options),
+            pipe._decode_scalars(options, 0.0, 0), **kwargs, top_k=options.top_k,
+            use_timestamp_rules=not options.without_timestamps,
+            suppress_blank=options.suppress_blank, prefill=pre,
+        )
+
+    loop()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loop()
+        torch.cuda.synchronize()
+    counts = {k: v / steps for k, v in _build.launches.items() if v}
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name: dict[str, list] = {}
+    for e in device:
+        entry = by_name.setdefault(e.name[:70], [0, 0.0])
+        entry[0] += 1
+        entry[1] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {
+        "step_ms_unprofiled": walls,
+        "device_busy_ms": _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / steps,
+        "launches_per_step": len(device) / steps,
+        "port_kernels": counts,
+        "top": [[name, n, us / 1e3 / steps] for name, (n, us) in top],
+    }
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("profile_step needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
+    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
+
+    dims = VARIANT_DIMS["large-v3"]
+    params = init_params(SEED, dims, torch.bfloat16, "cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    configs = {
+        "bf16": (ComputeOptions.serving(), params),
+        "int8": (ComputeOptions.serving(quantization="w8a16", quantize_self_kv=True),
+                 quantize_whisper_params(params)),
+    }
+    for label, (compute, tree) in configs.items():
+        pipe = WhisperPipeline(WhisperConfig(compute_options=compute, load=False),
+                               dims=dims, params=tree, device="cuda")
+        audio = [(torch.randn(480_000, generator=g, device="cuda") * 0.1).cpu().numpy()
+                 for _ in range(BATCH)]
+        with torch.inference_mode():
+            result = profile_config(pipe, pipe._mel_batch(audio), STEPS, START)
+        print(json.dumps({"config": label, "batch": BATCH, "positions": [START, START + STEPS],
+                          **result}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
