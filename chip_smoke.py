@@ -9,11 +9,15 @@ Phases, one line each; any failure exits non-zero:
   2. build the hand-written kernels (csrc/*.cu) with nvcc for sm_90a, one
      nvcc per source, all started together
   3. each kernel against its plain torch version at the main paths'
-     shapes: max abs error, tolerance, CUDA-event times
+     shapes: max abs error, tolerance, CUDA-event times of the kernel, its
+     plain version and, where one PyTorch call computes the same function,
+     that call (K2 and K4: F.scaled_dot_product_attention, never called by
+     the port), and the least time the card could take (`bound_ms`)
   4. the bf16 path: WhisperPipeline.transcribe on large-v3 (random bf16
      weights from the port's init_params(seed=0)), ComputeOptions.serving()
-     (int8 cross-KV), bench.pipeline_options(32), 10 minutes of synthetic
-     speech-like audio; launch counts, wall time, RTF, tokens/s, peak memory
+     (int8 cross-KV), tools.workload.pipeline_options(32), 10 minutes of
+     synthetic speech-like audio (tools.workload.synth_speechlike_audio);
+     launch counts, wall time, RTF, tokens/s, peak memory
   5. one decoder step after prefill at large-v3 width over the bf16 cache,
      through the kernels and through the plain versions
   6. the int8 path: the phase-4 weights quantized to W8A16 on the card,
@@ -40,6 +44,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
+# published dense peaks of one H100 SXM (the bound of each kernel)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 AUDIO_SECONDS = 600.0
 GROUP = 32
 
@@ -72,6 +79,14 @@ def max_abs(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bound(bytes_moved: float, ops: float = 0.0, kind: str = "bf16") -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def phase_card(torch) -> tuple[str, str]:
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -94,26 +109,31 @@ def phase_build() -> None:
     say(f"phase 2 build: {len(_build._sources())} sources, one nvcc each, -> {res.path.name} "
         f"in {res.seconds:.1f} s")
     for line in res.log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if ("ptxas info" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
             say(f"  {line.strip()}")
 
 
 def phase_kernels(torch, card: str) -> dict:
     """Kernel vs plain version at the main path's shapes."""
-    from whisperkit_tpu_torch.ops import attention, attention_decode, mel
+    import torch.nn.functional as F
+
+    from whisperkit_tpu_torch.ops import attention_decode, mel
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
     results = {}
 
-    def record(key, err, tol, ms, plain_ms, extra=""):
+    def record(key, err, tol, ms, plain_ms, bound_info, library_ms=None, extra=""):
         if not err <= tol:
             fail(f"{key}: max abs error {err:.3e} > tolerance {tol:.3e}")
-        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info,
+                        "library_ms": library_ms}
+        lib = f" | library {library_ms:.4f} ms" if library_ms is not None else ""
         say(
             f"phase 3 {key}: max_abs_err {err:.3e} (tol {tol:.1e}) | kernel {ms:.4f} ms"
-            f" | plain {plain_ms:.4f} ms{extra} | {card}"
+            f" | plain {plain_ms:.4f} ms{lib} | bound {bound_info['bound_ms']:.4f} ms"
+            f" ({bound_info['bound_by']}, {100 * bound_info['bound_ms'] / ms:.1f}% of it){extra} | {card}"
         )
 
     # K1: log-mel, 32 windows of 30 s, n_mels 128 (large-v3)
@@ -126,32 +146,23 @@ def phase_kernels(torch, card: str) -> dict:
     err = max_abs(torch, out, ref)
     ms = cuda_ms(torch, lambda i: mel.log_mel_frames(audio[i % 2], 128), 20)
     plain = cuda_ms(torch, lambda i: mel.log_mel_frames_reference(padded[i % 2], 128, mel.N_FRAMES), 20)
-    record("log_mel", err, 2e-4, ms, plain, " | B=32 n_mels=128")
+    # per frame: the windowed DFT (cos and sin, 400 x 201), power, the
+    # 201 x 128 mel product; f32 outside the tensor cores
+    frames = GROUP * mel.N_FRAMES
+    n_freq = mel.N_FFT // 2 + 1
+    ops = frames * (2 * 2 * mel.N_FFT * n_freq + 3 * n_freq + 2 * n_freq * 128)
+    k1_bound = bound(audio[0].numel() * 4 + out.numel() * 4, ops, "f32")
+    # a partial group (the 600 s run's 26 chunks in a 32-row group) adds a
+    # second launch: the one zero window that pads its rows
+    one = audio[0][:1]
+    ms_one = cuda_ms(torch, lambda i: mel.log_mel_frames(one, 128), 20)
+    one_bound = bound(one.numel() * 4 + out[:1].numel() * 4, ops / GROUP, "f32")
+    record("log_mel", err, 2e-4, ms, plain, k1_bound,
+           extra=f" | B=32 n_mels=128 | B=1 (the pad window) {ms_one:.4f} ms, bound {one_bound['bound_ms']:.4f} ms")
+    results["log_mel"].update(one_window_ms=ms_one, one_window_bound_ms=one_bound["bound_ms"])
+    del audio, padded
 
-    # K2: encoder attention, B=2 H=20 S=1500 Dh=64, f32 and bf16
-    shape = (2, 20, 1500, 64)
-    qkv = [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
-    out = attention.mha_encoder(*qkv)
-    ref = attention.mha_encoder_reference(*qkv)
-    err32 = max_abs(torch, out, ref)
-    ms = cuda_ms(torch, lambda i: attention.mha_encoder(*qkv), 10)
-    plain = cuda_ms(torch, lambda i: attention.mha_encoder_reference(*qkv), 10)
-    say(f"phase 3 mha_encoder f32: max_abs_err {err32:.3e} (tol 2.0e-05) | kernel {ms:.4f} ms"
-        f" | plain {plain:.4f} ms | f32 B=2 | {card}")
-    if not err32 <= 2e-5:
-        fail(f"mha_encoder f32: max abs error {err32:.3e} > 2e-5")
-    qkv16 = [t.to(torch.bfloat16) for t in qkv]
-    out = attention.mha_encoder(*qkv16)
-    ref = attention.mha_encoder_reference(*qkv16)
-    err = max_abs(torch, out, ref)
-    # bf16 output: two bf16 ulps at the largest output magnitude
-    tol = 2.0 ** -7 * float(ref.float().abs().max())
-    ms = cuda_ms(torch, lambda i: attention.mha_encoder(*qkv16), 10)
-    plain = cuda_ms(torch, lambda i: attention.mha_encoder_reference(*qkv16), 10)
-    big = [torch.randn((GROUP, 20, 1500, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3)]
-    ms32 = cuda_ms(torch, lambda i: attention.mha_encoder(*big), 3)
-    del big
-    record("mha_encoder", err, tol, ms, plain, f" | bf16 B=2 (kernel at B=32: {ms32:.3f} ms)")
+    results["mha_encoder"] = check_mha_encoder(torch, g, dev, card)
 
     # K3: int8 cross-attention, B=32 H=20 S=1500, one query row; two
     # K/V sets (246 MB) so every launch reads from device memory, not L2
@@ -181,9 +192,10 @@ def phase_kernels(torch, card: str) -> dict:
     qi, q_scale = q8_inputs(1)
     ms = cuda_ms(torch, lambda i: attention_decode.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale), 20)
     plain = cuda_ms(torch, lambda i: attention_decode.cross_attend_q8_reference(qi, q_scale, *kv[i % 2], v_scale), 5)
+    k3_bytes = 2 * b * h * s * 64 + qi.numel() + 4 * (q_scale.numel() + v_scale.numel() + b * h * 64)
     del kv
     record("cross_attend_q8", max(errs), 2e-4 + 2e-3 * float(ref.abs().max()), ms, plain,
-           " | B=32 S=1500 T=1 (T=3 checked too)")
+           bound(k3_bytes, 4 * b * h * s * 64, "int8"), extra=" | B=32 S=1500 T=1 (T=3 checked too)")
 
     # K4: self-attention over the bf16 cache, B=32 H=20, S = prompt (3) +
     # 224; four cache sets (149 MB) rotate so launches read device memory
@@ -200,16 +212,97 @@ def phase_kernels(torch, card: str) -> dict:
         out = attention_decode.self_attend(q, *caches[0], mask_row)
         ref = attention_decode.self_attend_reference(q, *caches[0], mask_row)
         errs.append(max_abs(torch, out, ref))
-    # float32 throughout, another summation order
+    # float32 throughout, another summation order; timed with every key
+    # visible (the mask open to S - 1)
     ms = cuda_ms(torch, lambda i: attention_decode.self_attend(q, *caches[i % 4], mask_row), 50)
     plain = cuda_ms(torch, lambda i: attention_decode.self_attend_reference(q, *caches[i % 4], mask_row), 50)
-    record("self_attend", max(errs), 1e-5, ms, plain, f" | bf16 cache B=32 S={s} pos {s // 2} and {s - 1}")
+    # the library yardstick: one SDPA call on the same cache, its query and
+    # mask cast to the cache's dtype beforehand, the scale folded into q
+    q16, mask16 = q.to(torch.bfloat16), mask_row.to(torch.bfloat16)
+    lib = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q16, *caches[i % 4], attn_mask=mask16, scale=1.0), 50)
+    k4_bytes = 2 * b * h * s * 64 * 2 + 4 * (q.numel() + s + b * h * 64)
+    record("self_attend", max(errs), 1e-5, ms, plain, bound(k4_bytes, 4 * b * h * s * 64, "f32"), lib,
+           f" | bf16 cache B=32 S={s} pos {s // 2} and {s - 1}")
     del caches
 
     # K5: self-attention over the int8 cache, B=32 H=20 S=227
-    err, tol, ms, plain, extra = check_self_attend_q8(torch, g, dev)
-    record("self_attend_q8", err, tol, ms, plain, extra)
+    err, tol, ms, plain, k5_bytes, extra = check_self_attend_q8(torch, g, dev)
+    record("self_attend_q8", err, tol, ms, plain, bound(k5_bytes, 4 * b * h * s * 64, "int8"), extra=extra)
     return results
+
+
+def check_mha_encoder(torch, g, dev, card) -> dict:
+    """K2 at H=20 S=1500. bf16: the tensor-core kernel against the plain
+    version on inputs with peaked rows (max score in the ragged last tile,
+    or in the first) and near-flat rows (tools/k2_check.py), at B=2 and at
+    B=32, each row within 2 bf16 ulps of its largest output; the same
+    result from the head-split views of one projection as from contiguous
+    copies; the plain tiled algorithm with each of four faults must exceed
+    that limit on these inputs. f32: the scalar kernel within 2e-5. Times
+    at B=2 and B=32 (the main path's group) on the head-split views, as the
+    encoder passes them (contiguous inputs timed beside them), with SDPA on
+    the same views as the library yardstick and the bound from the work:
+    4·B·H·S²·64 bf16 FLOPs, Q, K, V and O each moved once."""
+    import torch.nn.functional as F
+
+    from whisperkit_tpu_torch.models.whisper import _split_heads
+    from whisperkit_tpu_torch.ops import attention
+    from whisperkit_tpu_torch.tools import k2_check
+
+    h, s = 20, 1500
+    kinds = torch.arange(s, device=dev) % 3
+    worst, times = {}, {}
+    for b in (2, GROUP):
+        qkv = k2_check.check_inputs(b, h, s, g, dev)
+        out = attention.mha_encoder(*qkv)
+        ref = attention.mha_encoder_reference(*qkv)
+        ratio = k2_check.excess(out, ref)
+        worst[b] = [float(ratio[..., kinds == i].max()) for i in range(3)]
+        if not max(worst[b]) <= 1.0 or not bool(torch.isfinite(out.float()).all()):
+            fail(f"mha_encoder bf16 B={b}: worst row at {worst[b]} of its limit (2 bf16 ulps of the "
+                 f"row's largest output) for {k2_check.ROW_KINDS}")
+        if b == 2:
+            err = max_abs(torch, out, ref)
+            faults = k2_check.fault_table(*qkv)
+            missed = [f for f in k2_check.FAULTS if max(faults[f].values()) <= 1.0]
+            if missed or max(faults["tiled"].values()) > 1.0:
+                fail(f"mha_encoder: the limit does not separate the tiled algorithm from its faults {faults}")
+        del out, ref
+        contiguous_ms = cuda_ms(torch, lambda i: attention.mha_encoder(*qkv), 10)
+        del qkv
+        # head-split views of one [B, S, 3·H·64] projection, as encoder_forward
+        # passes them (row stride H·64): the main path's layout, which is timed
+        x = torch.randn((b, s, 3 * h * 64), generator=g, device=dev).to(torch.bfloat16)
+        views = [_split_heads(x[..., i * h * 64 : (i + 1) * h * 64], h) for i in range(3)]
+        if not torch.equal(attention.mha_encoder(*views), attention.mha_encoder(*(t.contiguous() for t in views))):
+            fail(f"mha_encoder bf16 B={b}: strided views give another result than contiguous copies")
+        times[b] = {
+            "ms": cuda_ms(torch, lambda i: attention.mha_encoder(*views), 10),
+            "contiguous_ms": contiguous_ms,
+            "plain_ms": cuda_ms(torch, lambda i: attention.mha_encoder_reference(*views), 3),
+            "library_ms": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(*views), 10),
+            **bound(4 * b * h * s * 64 * 2, 4 * b * h * s * s * 64, "bf16"),
+        }
+        del x, views
+    qkv = [torch.randn((2, h, s, 64), generator=g, device=dev) for _ in range(3)]
+    err32 = max_abs(torch, attention.mha_encoder(*qkv), attention.mha_encoder_reference(*qkv))
+    ms32 = cuda_ms(torch, lambda i: attention.mha_encoder(*qkv), 10)
+    plain32 = cuda_ms(torch, lambda i: attention.mha_encoder_reference(*qkv), 10)
+    say(f"phase 3 mha_encoder f32: max_abs_err {err32:.3e} (tol 2.0e-05) | kernel {ms32:.4f} ms"
+        f" | plain {plain32:.4f} ms | f32 B=2 | {card}")
+    if not err32 <= 2e-5:
+        fail(f"mha_encoder f32: max abs error {err32:.3e} > 2e-5")
+    for b, t in times.items():
+        tflops = 4 * b * h * s * s * 64 / (t["ms"] * 1e-3) / 1e12
+        say(f"phase 3 mha_encoder bf16 B={b}: worst row {max(worst[b]):.3f} of its limit (per kind "
+            f"{[round(w, 3) for w in worst[b]]}) | kernel {t['ms']:.4f} ms ({tflops:.1f} TFLOP/s)"
+            f" (contiguous q/k/v {t['contiguous_ms']:.4f} ms) | plain {t['plain_ms']:.4f} ms"
+            f" | library (SDPA) {t['library_ms']:.4f} ms"
+            f" | bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)"
+            f" | {card}")
+    say(f"phase 3 mha_encoder faults at B=2 (worst row / limit per kind): {json.dumps(faults)}")
+    return {"max_abs_err": err, **times[GROUP]}
 
 
 # K5's limit: ±1 flips of the probability requantization (another exp and
@@ -227,7 +320,7 @@ def check_self_attend_q8(torch, g, dev):
     at exact ties must give the exact half-to-even output. Four cache sets
     (codes and per-token scales, 79 MB) rotate for the timing, so launches
     read device memory. Returns (max abs err, the largest row limit, kernel
-    ms, plain ms, a note)."""
+    ms, plain ms, the bytes one launch must move, a note)."""
     from whisperkit_tpu_torch.models.whisper import _q8_row_quantize
     from whisperkit_tpu_torch.ops import attention_decode
 
@@ -287,7 +380,10 @@ def check_self_attend_q8(torch, g, dev):
     extra = (f" | int8 cache B=32 S={s} pos {s // 2} and {s - 1}; limit per row {K5_FLIPS} flips × 127 × p_scale, "
              f"{float(tol_row.min()):.3e} to {float(tol_row.max()):.3e}; worst row at {worst:.4f} of its limit; "
              "ties at 2j + 1/2 exact")
-    return max(errs), float(tol_row.max()), ms, plain, extra
+    # every key visible in the timed launches: int8 codes and f32 scales of
+    # K and V, the query, the mask row and the f32 output
+    n_bytes = 2 * b * h * s * (64 + 4) + qi.numel() + 4 * (q_scale.numel() + s + b * h * 64)
+    return max(errs), float(tol_row.max()), ms, plain, n_bytes, extra
 
 
 def transcribe_twice(torch, pipe, audio, options) -> dict:
@@ -362,9 +458,9 @@ def report_path(label, run, n_chunks, card, extra="") -> None:
 
 
 def run_path(torch, label, pipe, audio, card, launched, per_layer, idle, extra="") -> dict:
-    import bench
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
 
-    options = bench.pipeline_options(GROUP)
+    options = pipeline_options(GROUP)
     run = transcribe_twice(torch, pipe, audio, options)
     n_chunks = len(pipe._vad_chunks(audio, options))
     check_launches(label, run["counts"], launched, per_layer, idle, pipe.dims.n_text_layer)
@@ -378,21 +474,23 @@ def run_path(torch, label, pipe, audio, card, launched, per_layer, idle, extra="
 
 
 def phase_main_path(torch, card: str) -> dict:
-    import bench
-    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
     from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
     from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
 
     dims = VARIANT_DIMS["large-v3"]
     t0 = time.perf_counter()
-    params = init_params(SEED, dims, torch.bfloat16, "cuda")
+    # no device given: the entry points place everything on the card
+    params = init_params(SEED, dims, torch.bfloat16)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     pipe = WhisperPipeline(
-        WhisperConfig(compute_options=ComputeOptions.serving(), load=False),
-        dims=dims, params=params, device="cuda",
+        WhisperConfig(compute_options=ComputeOptions.serving(), load=False), dims=dims, params=params,
     )
-    audio = bench.synth_speechlike_audio(AUDIO_SECONDS)
+    if pipe.device.type != "cuda" or params["encoder"]["conv1"]["w"].device.type != "cuda":
+        fail(f"the default device is {pipe.device}, not the card")
+    audio = synth_speechlike_audio(AUDIO_SECONDS)
     run = run_path(
         torch, "phase 4 bf16 path: large-v3 bf16 serving", pipe, audio, card,
         launched=("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"),
@@ -405,7 +503,7 @@ def phase_main_path(torch, card: str) -> dict:
 def phase_int8_path(torch, card: str, bf16_pipe, audio) -> dict:
     """The int8 serving configuration: W8A16 weights, int8 cross-KV and the
     int8 self-KV cache, on the phase-4 weights quantized on the card."""
-    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
     from whisperkit_tpu_torch.ops.quant import quantize_whisper_params, quantized_size_bytes
     from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 
@@ -482,16 +580,16 @@ def phase_w4_w8a8(torch, card: str, bf16_pipe, int8_pipe, audio) -> None:
     """W4A16 and W8A8 transcribe 60 s of the audio once each (serving
     preset, stage syncs on); the encoder of 4 windows is timed with W8A16
     and with W8A8, whose int8-activation dots run in float64."""
-    import bench
-    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
     from whisperkit_tpu_torch.decoding.loop import encode_window
     from whisperkit_tpu_torch.ops import _build
     from whisperkit_tpu_torch.ops.quant import quantize_whisper_params, quantized_size_bytes
     from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
 
     dims = bf16_pipe.dims
     clip = audio[: 60 * 16_000]
-    options = bench.pipeline_options(GROUP)
+    options = pipeline_options(GROUP)
     trees = {"w4a16": quantize_whisper_params(bf16_pipe.params, bits=4), "w8a8": int8_pipe.params}
     for scheme, tree in trees.items():
         pipe = WhisperPipeline(

@@ -1,0 +1,266 @@
+"""The PyTorch port stands alone: it imports nothing of the JAX package,
+of `bench.py` or of JAX, and its own copies of the JAX package's
+framework-free modules (audio, core, text) behave as the originals do.
+"""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import bench
+from whisperkit_tpu.audio import chunker as jchunker
+from whisperkit_tpu.core import configurations as jconf
+from whisperkit_tpu.core import results as jresults
+from whisperkit_tpu.core import timings as jtimings
+from whisperkit_tpu.text import languages as jlanguages
+from whisperkit_tpu.text import segment_seeker as jseeker
+from whisperkit_tpu.text import tokenizer as jtok
+from whisperkit_tpu.text import utils as jutils
+from whisperkit_tpu_torch.audio import chunker
+from whisperkit_tpu_torch.audio import io as audio_io
+from whisperkit_tpu_torch.core import configurations as conf
+from whisperkit_tpu_torch.core import results
+from whisperkit_tpu_torch.core import timings
+from whisperkit_tpu_torch.text import languages, segment_seeker, tokenizer, utils
+from whisperkit_tpu_torch.tools import workload
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "whisperkit_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "whisperkit_tpu", "bench")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_nothing_of_the_jax_package(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_modules_load_without_the_jax_package():
+    code = (
+        "import sys\n"
+        "import whisperkit_tpu_torch.pipelines.whisper\n"
+        "import whisperkit_tpu_torch.tools.profile_step, whisperkit_tpu_torch.tools.k2_check\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisperkit_tpu', 'bench'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _fields(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default is not dataclasses.MISSING:
+            default = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            default = dataclasses.asdict(f.default_factory())
+        else:
+            default = dataclasses.MISSING
+        out[f.name] = default
+    return out
+
+
+@pytest.mark.parametrize("name", ["DecodingOptions", "ComputeOptions", "WhisperConfig"])
+def test_configuration_fields_and_defaults_match(name):
+    ours, ref = _fields(getattr(conf, name)), _fields(getattr(jconf, name))
+    assert list(ours) == list(ref)
+    for field in ref:
+        assert ours[field] == ref[field], field
+
+
+def test_configuration_behaviour_matches():
+    for kw in ({}, {"temperature": 0.3, "temperature_fallback_count": 2}):
+        assert conf.DecodingOptions(**kw).temperatures == jconf.DecodingOptions(**kw).temperatures
+    o = conf.DecodingOptions(task="translate", chunking_strategy="vad")
+    assert o.task is conf.DecodingTask.TRANSLATE and o.chunking_strategy is conf.ChunkingStrategy.VAD
+    assert [m.value for m in conf.ChunkingStrategy] == [m.value for m in jconf.ChunkingStrategy]
+    assert [m.value for m in conf.DecodingTask] == [m.value for m in jconf.DecodingTask]
+    for bad in ({"sample_length": 0}, {"temperature_fallback_count": -1}, {"priority": "x"}):
+        with pytest.raises(ValueError):
+            conf.DecodingOptions(**bad)
+    assert dataclasses.asdict(conf.ComputeOptions.serving(quantization="w8a16")) == dataclasses.asdict(
+        jconf.ComputeOptions.serving(quantization="w8a16")
+    )
+
+
+@pytest.mark.parametrize(
+    "ours, ref",
+    [
+        (results.TranscriptionSegment, jresults.TranscriptionSegment),
+        (results.TranscriptionResult, jresults.TranscriptionResult),
+        (results.TranscriptionProgress, jresults.TranscriptionProgress),
+        (results.WordTiming, jresults.WordTiming),
+        (timings.TranscriptionTimings, jtimings.TranscriptionTimings),
+    ],
+    ids=lambda c: c.__name__,
+)
+def test_result_types_match(ours, ref):
+    assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(ref)]
+
+
+def test_decoding_fallback_and_timings_match():
+    cases = [
+        dict(compression_ratio=3.0, avg_logprob=-0.5, first_token_logprob=-0.1, no_speech_prob=0.1),
+        dict(compression_ratio=1.0, avg_logprob=-2.0, first_token_logprob=-0.1, no_speech_prob=0.1),
+        dict(compression_ratio=1.0, avg_logprob=-0.5, first_token_logprob=-3.0, no_speech_prob=0.1),
+        dict(compression_ratio=3.0, avg_logprob=-2.0, first_token_logprob=-3.0, no_speech_prob=0.9),
+        dict(compression_ratio=1.0, avg_logprob=-0.5, first_token_logprob=None, no_speech_prob=0.1),
+    ]
+    thresholds = dict(logprob_threshold=-1.0, first_token_logprob_threshold=-1.5,
+                      no_speech_threshold=0.6, compression_ratio_threshold=2.4)
+    for c in cases:
+        a = results.DecodingFallback.evaluate(**thresholds, **c)
+        b = jresults.DecodingFallback.evaluate(**thresholds, **c)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert (a.need_fallback, a.fallback_reason.value) == (b.need_fallback, b.fallback_reason.value)
+    t, jt = timings.TranscriptionTimings(), jtimings.TranscriptionTimings()
+    for x in (t, jt):
+        x.full_pipeline, x.input_audio_seconds, x.total_decoding_loops = 2.0, 60.0, 500
+    assert (t.tokens_per_second, t.real_time_factor, t.speed_factor) == (
+        jt.tokens_per_second, jt.real_time_factor, jt.speed_factor)
+
+
+def test_workload_matches_bench():
+    for seconds in (7.3, 120.0):
+        np.testing.assert_array_equal(workload.synth_speechlike_audio(seconds, seed=3),
+                                      bench.synth_speechlike_audio(seconds, seed=3))
+    assert dataclasses.asdict(workload.pipeline_options(32)) == dataclasses.asdict(bench.pipeline_options(32))
+
+
+@pytest.mark.parametrize("seconds", [25.0, 120.0])
+def test_vad_chunker_boundaries_match(seconds):
+    audio = workload.synth_speechlike_audio(seconds)
+    ours = chunker.VADAudioChunker().chunk_all(audio)
+    ref = jchunker.VADAudioChunker().chunk_all(audio)
+    assert [(c.seek_offset_index, len(c.audio_samples)) for c in ours] == [
+        (c.seek_offset_index, len(c.audio_samples)) for c in ref
+    ]
+    assert len(ours) >= (2 if seconds > 30 else 1)
+
+
+def test_audio_helpers_match(tmp_path):
+    from whisperkit_tpu.audio import io as jio
+
+    x = workload.synth_speechlike_audio(3.0)
+    np.testing.assert_array_equal(audio_io.pad_or_trim(x), jio.pad_or_trim(x))
+    np.testing.assert_array_equal(audio_io.pad_or_trim(x, start=100, length=500),
+                                  jio.pad_or_trim(x, start=100, length=500))
+    np.testing.assert_array_equal(audio_io.energy_per_frame(x, 1600), jio.energy_per_frame(x, 1600))
+    stereo = np.stack([x, -0.5 * x])
+    np.testing.assert_array_equal(audio_io.convert_to_mono(stereo), jio.convert_to_mono(stereo))
+    # a 16-bit stereo 22.05 kHz WAV reads, mixes and resamples the same
+    import wave
+
+    pcm = (np.stack([x, 0.5 * x], axis=1) * 32767).astype("<i2")
+    path = tmp_path / "a.wav"
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(2)
+        w.setsampwidth(2)
+        w.setframerate(22050)
+        w.writeframes(pcm.tobytes())
+    np.testing.assert_array_equal(audio_io.load_audio(path), jio.load_audio(path))
+    np.testing.assert_array_equal(audio_io.load_audio(path, start_time=0.5, end_time=1.5),
+                                  jio.load_audio(path, start_time=0.5, end_time=1.5))
+
+
+@pytest.mark.parametrize("n_vocab", [207, 51864, 51865, 51866])
+def test_special_tokens_and_fake_tokenizer_match(n_vocab):
+    sp, jsp = tokenizer.special_tokens_for_vocab(n_vocab, 5), jtok.special_tokens_for_vocab(n_vocab, 5)
+    assert dataclasses.asdict(sp) == dataclasses.asdict(jsp)
+    assert sp.language_begin == jsp.language_begin
+    assert [sp.language_token(c) for c in ("en", "zh")] == [jsp.language_token(c) for c in ("en", "zh")]
+    assert sp.timestamp_seconds(sp.timestamp_begin + 50) == jsp.timestamp_seconds(jsp.timestamp_begin + 50)
+    fake, jfake = tokenizer.FakeTokenizer(n_vocab), jtok.FakeTokenizer(n_vocab)
+    assert dataclasses.asdict(fake.special) == dataclasses.asdict(jfake.special)
+    ids = [3, 17, sp.eot, sp.timestamp_begin + 7, 42]
+    assert fake.decode(ids) == jfake.decode(ids)
+    assert fake.decode_with_timestamps(ids) == jfake.decode_with_timestamps(ids)
+    assert fake.encode(" t3 t17 x t42") == jfake.encode(" t3 t17 x t42")
+    assert languages.LANGUAGES == jlanguages.LANGUAGES
+
+
+@pytest.mark.parametrize(
+    "tokens",
+    [
+        "pairs",  # <|0.00|> text <|1.00|><|1.00|> text <|2.00|> EOT
+        "single_ending",  # ... text <|2.00|> EOT after a pair
+        "no_pairs",  # <|0.00|> text text EOT
+        "text_only",
+    ],
+)
+def test_find_seek_point_and_segments_matches(tokens):
+    sp = tokenizer.special_tokens_for_vocab(51866, 220)
+    ts = sp.timestamp_begin
+    seqs = {
+        "pairs": [ts, 100, 101, ts + 50, ts + 50, 102, ts + 100, ts + 100, sp.eot],
+        "single_ending": [ts, 100, ts + 50, ts + 50, 101, ts + 100, sp.eot],
+        "no_pairs": [ts, 100, 101, sp.eot],
+        "text_only": [100, 101, 102],
+    }
+    toks = seqs[tokens]
+    lps = [-0.1 * (i + 1) for i in range(len(toks))]
+    kw = dict(tokens=toks, token_logprobs=lps, time_offset=12.0, window_frames=2800, seek=1200,
+              decode_fn=lambda ids: " ".join(map(str, ids)), temperature=0.2, avg_logprob=-0.3,
+              compression_ratio=1.5, no_speech_prob=0.01, segment_id_start=4)
+    ours = segment_seeker.find_seek_point_and_segments(special=sp, **kw)
+    ref = jseeker.find_seek_point_and_segments(special=jtok.special_tokens_for_vocab(51866, 220), **kw)
+    assert ours.seek_advance_frames == ref.seek_advance_frames
+    assert [dataclasses.asdict(s) for s in ours.segments] == [dataclasses.asdict(s) for s in ref.segments]
+    assert (segment_seeker.FRAMES_PER_SECOND, segment_seeker.WINDOW_FRAMES) == (
+        jseeker.FRAMES_PER_SECOND, jseeker.WINDOW_FRAMES)
+
+
+def test_compression_ratio_matches():
+    for text in ("", "hello world", "ab" * 300, " t1 t2 t3 t4"):
+        assert utils.compression_ratio_text(text) == jutils.compression_ratio_text(text)
+
+
+def test_native_decoder_matches(tmp_path):
+    """The port's binding of native/audio_decoder.cpp (built into the
+    git-ignored build directory) decodes as the JAX package's does, and
+    `load_audio` takes it for a container that is not WAV by name."""
+    import shutil
+    import wave
+
+    from whisperkit_tpu.audio import io as jio
+    from whisperkit_tpu.audio import native as jnative
+    from whisperkit_tpu_torch.audio import native
+
+    assert native.available()
+    x = workload.synth_speechlike_audio(2.0)
+    path = tmp_path / "a.wav"
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((x * 32767).astype("<i2").tobytes())
+    ours, rate, channels = native.decode(str(path))
+    ref, jrate, jchannels = jnative.decode(str(path))
+    assert (rate, channels) == (jrate, jchannels) == (16000, 1)
+    np.testing.assert_array_equal(ours, ref)
+    other = tmp_path / "a.audio"
+    shutil.copy(path, other)
+    np.testing.assert_array_equal(audio_io.load_audio(other), jio.load_audio(other))

@@ -19,13 +19,15 @@ import torch
 from whisperkit_tpu.decoding import filters as jfilters
 from whisperkit_tpu.decoding import loop as jloop
 from whisperkit_tpu.models import whisper as jmodel
-from whisperkit_tpu.text.tokenizer import special_tokens_for_vocab
+from whisperkit_tpu.text.tokenizer import special_tokens_for_vocab as jspecial_tokens_for_vocab
 from whisperkit_tpu_torch.core.device import resolve_device
 from whisperkit_tpu_torch.decoding import filters, loop, sampler
 from whisperkit_tpu_torch.models import whisper as model
+from whisperkit_tpu_torch.text.tokenizer import special_tokens_for_vocab
 
 V = 207
-SP = special_tokens_for_vocab(V)
+SP = special_tokens_for_vocab(V)  # the port's special tokens, for the port
+JSP = jspecial_tokens_for_vocab(V)  # the same layout as the JAX package's type
 DIMS = model.WhisperDims(80, V, 1500, 64, 4, 2, 64, 64, 4, 2)
 JDIMS = jmodel.WhisperDims(*dataclasses.astuple(DIMS))
 PROMPT = [SP.sot, SP.language_token("en"), SP.transcribe]
@@ -332,7 +334,7 @@ def test_timestamp_rules_match_jax(pos, max_initial):
     rng = np.random.default_rng(pos * 10 + max_initial)
     logits, buf = _ts_rules_case(rng, pos)
     ref = jfilters.apply_timestamp_rules(
-        jnp.asarray(logits), jnp.asarray(buf, jnp.int32), jnp.asarray(pos), 3, SP,
+        jnp.asarray(logits), jnp.asarray(buf, jnp.int32), jnp.asarray(pos), 3, JSP,
         jnp.asarray(max_initial),
     )
     out = filters.apply_timestamp_rules(_t(logits), _t(buf), pos, 3, SP, max_initial)
@@ -341,9 +343,9 @@ def test_timestamp_rules_match_jax(pos, max_initial):
 
 @pytest.mark.parametrize("at_begin", [True, False])
 def test_suppress_blank_matches_jax(at_begin):
-    sp = special_tokens_for_vocab(V, whitespace_id=5)
+    sp, jsp = special_tokens_for_vocab(V, whitespace_id=5), jspecial_tokens_for_vocab(V, whitespace_id=5)
     logits = np.random.default_rng(1).standard_normal((2, V)).astype(np.float32)
-    ref = jfilters.apply_suppress_blank(jnp.asarray(logits), sp, jnp.asarray(at_begin))
+    ref = jfilters.apply_suppress_blank(jnp.asarray(logits), jsp, jnp.asarray(at_begin))
     out = filters.apply_suppress_blank(_t(logits), sp, at_begin)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
@@ -352,8 +354,8 @@ def test_static_masks_match_jax():
     np.testing.assert_array_equal(
         filters.suppress_tokens_bias(V, [3, 5, 900]), jfilters.suppress_tokens_bias(V, [3, 5, 900])
     )
-    np.testing.assert_array_equal(filters.language_token_mask(SP), jfilters.language_token_mask(SP))
-    assert filters.non_speech_token_ids(SP) == jfilters.non_speech_token_ids(SP)
+    np.testing.assert_array_equal(filters.language_token_mask(SP), jfilters.language_token_mask(JSP))
+    assert filters.non_speech_token_ids(SP) == jfilters.non_speech_token_ids(JSP)
 
 
 def test_sampler_greedy_matches_jax_and_top_k_draws_from_the_top():
@@ -379,7 +381,7 @@ def test_sampler_greedy_matches_jax_and_top_k_draws_from_the_top():
 
 
 LOOP_KW = dict(
-    special=SP, sample_begin=3, max_new_tokens=20, top_k=5, sot_index=0,
+    sample_begin=3, max_new_tokens=20, top_k=5, sot_index=0,
     use_timestamp_rules=True, suppress_blank=True,
 )
 
@@ -393,7 +395,7 @@ def _jax_loop(jparams, jc, suppress, first_threshold=float("-inf"), quantize_sel
     )
     prompt = jnp.asarray([PROMPT, PROMPT], jnp.int32)
     return jloop.decode_loop(
-        jparams, *jc, prompt, jnp.asarray(suppress), scalars, dims=JDIMS,
+        jparams, *jc, prompt, jnp.asarray(suppress), scalars, dims=JDIMS, special=JSP,
         quantize_self_kv=quantize_self_kv, **LOOP_KW,
     )
 
@@ -405,7 +407,7 @@ def _torch_loop(
     scalars = loop.DecodeScalars(0.0, 1500, first_threshold)
     prompt = torch.tensor([PROMPT, PROMPT])
     return loop.decode_loop(
-        tparams, *tc, prompt, _t(suppress), scalars, dims=DIMS,
+        tparams, *tc, prompt, _t(suppress), scalars, dims=DIMS, special=SP,
         stop_check_interval=stop_check_interval, quantize_self_kv=quantize_self_kv, **LOOP_KW,
     )
 
@@ -418,9 +420,9 @@ def _filtered_jax_logits(jparams, jc, suppress, tokens_row, pos, q8_self=False):
     one_row = jax.tree.map(lambda a: a[:, :1], jc)
     logits, _ = _jax_decode(jparams, np.asarray([tokens_row[:pos]]), 0, kv, one_row)
     f = jnp.asarray(logits[:, -1]) + jnp.asarray(suppress)[None]
-    f = jfilters.apply_suppress_blank(f, SP, jnp.asarray(pos == 3))
+    f = jfilters.apply_suppress_blank(f, JSP, jnp.asarray(pos == 3))
     f = jfilters.apply_timestamp_rules(
-        f, jnp.asarray([tokens_row], jnp.int32), jnp.asarray(pos), 3, SP, jnp.asarray(1500)
+        f, jnp.asarray([tokens_row], jnp.int32), jnp.asarray(pos), 3, JSP, jnp.asarray(1500)
     )
     return np.sort(np.asarray(f)[0])[::-1]
 
@@ -495,7 +497,7 @@ def test_prefill_is_reusable_across_rungs(tparams, cross):
         tparams, *tc, prompt, dims=DIMS, special=SP, sample_begin=3, max_new_tokens=20, sot_index=0
     )
     scalars = loop.DecodeScalars(0.0, 1500, float("-inf"))
-    kw = dict(dims=DIMS, **LOOP_KW)
+    kw = dict(dims=DIMS, special=SP, **LOOP_KW)
     first = loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars, prefill=pre, **kw)
     g = torch.Generator().manual_seed(3)
     loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars._replace(temperature=1.0, generator=g),
@@ -517,7 +519,7 @@ def test_prefill_is_reusable_across_rungs_int8_self_kv(tparams, cross):
     )
     assert isinstance(pre.kv_k, dict) and pre.kv_k["q8"].shape[3] == 23
     scalars = loop.DecodeScalars(0.0, 1500, float("-inf"))
-    kw = dict(dims=DIMS, **LOOP_KW)
+    kw = dict(dims=DIMS, special=SP, **LOOP_KW)
     first = loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars, prefill=pre, **kw)
     g = torch.Generator().manual_seed(3)
     loop.decode_loop(tparams, *tc, prompt, _t(suppress), scalars._replace(temperature=1.0, generator=g),
@@ -529,7 +531,7 @@ def test_prefill_is_reusable_across_rungs_int8_self_kv(tparams, cross):
 
 def test_detect_language_logits_match_jax(jparams, tparams, cross):
     jc, tc = cross["raw"]
-    ref = jloop.detect_language_logits(jparams, *jc, dims=JDIMS, special=SP)
+    ref = jloop.detect_language_logits(jparams, *jc, dims=JDIMS, special=JSP)
     out = loop.detect_language_logits(tparams, *tc, dims=DIMS, special=SP)
     assert out.shape == (2, SP.n_languages)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
@@ -559,5 +561,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()  # "cuda" by default
     with pytest.raises(RuntimeError):
         model.init_params(0, DIMS, torch.float32, "cuda")
+    with pytest.raises(RuntimeError):
+        model.init_params(0, DIMS, torch.float32)

@@ -19,8 +19,9 @@ from whisperkit_tpu.models.whisper import _q8_rows as jax_q8_rows
 from whisperkit_tpu.ops import attention_decode as jad
 from whisperkit_tpu.ops import mel as jmel
 from whisperkit_tpu.ops.attention import mha_encoder_pallas
-from whisperkit_tpu_torch.models.whisper import _q8_row_quantize
+from whisperkit_tpu_torch.models.whisper import _merge_heads, _q8_row_quantize, _split_heads
 from whisperkit_tpu_torch.ops import _build, attention, attention_decode, mel
+from whisperkit_tpu_torch.tools import k2_check
 
 
 def _t(x):
@@ -81,7 +82,7 @@ def test_log_mel_single_window_and_raw_frames(mel_audio):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("s", [100, 1024])
+@pytest.mark.parametrize("s", [100, 1024, 1500])
 def test_mha_encoder_matches_pallas_interpret(s):
     rng = np.random.default_rng(s)
     q, k, v = (rng.standard_normal((1, 2, s, 64)).astype(np.float32) for _ in range(3))
@@ -100,6 +101,84 @@ def test_mha_encoder_bf16_keeps_rounding_points():
     assert out.dtype == torch.bfloat16
     rel = (out.float() - ref).abs().mean() / ref.abs().mean()
     assert float(rel) < 0.02
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_encoder_on_head_split_views_equals_contiguous(dtype):
+    """The encoder passes the head-split views of its q/k/v projections,
+    no copies: the same result as from contiguous copies."""
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal((2, 150, 3 * 4 * 64)).astype(np.float32)).to(dtype)
+    views = [_split_heads(x[..., i * 256 : (i + 1) * 256], 4) for i in range(3)]
+    assert not views[0].is_contiguous()
+    out = attention.mha_encoder(*views)
+    ref = attention.mha_encoder(*(t.contiguous() for t in views))
+    assert out.dtype == dtype
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def test_mha_encoder_returns_the_bshd_layout():
+    """[B, H, S, 64] view of [B, S, H, 64] memory: merging the heads is a
+    view, equal to merging the plain version's contiguous result."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_t(rng.standard_normal((2, 3, 70, 64)).astype(np.float32)) for _ in range(3))
+    out = attention.mha_encoder(q, k, v)
+    assert out.shape == (2, 3, 70, 64)
+    assert out.transpose(1, 2).is_contiguous()
+    merged = _merge_heads(out)
+    assert merged.data_ptr() == out.data_ptr() and merged.shape == (2, 70, 3 * 64)
+    ref = attention.mha_encoder_reference(q, k, v)
+    assert ref.is_contiguous()
+    torch.testing.assert_close(merged, _merge_heads(ref), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K2's on-card check (tools/k2_check.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def k2_faults():
+    g = torch.Generator().manual_seed(0)
+    return k2_check.fault_table(*k2_check.check_inputs(1, 2, 1500, g, "cpu"))
+
+
+def test_k2_limit_passes_the_tiled_algorithm(k2_faults):
+    """The kernel's algorithm (rounding the unnormalised probability, one
+    online softmax over tiles) stays within 2 bf16 ulps of each row's
+    largest output of the plain version, on every row kind."""
+    assert max(k2_faults["tiled"].values()) <= 1.0, k2_faults["tiled"]
+
+
+@pytest.mark.parametrize(
+    "fault, kind",
+    [
+        ("no_rescale", "peaked_last_tile"),
+        ("skip_last_tile", "peaked_last_tile"),
+        ("pad_scored_zero", "near_flat"),
+        ("double_scale", "peaked_first_tile"),
+    ],
+)
+def test_k2_limit_fails_each_fault(k2_faults, fault, kind):
+    """Each altered form exceeds the limit on the row kind built to show it."""
+    assert k2_faults[fault][kind] > 1.0, k2_faults[fault]
+
+
+def test_k2_check_inputs_put_the_max_where_each_row_kind_says():
+    g = torch.Generator().manual_seed(1)
+    q, k, _ = k2_check.check_inputs(1, 2, 1500, g, "cpu")
+    scores = (q.float() / 8) @ k.float().transpose(-1, -2)
+    top = scores.argmax(-1)[0]  # [H, S]
+    rows = torch.arange(1500)
+    assert bool((top[:, rows % 3 == 0] >= 1472).all())  # the ragged last 28 keys
+    assert bool((top[:, rows % 3 == 1] < 64).all())
+    assert float(scores[..., rows % 3 == 2, :].std()) < 1.0
+    assert float(scores[..., rows % 3 == 0, :].std()) >= 3.0
+
+
+def test_k2_row_limit_is_two_bf16_ulps():
+    ref = torch.tensor([[0.75, -0.1], [1.0, 0.5], [-3.0, 2.0]])
+    assert k2_check.row_limit(ref)[:, 0].tolist() == [2 * 2.0**-8, 2 * 2.0**-7, 2 * 2.0**-6]
 
 
 # ---------------------------------------------------------------------------

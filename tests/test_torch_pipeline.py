@@ -19,18 +19,20 @@ import numpy as np
 import pytest
 import torch
 
-from whisperkit_tpu.core.configurations import ComputeOptions, DecodingOptions, WhisperConfig
+from whisperkit_tpu.core import configurations as jconf
 from whisperkit_tpu.models import whisper as jmodel
 from whisperkit_tpu.ops import quant as jquant
 from whisperkit_tpu.pipelines.whisper import WhisperPipeline as JaxPipeline
+from whisperkit_tpu_torch.core.configurations import ComputeOptions, DecodingOptions, WhisperConfig
 from whisperkit_tpu_torch.models import whisper as model
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
 
 REPO = Path(__file__).resolve().parent.parent
 DIMS = model.WhisperDims(80, 207, 1500, 64, 4, 2, 64, 64, 4, 2)
 JDIMS = jmodel.WhisperDims(*dataclasses.astuple(DIMS))
 
-# greedy only, quality ladder off (as bench.pipeline_options), short budget
+# greedy only, quality ladder off (as tools/workload.pipeline_options), short budget
 GREEDY = dict(
     language="en", sample_length=10, temperature_fallback_count=0,
     logprob_threshold=None, compression_ratio_threshold=None,
@@ -43,9 +45,14 @@ def jparams():
     return jmodel.init_params(jax.random.PRNGKey(0), JDIMS, dtype=jnp.float32)
 
 
+def _options(**kwargs):
+    """The same decode options as the port's type and as the JAX package's."""
+    return DecodingOptions(**kwargs), jconf.DecodingOptions(**kwargs)
+
+
 def _pipes(jparams, **compute):
     jax_pipe = JaxPipeline(
-        WhisperConfig(compute_options=ComputeOptions(dp_size=1, **compute), load=False),
+        jconf.WhisperConfig(compute_options=jconf.ComputeOptions(dp_size=1, **compute), load=False),
         dims=JDIMS, params=jparams,
     )
     tparams = model.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu", torch.float32)
@@ -68,9 +75,7 @@ def _audio(seconds, seed):
 
 def _speechlike(seconds):
     """Noise bursts between pauses, so the VAD finds several chunks."""
-    import bench
-
-    return bench.synth_speechlike_audio(seconds, seed=1)
+    return synth_speechlike_audio(seconds, seed=1)
 
 
 def _assert_same_result(ours, ref, logprob_tol=1e-4, no_speech_tol=1e-5):
@@ -99,10 +104,10 @@ def test_transcribe_matches_jax(pipes, case):
     _, seconds, chunking = case
     jax_pipe, torch_pipe = pipes
     audio = _speechlike(seconds) if chunking else _audio(seconds, 7)
-    options = DecodingOptions(chunking_strategy=chunking, concurrent_worker_count=2, **GREEDY)
+    options, joptions = _options(chunking_strategy=chunking, concurrent_worker_count=2, **GREEDY)
     seen = []
     ours = torch_pipe.transcribe(audio, options, callback=lambda p: seen.append(p.window_id))
-    ref = jax_pipe.transcribe(audio, options)
+    ref = jax_pipe.transcribe(audio, joptions)
     _assert_same_result(ours, ref)
     assert seen and ours.timings.full_pipeline > 0
     assert ours.timings.input_audio_seconds == pytest.approx(seconds)
@@ -126,8 +131,8 @@ def test_serving_preset_int8_cross_kv_matches_jax(jparams):
     cross-attention (plain version here) gives JAX's tokens and segments."""
     jax_pipe, torch_pipe = _pipes(jparams, quantize_cross_kv=True)
     audio = _speechlike(65.0)
-    options = DecodingOptions(chunking_strategy="vad", concurrent_worker_count=4, **GREEDY)
-    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, options))
+    options, joptions = _options(chunking_strategy="vad", concurrent_worker_count=4, **GREEDY)
+    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, joptions))
 
 
 @pytest.mark.parametrize(
@@ -154,17 +159,17 @@ def test_quantized_serving_matches_jax(jparams, compute):
     jax_pipe, torch_pipe = _pipes(jq, quantize_cross_kv=True, **compute)
     assert torch_pipe._act8 == (compute["quantization"] == "w8a8")
     audio = _speechlike(65.0)
-    options = DecodingOptions(chunking_strategy="vad", concurrent_worker_count=4, **GREEDY)
+    options, joptions = _options(chunking_strategy="vad", concurrent_worker_count=4, **GREEDY)
     tols = dict(logprob_tol=2e-3, no_speech_tol=1e-4) if torch_pipe._act8 else {}
-    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, options), **tols)
+    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, joptions), **tols)
 
 
 def test_batch_api_matches_jax(pipes):
     jax_pipe, torch_pipe = pipes
     items = [_audio(5.0, 1), "/nonexistent/file.wav", _audio(3.0, 2)]
-    options = DecodingOptions(**GREEDY)
+    options, joptions = _options(**GREEDY)
     ours = torch_pipe.transcribe(items, options)
-    ref = jax_pipe.transcribe(items, options)
+    ref = jax_pipe.transcribe(items, joptions)
     assert isinstance(ours[1], Exception) and isinstance(ref[1], Exception)
     for i in (0, 2):
         _assert_same_result(ours[i], ref[i])
@@ -179,8 +184,8 @@ def test_language_detection_matches_jax(pipes):
     assert probs.keys() == jprobs.keys()
     for k in probs:
         assert probs[k] == pytest.approx(jprobs[k], abs=1e-5)
-    options = DecodingOptions(**{**GREEDY, "language": None})
-    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, options))
+    options, joptions = _options(**{**GREEDY, "language": None})
+    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, joptions))
 
 
 @pytest.mark.parametrize(
@@ -219,9 +224,13 @@ def test_cuda_pipeline_without_a_card_raises(monkeypatch):
         WhisperPipeline(WhisperConfig(load=False), dims=DIMS, params=tparams, device="cuda")
 
 
-def test_pipeline_needs_an_explicit_device():
-    with pytest.raises(TypeError):
-        WhisperPipeline(WhisperConfig(load=False))  # `device` is keyword-only, no default
+def test_pipeline_needs_an_explicit_device(monkeypatch):
+    """`device` defaults to "cuda": with no card, a pipeline built without
+    one raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tparams = model.init_params(0, DIMS, torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WhisperPipeline(WhisperConfig(load=False), dims=DIMS, params=tparams)
 
 
 def test_port_imports_no_jax():

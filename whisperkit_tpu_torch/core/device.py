@@ -1,8 +1,9 @@
 """Device resolution for the port.
 
-Every public entry point takes an explicit `device`. Asking for "cuda" on a
-host without a usable card raises: the port never carries on on the CPU
-when the caller asked for the GPU.
+Every public entry point that places tensors takes a `device`, "cuda" by
+default: the port runs on the card unless the caller asks for the CPU.
+Asking for "cuda" on a host without a usable card raises: the port never
+carries on on the CPU when the caller did not ask for it.
 """
 
 from __future__ import annotations
@@ -14,10 +15,10 @@ import torch
 DeviceLike = Union[str, torch.device]
 
 
-def resolve_device(device: DeviceLike) -> torch.device:
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """`device` ("cpu", "cuda", "cuda:N" or a torch.device) → torch.device."""
     if device is None:
-        raise ValueError("an explicit device is required ('cpu' or 'cuda')")
+        raise ValueError("device must be 'cpu', 'cuda', 'cuda:N' or a torch.device, not None")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

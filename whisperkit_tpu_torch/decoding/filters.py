@@ -14,7 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from whisperkit_tpu.text.tokenizer import SpecialTokens
+from whisperkit_tpu_torch.text.tokenizer import SpecialTokens
 
 NEG_INF = float("-inf")
 

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from whisperkit_tpu.text.tokenizer import SpecialTokens
+from whisperkit_tpu_torch.text.tokenizer import SpecialTokens
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
 from whisperkit_tpu_torch.decoding.sampler import sample_token
 from whisperkit_tpu_torch.models.whisper import (

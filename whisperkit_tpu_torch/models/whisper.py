@@ -107,7 +107,7 @@ def _with_logits_weight(params: Params) -> Params:
 
 
 def init_params(
-    seed: int, dims: WhisperDims, dtype: torch.dtype, device: DeviceLike
+    seed: int, dims: WhisperDims, dtype: torch.dtype, device: DeviceLike = "cuda"
 ) -> Params:
     """Random init with the parameter structure of the JAX `init_params`
     (same shapes, scales and zero/one initialisers), drawn from a numpy
@@ -182,7 +182,9 @@ def _map(fn, tree, key=None):
     return fn(key, tree)
 
 
-def params_from_numpy(tree: dict, device: DeviceLike, dtype: torch.dtype) -> Params:
+def params_from_numpy(
+    tree: dict, device: DeviceLike = "cuda", dtype: torch.dtype = torch.bfloat16
+) -> Params:
     """A JAX parameter tree as numpy arrays (`jax.tree.map(np.asarray,
     params)`, layer stacks [L, ...]) → the port's tree on `device`, with
     each layer stack split into a list of per-layer dicts.
@@ -270,6 +272,8 @@ def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,T,Dh] → [B,T,H·Dh]; a view when x is laid out [B,T,H,Dh] (as
+    `mha_encoder` returns it), a copy otherwise."""
     b, h, t, dh = x.shape
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
@@ -370,9 +374,10 @@ def encoder_forward(
     x = x + enc["pos_embed"].to(x.dtype)
     for bp in enc["blocks"]:
         h = layer_norm(x, bp["attn_ln"])
-        q = _split_heads(dense(h, bp["attn"]["q"], act8), n_head).contiguous()
-        k = _split_heads(dense(h, bp["attn"]["k"], act8), n_head).contiguous()
-        v = _split_heads(dense(h, bp["attn"]["v"], act8), n_head).contiguous()
+        # head-split views in, [B, S, H, Dh] memory out: no copies either side
+        q = _split_heads(dense(h, bp["attn"]["q"], act8), n_head)
+        k = _split_heads(dense(h, bp["attn"]["k"], act8), n_head)
+        v = _split_heads(dense(h, bp["attn"]["v"], act8), n_head)
         x = x + dense(_merge_heads(mha_encoder(q, k, v)), bp["attn"]["out"], act8)
         h = layer_norm(x, bp["mlp_ln"])
         x = x + dense(_gelu(dense(h, bp["fc1"], act8)), bp["fc2"], act8)

@@ -51,8 +51,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # padded, cos, sin, mel_w, out, batch, n_frames, n_mels, stream
     "wk_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # q, k, v, out, batch, heads, seq, is_bf16, scale, stream
-    "wk_mha_encoder": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # q, k, v, out, strides (9 x int64: B, H, S of q, k, v), batch, heads,
+    # seq, is_bf16, scale, stream
+    "wk_mha_encoder": (_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _I, _F, _P),
     # qi, q_scale, k, v, v_scale, out, batch*heads, t, s, stream
     "wk_cross_attend_q8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, mask, out, batch*heads, s, is_bf16, stream
@@ -174,13 +175,14 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and rank."""
+def check_cuda(name: str, t: torch.Tensor, dtype, ndim: int, contiguous: bool = True) -> None:
+    """Raise unless `t` is a CUDA tensor of `dtype` and rank, contiguous
+    unless `contiguous` is False."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected rank {ndim}, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -29,32 +29,24 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from whisperkit_tpu.audio.chunker import VADAudioChunker
-from whisperkit_tpu.audio.io import SAMPLE_RATE, load_audio, pad_or_trim
-from whisperkit_tpu.core.configurations import (
+from whisperkit_tpu_torch.audio.chunker import VADAudioChunker
+from whisperkit_tpu_torch.audio.io import SAMPLE_RATE, load_audio, pad_or_trim
+from whisperkit_tpu_torch.core.configurations import (
     ChunkingStrategy,
     DecodingOptions,
     DecodingTask,
     WhisperConfig,
 )
-from whisperkit_tpu.core.errors import ModelsUnavailable
-from whisperkit_tpu.core.modelstate import ModelState
-from whisperkit_tpu.core.results import (
+from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
+from whisperkit_tpu_torch.core.errors import ModelsUnavailable
+from whisperkit_tpu_torch.core.modelstate import ModelState
+from whisperkit_tpu_torch.core.results import (
     DecodingFallback,
     TranscriptionProgress,
     TranscriptionResult,
     TranscriptionSegment,
 )
-from whisperkit_tpu.core.timings import TranscriptionTimings
-from whisperkit_tpu.text.languages import LANGUAGES
-from whisperkit_tpu.text.segment_seeker import (
-    FRAMES_PER_SECOND,
-    WINDOW_FRAMES,
-    find_seek_point_and_segments,
-)
-from whisperkit_tpu.text.tokenizer import FakeTokenizer
-from whisperkit_tpu.text.utils import compression_ratio_text
-from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
+from whisperkit_tpu_torch.core.timings import TranscriptionTimings
 from whisperkit_tpu_torch.decoding.filters import non_speech_token_ids, suppress_tokens_bias
 from whisperkit_tpu_torch.decoding.loop import (
     DecodeScalars,
@@ -65,6 +57,14 @@ from whisperkit_tpu_torch.decoding.loop import (
 )
 from whisperkit_tpu_torch.models.whisper import WhisperDims, _map
 from whisperkit_tpu_torch.ops.mel import log_mel_spectrogram
+from whisperkit_tpu_torch.text.languages import LANGUAGES
+from whisperkit_tpu_torch.text.segment_seeker import (
+    FRAMES_PER_SECOND,
+    WINDOW_FRAMES,
+    find_seek_point_and_segments,
+)
+from whisperkit_tpu_torch.text.tokenizer import FakeTokenizer
+from whisperkit_tpu_torch.text.utils import compression_ratio_text
 
 WINDOW_SAMPLES = 480_000  # Constants.windowSamples (Models.swift:1457)
 MAX_TOKEN_CONTEXT = 224  # Constants.maxTokenContext (Models.swift:1334)
@@ -105,7 +105,7 @@ class WhisperPipeline:
         alignment_heads: Optional[np.ndarray] = None,
         draft_dims: Optional[WhisperDims] = None,
         draft_params=None,
-        device: DeviceLike,
+        device: DeviceLike = "cuda",
         **kwargs,
     ):
         self.device = resolve_device(device)

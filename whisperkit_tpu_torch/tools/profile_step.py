@@ -1,16 +1,27 @@
-"""Profile the port's decode step on one CUDA card.
+"""Profile the port's encode stage and decode step on one CUDA card.
 
     python -m whisperkit_tpu_torch.tools.profile_step
 
 large-v3 at full width and depth (random weights from `init_params(SEED)`),
-BATCH windows of random audio through the log-mel kernel, the encoder and
-the int8 cross-KV, then `decode_loop` for STEPS decoder steps after a
-prompt of START tokens, so the steps attend over positions START ..
-START + STEPS.
+BATCH windows of random audio through the log-mel kernel.
 
-Two configurations: bf16 weights with the bf16 self-KV cache (the
-`ComputeOptions.serving()` decode), and the same weights quantized to
-W8A16 with the int8 self-KV cache (`serving(quantization="w8a16",
+Encode: one BATCH-window group through `encode_window` with the int8
+cross-KV (the serving preset's encode stage), bf16 weights. One JSON line:
+
+  wall_ms          host clock per call, three calls after a warm-up, the
+                   device synced before and after each
+  device_busy_ms   the union of the device activities' intervals in a
+                   `torch.profiler` trace of one more call
+  launches         device activities in that trace
+  k2_ms, k2_share  the encoder attention kernel's device time, and its
+                   share of device busy
+  copies_ms        device time of copy kernels and memcpys
+  top              the 12 kernel names with the most device time
+
+Decode: `decode_loop` for STEPS decoder steps after a prompt of START
+tokens, so the steps attend over positions START .. START + STEPS, for
+bf16 weights with the bf16 self-KV cache (the `ComputeOptions.serving()`
+decode) and the same weights quantized to W8A16 with the int8 self-KV cache (`serving(quantization="w8a16",
 quantize_self_kv=True)`). For each it prints one JSON line:
 
   step_ms_unprofiled  wall per step of three loops after a warm-up one
@@ -54,11 +65,36 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def profile_config(pipe, mel, steps: int, start: int) -> dict:
+def _trace(fn) -> list:
+    """Device activities of one call of `fn` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from whisperkit_tpu.core.configurations import DecodingOptions
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:
+        raise RuntimeError("the profiler recorded no device activity")
+    return device
+
+
+def _top(device: list, per: float) -> list:
+    by_name: dict[str, list] = {}
+    for e in device:
+        entry = by_name.setdefault(e.name[:70], [0, 0.0])
+        entry[0] += 1
+        entry[1] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return [[name, n, us / 1e3 / per] for name, (n, us) in top]
+
+
+def _span_ms(device: list, pick) -> float:
+    return sum(e.time_range.end - e.time_range.start for e in device if pick(e.name)) / 1e3
+
+
+def profile_decode(pipe, mel, steps: int, start: int) -> dict:
+    from whisperkit_tpu_torch.core.configurations import DecodingOptions
     from whisperkit_tpu_torch.decoding.loop import decode_loop, prefill_window
     from whisperkit_tpu_torch.ops import _build
 
@@ -94,25 +130,40 @@ def profile_config(pipe, mel, steps: int, start: int) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
 
     _build.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        loop()
-        torch.cuda.synchronize()
+    device = _trace(loop)
     counts = {k: v / steps for k, v in _build.launches.items() if v}
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not device:
-        raise RuntimeError("the profiler recorded no device activity")
-    by_name: dict[str, list] = {}
-    for e in device:
-        entry = by_name.setdefault(e.name[:70], [0, 0.0])
-        entry[0] += 1
-        entry[1] += e.time_range.end - e.time_range.start
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {
         "step_ms_unprofiled": walls,
         "device_busy_ms": _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / steps,
         "launches_per_step": len(device) / steps,
         "port_kernels": counts,
-        "top": [[name, n, us / 1e3 / steps] for name, (n, us) in top],
+        "top": _top(device, steps),
+    }
+
+
+def profile_encode(params, mel, dims) -> dict:
+    """One group through the serving encode stage (int8 cross-KV)."""
+    from whisperkit_tpu_torch.decoding.loop import encode_window
+
+    def call():
+        return encode_window(params, mel, dims, quantize_kv=True)
+
+    call()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    device = _trace(call)
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
+    k2 = _span_ms(device, lambda n: "mha_encoder" in n)
+    return {
+        "wall_ms": walls, "device_busy_ms": busy, "launches": len(device),
+        "k2_ms": k2, "k2_share": k2 / busy,
+        "copies_ms": _span_ms(device, lambda n: "copy" in n.lower() or "memcpy" in n.lower()),
+        "top": _top(device, 1),
     }
 
 
@@ -121,7 +172,7 @@ def main() -> None:
         sys.exit("profile_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    from whisperkit_tpu.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
     from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
     from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
     from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
@@ -144,8 +195,13 @@ def main() -> None:
                                dims=dims, params=tree, device="cuda")
         audio = [(torch.randn(480_000, generator=g, device="cuda") * 0.1).cpu().numpy()
                  for _ in range(BATCH)]
+        mel = pipe._mel_batch(audio)
+        if label == "bf16":
+            with torch.inference_mode():
+                print(json.dumps({"encode": "bf16", "batch": BATCH, **profile_encode(tree, mel, dims)}),
+                      flush=True)
         with torch.inference_mode():
-            result = profile_config(pipe, pipe._mel_batch(audio), STEPS, START)
+            result = profile_decode(pipe, mel, STEPS, START)
         print(json.dumps({"config": label, "batch": BATCH, "positions": [START, START + STEPS],
                           **result}), flush=True)
 
