@@ -12,7 +12,17 @@ Phases, one line each; any failure exits non-zero:
      shapes: max abs error, tolerance, CUDA-event times of the kernel, its
      plain version and, where one PyTorch call computes the same function,
      that call (K2 and K4: F.scaled_dot_product_attention, never called by
-     the port), and the least time the card could take (`bound_ms`)
+     the port), and the least time the card could take (`bound_ms`); K1
+     also against its plain version in float64 on random and speech-like
+     audio; K4/K5 per row on the check inputs of
+     tools/decode_attn_check.py. In a process of its own (this script run
+     with TIMES_ARG): K4, K5 and SDPA timed at the main path's cache length
+     S = 224 with the mask open to S/2 and to S - 1, by CUDA events with
+     the host's time per call, then K1, K4, K5 and SDPA by device time
+     from `torch.profiler` traces. Once a profiler session has run, every
+     later launch of its process costs the host more
+     (whisperkit_tpu_torch/tools/launch_cost.py), which moved phases 4-8's
+     walls by seconds when the traces ran in this process
   4. the bf16 path: WhisperPipeline.transcribe on large-v3 (random bf16
      weights from the port's init_params(seed=0)), ComputeOptions.serving()
      (int8 cross-KV), tools.workload.pipeline_options(32), 10 minutes of
@@ -46,9 +56,11 @@ REPO = Path(__file__).resolve().parent
 SEED = 0
 # published dense peaks of one H100 SXM (the bound of each kernel)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 AUDIO_SECONDS = 600.0
 GROUP = 32
+# the argument that runs phase 3's timing process (`traced_times`)
+TIMES_ARG = "--traced-times"
 
 
 def fail(message: str) -> None:
@@ -60,30 +72,75 @@ def say(line: str) -> None:
     print(line, flush=True)
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    """Mean CUDA-event time of `fn(i)` over `iters` launches, after one
-    warm-up call."""
+def _timed_loop(torch, fn, iters: int) -> tuple[float, float]:
+    """(mean CUDA-event ms, mean host seconds to issue) of `fn(i)` over
+    `iters` back-to-back calls after one warm-up call; the host clock stops
+    before the closing sync."""
     fn(0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for i in range(iters):
         fn(i)
+    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host / iters
+
+
+def cuda_ms(torch, fn, iters: int) -> float:
+    """Mean CUDA-event time of `fn(i)` over `iters` launches, after one
+    warm-up call."""
+    return _timed_loop(torch, fn, iters)[0]
+
+
+def device_ms(torch, fn, iters: int, kernel: str | None = None) -> float:
+    """Mean device time per call of `fn(i)` over `iters` calls, from the
+    device activities of a `torch.profiler` (CUPTI) trace: those whose name
+    holds `kernel`, which must run once per call, or with no `kernel` every
+    device activity of the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace may come back short of activities: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernel is not None:
+            events = [e for e in events if kernel in e.name]
+        if events and (kernel is None or len(events) == iters):
+            return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / iters
+    fail(f"three traces of {iters} calls held {len(events)} device activities"
+         + (f" named {kernel!r}" if kernel else ""))
+
+
+def launch_times(torch, fn, iters: int, traces: list, kernel: str | None = None) -> dict:
+    """A call's CUDA-event time (`ms`) and the host's time to issue it
+    (`host_us`) over `iters` back-to-back calls (`_timed_loop`); its device
+    time (`device_ms`) joins the dict once `traced_times` has run the trace
+    queued in `traces`."""
+    ms, host = _timed_loop(torch, fn, iters)
+    times = {"ms": ms, "host_us": host * 1e6}
+    traces.append((times, fn, iters, kernel))
+    return times
 
 
 def max_abs(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bound(bytes_moved: float, ops: float = 0.0, kind: str = "bf16") -> dict:
+def bound(bytes_moved: float, ops: float | dict = 0.0, kind: str = "bf16") -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak rate of their type."""
+    the memory rate and the operations over the peak rate of their type
+    (`ops` may map each type to its count)."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[kind] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[k] for k, n in (ops if isinstance(ops, dict) else {kind: ops}).items()) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -113,10 +170,24 @@ def phase_build() -> None:
             say(f"  {line.strip()}")
 
 
-def phase_kernels(torch, card: str) -> dict:
-    """Kernel vs plain version at the main path's shapes."""
-    import torch.nn.functional as F
+def record(results: dict, card: str, key, err, tol, ms, plain_ms, bound_info, library_ms=None, extra="",
+           **more) -> None:
+    """Fail unless `err` is within `tol`; keep and print the kernel's figures."""
+    if not err <= tol:
+        fail(f"{key}: max abs error {err:.3e} > tolerance {tol:.3e}")
+    results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info,
+                    "library_ms": library_ms, **more}
+    lib = f" | library {library_ms:.4f} ms" if library_ms is not None else ""
+    say(
+        f"phase 3 {key}: max_abs_err {err:.3e} (tol {tol:.1e}) | kernel {ms:.4f} ms"
+        f" | plain {plain_ms:.4f} ms{lib} | bound {bound_info['bound_ms']:.4f} ms"
+        f" ({bound_info['bound_by']}, {100 * bound_info['bound_ms'] / ms:.1f}% of it){extra} | {card}"
+    )
 
+
+def phase_kernels(torch, card: str) -> dict:
+    """Kernel vs plain version at the main path's shapes; K4's and K5's
+    times, and every device time, come from `phase_traced_times`."""
     from whisperkit_tpu_torch.ops import attention_decode, mel
 
     dev = torch.device("cuda")
@@ -124,42 +195,22 @@ def phase_kernels(torch, card: str) -> dict:
     g.manual_seed(SEED)
     results = {}
 
-    def record(key, err, tol, ms, plain_ms, bound_info, library_ms=None, extra=""):
-        if not err <= tol:
-            fail(f"{key}: max abs error {err:.3e} > tolerance {tol:.3e}")
-        results[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound_info,
-                        "library_ms": library_ms}
-        lib = f" | library {library_ms:.4f} ms" if library_ms is not None else ""
-        say(
-            f"phase 3 {key}: max_abs_err {err:.3e} (tol {tol:.1e}) | kernel {ms:.4f} ms"
-            f" | plain {plain_ms:.4f} ms{lib} | bound {bound_info['bound_ms']:.4f} ms"
-            f" ({bound_info['bound_by']}, {100 * bound_info['bound_ms'] / ms:.1f}% of it){extra} | {card}"
-        )
-
     # K1: log-mel, 32 windows of 30 s, n_mels 128 (large-v3)
     audio = [torch.randn((GROUP, 480_000), generator=g, device=dev) * 0.1 for _ in range(2)]
+    err, tol, extra = check_log_mel(torch, audio[0], dev, card)
     padded = [mel._padded_rows(a, mel.N_FRAMES) for a in audio]
-    out = mel.log_mel_frames(audio[0], 128)
-    ref = mel.log_mel_frames_reference(padded[0], 128, mel.N_FRAMES)
-    # both float32 with another summation order; 2e-4 in log10 units is
-    # the JAX kernel-vs-XLA test's 5e-5 after the (x + 4) / 4 normalisation
-    err = max_abs(torch, out, ref)
     ms = cuda_ms(torch, lambda i: mel.log_mel_frames(audio[i % 2], 128), 20)
     plain = cuda_ms(torch, lambda i: mel.log_mel_frames_reference(padded[i % 2], 128, mel.N_FRAMES), 20)
-    # per frame: the windowed DFT (cos and sin, 400 x 201), power, the
-    # 201 x 128 mel product; f32 outside the tensor cores
+    # per frame: the windowed DFT (cos and sin, 400 x 201) as the kernel
+    # runs it, three TF32 products on the tensor cores per float32 one; the
+    # power, and the mel sums over the filters' nonzero spans in float32
     frames = GROUP * mel.N_FRAMES
     n_freq = mel.N_FFT // 2 + 1
-    ops = frames * (2 * 2 * mel.N_FFT * n_freq + 3 * n_freq + 2 * n_freq * 128)
-    k1_bound = bound(audio[0].numel() * 4 + out.numel() * 4, ops, "f32")
-    # a partial group (the 600 s run's 26 chunks in a 32-row group) adds a
-    # second launch: the one zero window that pads its rows
-    one = audio[0][:1]
-    ms_one = cuda_ms(torch, lambda i: mel.log_mel_frames(one, 128), 20)
-    one_bound = bound(one.numel() * 4 + out[:1].numel() * 4, ops / GROUP, "f32")
-    record("log_mel", err, 2e-4, ms, plain, k1_bound,
-           extra=f" | B=32 n_mels=128 | B=1 (the pad window) {ms_one:.4f} ms, bound {one_bound['bound_ms']:.4f} ms")
-    results["log_mel"].update(one_window_ms=ms_one, one_window_bound_ms=one_bound["bound_ms"])
+    spans = mel.mel_spans(mel.mel_filters(128).T)
+    nnz = int((spans[:, 1] - spans[:, 0]).sum())
+    ops = {"tf32": 3 * frames * 2 * 2 * mel.N_FFT * n_freq, "f32": frames * (3 * n_freq + 2 * nnz)}
+    record(results, card, "log_mel", err, tol, ms, plain, bound(audio[0].numel() * 4 + frames * 128 * 4, ops),
+           extra=f" | B=32 n_mels=128{extra}")
     del audio, padded
 
     results["mha_encoder"] = check_mha_encoder(torch, g, dev, card)
@@ -194,42 +245,145 @@ def phase_kernels(torch, card: str) -> dict:
     plain = cuda_ms(torch, lambda i: attention_decode.cross_attend_q8_reference(qi, q_scale, *kv[i % 2], v_scale), 5)
     k3_bytes = 2 * b * h * s * 64 + qi.numel() + 4 * (q_scale.numel() + v_scale.numel() + b * h * 64)
     del kv
-    record("cross_attend_q8", max(errs), 2e-4 + 2e-3 * float(ref.abs().max()), ms, plain,
+    record(results, card, "cross_attend_q8", max(errs), 2e-4 + 2e-3 * float(ref.abs().max()), ms, plain,
            bound(k3_bytes, 4 * b * h * s * 64, "int8"), extra=" | B=32 S=1500 T=1 (T=3 checked too)")
 
-    # K4: self-attention over the bf16 cache, B=32 H=20, S = prompt (3) +
-    # 224; four cache sets (149 MB) rotate so launches read device memory
-    s = 3 + 224
-    caches = [
-        tuple(torch.randn((b, h, s, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
-        for _ in range(4)
-    ]
-    q = torch.randn((b, h, 1, 64), generator=g, device=dev) * 0.125
-    errs = []
-    for pos in (s // 2, s - 1):
-        mask_row = torch.zeros((1, s), device=dev)
-        mask_row[:, pos + 1 :] = float("-inf")
-        out = attention_decode.self_attend(q, *caches[0], mask_row)
-        ref = attention_decode.self_attend_reference(q, *caches[0], mask_row)
-        errs.append(max_abs(torch, out, ref))
-    # float32 throughout, another summation order; timed with every key
-    # visible (the mask open to S - 1)
-    ms = cuda_ms(torch, lambda i: attention_decode.self_attend(q, *caches[i % 4], mask_row), 50)
-    plain = cuda_ms(torch, lambda i: attention_decode.self_attend_reference(q, *caches[i % 4], mask_row), 50)
-    # the library yardstick: one SDPA call on the same cache, its query and
-    # mask cast to the cache's dtype beforehand, the scale folded into q
-    q16, mask16 = q.to(torch.bfloat16), mask_row.to(torch.bfloat16)
-    lib = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-        q16, *caches[i % 4], attn_mask=mask16, scale=1.0), 50)
-    k4_bytes = 2 * b * h * s * 64 * 2 + 4 * (q.numel() + s + b * h * 64)
-    record("self_attend", max(errs), 1e-5, ms, plain, bound(k4_bytes, 4 * b * h * s * 64, "f32"), lib,
-           f" | bf16 cache B=32 S={s} pos {s // 2} and {s - 1}")
-    del caches
-
-    # K5: self-attention over the int8 cache, B=32 H=20 S=227
-    err, tol, ms, plain, k5_bytes, extra = check_self_attend_q8(torch, g, dev)
-    record("self_attend_q8", err, tol, ms, plain, bound(k5_bytes, 4 * b * h * s * 64, "int8"), extra=extra)
+    # K4 and K5: self-attention over the bf16 and the int8 cache, B=32 H=20
+    # S=224; their figures are recorded with their times
+    phase_traced_times(card, results, {
+        "self_attend": (*check_self_attend(torch, g, dev, card), 1e-5),
+        "self_attend_q8": check_self_attend_q8(torch, g, dev, card),
+    })
     return results
+
+
+def phase_traced_times(card: str, results: dict, checks: dict) -> None:
+    """Run `traced_times` in a process of its own, so that its profiler
+    sessions leave this process's launches, and phases 4-8, as they were.
+    Adds K1's device time to `results` and records K4 and K5 with their
+    `checks` (max abs error, a note, the tolerance)."""
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), TIMES_ARG],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"the timing process exited {proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    timed = json.loads(lines[-1])
+    t = results["log_mel"]
+    t["device_ms"] = timed["log_mel_device_ms"]
+    say(f"phase 3 log_mel by device time: {t['device_ms']:.4f} ms | bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}, {100 * t['bound_ms'] / t['device_ms']:.1f}% of it) | {card}")
+    for key, (err, extra, tol) in checks.items():
+        times = {int(pos): v for pos, v in timed[key]["times"].items()}
+        say_self_times(key, times, card)
+        full = times[S_SELF - 1]
+        record(results, card, key, err, tol, full["kernel"]["ms"], timed[key]["plain_ms"], bound_of(full),
+               full.get("library", {}).get("ms"), extra, **self_fields(times, S_SELF))
+
+
+def traced_times(torch) -> dict:
+    """Phase 3's timing process: K4, K5 and SDPA at S = 224 by CUDA events
+    and host time per call, then the device-time traces of these and of K1,
+    on inputs made here from the seed. One JSON-ready dict."""
+    from whisperkit_tpu_torch.ops import mel
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    traces = []
+    out = {"self_attend": time_self_attend(torch, g, dev, traces),
+           "self_attend_q8": time_self_attend_q8(torch, g, dev, traces)}
+    audio = [torch.randn((GROUP, 480_000), generator=g, device=dev) * 0.1 for _ in range(2)]
+    k1 = {}
+    traces.append((k1, lambda i: mel.log_mel_frames(audio[i % 2], 128), 20, "log_mel_kernel"))
+    for times, fn, iters, kernel in traces:
+        times["device_ms"] = device_ms(torch, fn, iters, kernel)
+    out["log_mel_device_ms"] = k1["device_ms"]
+    return out
+
+
+# the main path's self-KV cache length: the 3-token prompt and
+# min(224, MAX_TOKEN_CONTEXT - 3) = 221 new tokens
+S_SELF = 224
+
+
+def bound_of(t: dict) -> dict:
+    return {"bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
+
+
+def self_fields(times: dict, s: int) -> dict:
+    """K4/K5's extra fields of the kernels line: device and host times at
+    S - 1 (every key visible) and the figures at S/2."""
+    full, half = times[s - 1], times[s // 2]
+    fields = {"device_ms": full["kernel"]["device_ms"], "host_us": full["kernel"]["host_us"],
+              "at_half": {"pos": s // 2, **half["kernel"], **bound_of(half)}}
+    if "library" in full:
+        fields["library_device_ms"] = full["library"]["device_ms"]
+        fields["at_half"]["library_ms"] = half["library"]["ms"]
+        fields["at_half"]["library_device_ms"] = half["library"]["device_ms"]
+    return fields
+
+
+def say_self_times(key: str, times: dict, card: str) -> None:
+    for pos, t in times.items():
+        k = t["kernel"]
+        lib = ""
+        if "library" in t:
+            lib = (f" | SDPA event {t['library']['ms']:.4f} ms, device {t['library']['device_ms']:.4f} ms, "
+                   f"host {t['library']['host_us']:.1f} µs/call")
+        say(f"phase 3 {key} S={S_SELF} pos {pos}: kernel event {k['ms']:.4f} ms, device {k['device_ms']:.4f} ms, "
+            f"host {k['host_us']:.1f} µs/call{lib} | bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_ms'] / k['device_ms']:.1f}% of it by device time) | {card}")
+
+
+# K1's limit, in units of the float32 plain version's own error against
+# float64: 3xTF32 keeps 22 of float32's 24 bits of each operand, and its
+# dropped terms (the two residuals and lo·lo) come to ≤ 3 · 2^-22 of a
+# product against float32's 2^-24 rounding: 12x, rounded up
+K1_ERR_FACTOR = 16
+
+
+def check_log_mel(torch, randn_audio, dev, card):
+    """K1 against its plain version computed in float64, on the timing's
+    random audio (B=32) and on 32 windows of tools.workload's speech-like
+    audio (bursts and pauses: quiet frames put mel bins near the 1e-10
+    floor, where float32 itself errs by ~1e-3 in log10): the raw log10 mel
+    and the model's input (clamped, normalised) each within K1_ERR_FACTOR
+    times the error of the float32 plain version. Plain TF32 (one product,
+    emulated in torch: ~2^-11 of a product) must exceed that limit.
+    Returns (the kernel's raw error on speech-like audio, its limit, a
+    note)."""
+    from whisperkit_tpu_torch.ops import mel
+    from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
+
+    speech = synth_speechlike_audio(GROUP * mel.WINDOW_SAMPLES / mel.SAMPLE_RATE)
+    inputs = {"random": randn_audio,
+              "speech-like": torch.from_numpy(speech.reshape(GROUP, mel.WINDOW_SAMPLES)).to(dev)}
+    notes, result = [], None
+    for name, audio in inputs.items():
+        padded = mel._padded_rows(audio, mel.N_FRAMES)
+        exact = mel.log_mel_frames_reference(padded, 128, mel.N_FRAMES, torch.float64)
+        exact_n = mel.normalize_log_mel(exact)
+        forms = {
+            "kernel": mel.log_mel_frames(audio, 128),
+            "float32": mel.log_mel_frames_reference(padded, 128, mel.N_FRAMES),
+            "tf32": mel.log_mel_frames_3xtf32(padded, 128, mel.N_FRAMES, products=1),
+        }
+        errs = {k: (max_abs(torch, x, exact), max_abs(torch, mel.normalize_log_mel(x), exact_n))
+                for k, x in forms.items()}
+        limit = [K1_ERR_FACTOR * e for e in errs["float32"]]
+        vs_plain = max_abs(torch, forms["kernel"], forms["float32"])
+        del forms, exact, exact_n, padded
+        notes.append(f"{name}: raw / normalised error vs float64: kernel {errs['kernel'][0]:.3e} / "
+                     f"{errs['kernel'][1]:.3e}, float32 {errs['float32'][0]:.3e} / {errs['float32'][1]:.3e}, "
+                     f"plain TF32 {errs['tf32'][0]:.3e} / {errs['tf32'][1]:.3e}; kernel vs float32 {vs_plain:.3e}")
+        if not all(k <= lim for k, lim in zip(errs["kernel"], limit)):
+            fail(f"log_mel {name}: error vs float64 {errs['kernel']} beyond {K1_ERR_FACTOR}x float32's {errs['float32']}")
+        if not any(t > lim for t, lim in zip(errs["tf32"], limit)):
+            fail(f"log_mel {name}: plain TF32 {errs['tf32']} stays within the limit {limit}")
+        result = (errs["kernel"][0], limit[0])
+    say(f"phase 3 log_mel check (limit: {K1_ERR_FACTOR}x the float32 plain version's error): {'; '.join(notes)}"
+        f" | {card}")
+    return (*result, " | checked against float64 on random and speech-like audio")
 
 
 def check_mha_encoder(torch, g, dev, card) -> dict:
@@ -305,64 +459,135 @@ def check_mha_encoder(torch, g, dev, card) -> dict:
     return {"max_abs_err": err, **times[GROUP]}
 
 
-# K5's limit: ±1 flips of the probability requantization (another exp and
-# sum order) are allowed, at most this many per row; one flip moves an
-# output of its row by at most 127 · p_scale (one int8 V code)
-K5_FLIPS = 2
-
-
-def check_self_attend_q8(torch, g, dev):
-    """K5 against its plain version at B=32 H=20 S=227, with the mask open
-    to positions S/2 and S-1 and the rows after them unwritten (zero codes
-    and scales). Scores span several units (std ~1), so the softmax is
-    peaked and a wrong scale or rounding rule shows; each row's error must
-    stay within K5_FLIPS · 127 · p_scale of that row. Rows built to round
-    at exact ties must give the exact half-to-even output. Four cache sets
-    (codes and per-token scales, 79 MB) rotate for the timing, so launches
-    read device memory. Returns (max abs err, the largest row limit, kernel
-    ms, plain ms, the bytes one launch must move, a note)."""
-    from whisperkit_tpu_torch.models.whisper import _q8_row_quantize
+def check_self_attend(torch, g, dev, card) -> tuple[float, str]:
+    """K4 against its plain version at S=224 on the check inputs of
+    tools/decode_attn_check.py (peaked rows with the max in the last, ragged
+    chunk of the kernel's split or in the first, near-flat rows), at B=4 and
+    B=32, the mask open to 0, S/2 and S-1: each row within 1e-5 (float32
+    throughout, another summation order). Masked rows filled with NaN must
+    leave the output unchanged (the kernel never reads them). The plain
+    split-key algorithm with each of its faults must exceed the limit on
+    the B=4 inputs. Returns (max abs err, a note)."""
     from whisperkit_tpu_torch.ops import attention_decode
+    from whisperkit_tpu_torch.tools import decode_attn_check as dc
 
-    b, h, s = GROUP, 20, 3 + 224
+    b, h, s = GROUP, 20, S_SELF
+    errs, worst, small = [], {}, []
+    for batch in (4, b):
+        for pos in dc.positions(s):
+            q, k, v, mask_row = args = dc.check_inputs(batch, h, s, pos, g, dev)
+            out = attention_decode.self_attend(*args)
+            ref = attention_decode.self_attend_reference(*args)
+            ratio = dc.excess(out, ref, dc.K4_LIMIT)
+            worst[f"B={batch} pos {pos}"] = dc.worst_by_kind(ratio)
+            if not float(ratio.max()) <= 1.0 or not bool(torch.isfinite(out).all()):
+                fail(f"self_attend B={batch} pos {pos}: worst row at {worst[f'B={batch} pos {pos}']} of its "
+                     f"limit ({dc.K4_LIMIT} absolute) for {dc.ROW_KINDS}")
+            errs.append(max_abs(torch, out, ref))
+            if pos < s - 1:
+                k_nan, v_nan = k.clone(), v.clone()
+                k_nan[:, :, pos + 1 :] = float("nan")
+                v_nan[:, :, pos + 1 :] = float("nan")
+                if not torch.equal(attention_decode.self_attend(q, k_nan, v_nan, mask_row), out):
+                    fail(f"self_attend B={batch} pos {pos}: NaN in the masked rows changed the output")
+            if batch == 4:
+                small.append(args)
+    faults = dc.fault_table(small)
+    if not dc.separates(faults):
+        fail(f"self_attend: the limit does not separate the split-key algorithm from its faults {faults}")
+    say(f"phase 3 self_attend check, worst row / limit ({dc.K4_LIMIT} absolute) per kind {dc.ROW_KINDS}: "
+        + "; ".join(f"{key} {[round(x, 3) for x in w.values()]}" for key, w in worst.items())
+        + f"; NaN in the masked rows leaves the output unchanged | {card}")
+    say(f"phase 3 self_attend faults at B=4 (worst row / limit per position and kind): {json.dumps(faults)}")
+    return max(errs), f" | bf16 cache S={s}, checked at B=4 and 32, pos 0, {s // 2}, {s - 1}; timed at B=32"
 
-    def q8_rows(shape):
-        return _q8_row_quantize(torch.randn(shape, generator=g, device=dev) * 0.5)
 
-    caches = []
-    for _ in range(4):
-        (k8, ks), (v8, vs) = q8_rows((b, h, s, 64)), q8_rows((b, h, s, 64))
-        caches.append((k8, ks, v8, vs))
-    # query std 2 / sqrt(64) against keys of std 0.5: scores of std ~1
-    qi, q_scale = _q8_row_quantize(torch.randn((b, h, 1, 64), generator=g, device=dev) * 2 * 64**-0.5)
-    errs, tols, worst = [], [], 0.0
+def time_self_attend(torch, g, dev, traces) -> dict:
+    """K4 and SDPA at S=224, the mask open to S/2 and to S-1, on four random
+    cache sets (147 MB) that rotate so launches read device memory, and the
+    plain version's CUDA-event ms at S-1; the device-time traces join
+    `traces`. Returns {"plain_ms", "times": {position: figures}}."""
+    import torch.nn.functional as F
+
+    from whisperkit_tpu_torch.ops import attention_decode
+    from whisperkit_tpu_torch.tools import decode_attn_check as dc
+
+    b, h, s = GROUP, 20, S_SELF
+    caches = [
+        tuple(torch.randn((b, h, s, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        for _ in range(4)
+    ]
+    q = torch.randn((b, h, 1, 64), generator=g, device=dev) * 0.125
+    times = {}
     for pos in (s // 2, s - 1):
-        mask_row = torch.zeros((1, s), device=dev)
-        mask_row[:, pos + 1 :] = float("-inf")
-        cache = [t.clone() for t in caches[0]]
-        for t in cache:
-            t[:, :, pos + 1 :] = 0
-        k8, ks, v8, vs = cache
-        out = attention_decode.self_attend_q8(qi, q_scale, *cache, mask_row)
-        ref = attention_decode.self_attend_q8_reference(qi, q_scale, *cache, mask_row)
-        _, p_scale = attention_decode.self_attend_q8_probs(qi, q_scale, k8, ks, vs, mask_row)
-        tol_row = K5_FLIPS * 127 * p_scale  # [B,H,1,1]
-        ratio = float(((out - ref).abs() / tol_row).max())
-        if not ratio <= 1.0:
-            fail(f"self_attend_q8 pos {pos}: error {ratio:.2f}× its row limit of {K5_FLIPS} requantization "
-                 f"flips (max abs {max_abs(torch, out, ref):.3e})")
-        errs.append(max_abs(torch, out, ref))
-        tols.append(tol_row)
-        worst = max(worst, ratio)
-    tol_row = torch.cat([t.flatten() for t in tols])
+        mask_row = dc.mask_upto(s, pos, dev)
+        # the library yardstick: one SDPA call on the same cache, its query
+        # and mask cast to the cache's dtype beforehand, the scale folded
+        # into q; it reads every key, visible or not
+        q16, mask16 = q.to(torch.bfloat16), mask_row.to(torch.bfloat16)
+        n = pos + 1  # visible keys: the bytes and operations the function needs
+        # each call binds this position's mask: the traces run after the loop
+        times[pos] = {
+            "kernel": launch_times(
+                torch, lambda i, m=mask_row: attention_decode.self_attend(q, *caches[i % 4], m), 50, traces,
+                "self_attend_kernel"),
+            "library": launch_times(torch, lambda i, m=mask16: F.scaled_dot_product_attention(
+                q16, *caches[i % 4], attn_mask=m, scale=1.0), 50, traces),
+            **bound(2 * b * h * n * 64 * 2 + 4 * (q.numel() + s + b * h * 64), 4 * b * h * n * 64, "f32"),
+        }
+    plain = cuda_ms(torch, lambda i: attention_decode.self_attend_reference(q, *caches[i % 4], mask_row), 50)
+    return {"plain_ms": plain, "times": times}
+
+
+def check_self_attend_q8(torch, g, dev, card) -> tuple[float, str, float]:
+    """K5 against its plain version at S=224 on the check inputs of
+    tools/decode_attn_check.py (peaked rows with the max near the end of the
+    visible keys or near the start, near-flat rows; query and cache
+    quantized per row, the rows after the position unwritten: zero codes
+    and scales), at B=4 and B=32, the mask open to 0, S/2 and S-1: each
+    row's error within K5_FLIPS · 127 · p_scale of that row (K5_FLIPS
+    requantization flips). NaN in the masked rows' scales must leave the
+    output unchanged (the kernel never reads them). Rows built to round at
+    exact ties must give the exact half-to-even output. Returns (max abs
+    err, a note, the largest row limit)."""
+    from whisperkit_tpu_torch.ops import attention_decode
+    from whisperkit_tpu_torch.tools import decode_attn_check as dc
+
+    b, h, s = GROUP, 20, S_SELF
+    errs, tols, worst = [], [], {}
+    for batch in (4, b):
+        for pos in dc.positions(s):
+            args = dc.check_inputs_q8(batch, h, s, pos, g, dev)
+            out = attention_decode.self_attend_q8(*args)
+            ref = attention_decode.self_attend_q8_reference(*args)
+            limit = dc.q8_row_limit(args)
+            ratio = dc.excess(out, ref, limit)
+            worst[f"B={batch} pos {pos}"] = dc.worst_by_kind(ratio)
+            if not float(ratio.max()) <= 1.0 or not bool(torch.isfinite(out).all()):
+                fail(f"self_attend_q8 B={batch} pos {pos}: worst row at {worst[f'B={batch} pos {pos}']} of its "
+                     f"limit of {dc.K5_FLIPS} requantization flips for {dc.ROW_KINDS}")
+            errs.append(max_abs(torch, out, ref))
+            tols.append(limit.flatten())
+            if pos < s - 1:
+                qi, q_scale, k8, ks, v8, vs, mask_row = args
+                ks_nan, vs_nan = ks.clone(), vs.clone()
+                ks_nan[:, :, pos + 1 :] = float("nan")
+                vs_nan[:, :, pos + 1 :] = float("nan")
+                if not torch.equal(attention_decode.self_attend_q8(qi, q_scale, k8, ks_nan, v8, vs_nan, mask_row),
+                                   out):
+                    fail(f"self_attend_q8 B={batch} pos {pos}: NaN in the masked rows' scales changed the output")
+    tol_row = torch.cat(tols)
+    say(f"phase 3 self_attend_q8 check, worst row / limit ({dc.K5_FLIPS} flips × 127 × p_scale) per kind "
+        f"{dc.ROW_KINDS}: " + "; ".join(f"{key} {[float(f'{x:.3g}') for x in w.values()]}" for key, w in worst.items())
+        + f"; NaN in the masked rows' scales leaves the output unchanged | {card}")
 
     # round half to even: keys 0 and 1 alike (probabilities 1/2 each), with
     # v_scale 127 at key 0 and 2j + 1/2 at key 1 (j = row mod 64), so that
     # p_scale is 1/2 and key 1's code is the tie 2j + 1/2: rintf gives 2j,
     # roundf 2j + 1. The output is exact, 0.5 · (127 · v[0] + 2j · v[1]).
+    qi, q_scale, k8, ks, v8, vs = _q8_timing_inputs(torch, g, dev, 1)[0]
     tie_mask = torch.zeros((1, s), device=dev)
     tie_mask[:, 2:] = float("-inf")
-    k8, ks, v8, vs = [t.clone() for t in caches[0]]
     for t in (k8, ks, v8, vs):
         t[:, :, 2:] = 0
     k8[:, :, 1], ks[:, :, 1] = k8[:, :, 0], ks[:, :, 0]
@@ -374,16 +599,55 @@ def check_self_attend_q8(torch, g, dev):
     if not (torch.equal(out, exact) and torch.equal(ref, exact)):
         fail(f"self_attend_q8 ties: not rounded half to even (kernel max abs {max_abs(torch, out, exact):.3e}, "
              f"plain {max_abs(torch, ref, exact):.3e} from the exact output)")
-    ms = cuda_ms(torch, lambda i: attention_decode.self_attend_q8(qi, q_scale, *caches[i % 4], mask_row), 50)
+    extra = (f" | int8 cache S={s}, checked at B=4 and 32, pos 0, {s // 2}, {s - 1}; limit per row "
+             f"{dc.K5_FLIPS} flips × 127 × p_scale, {float(tol_row.min()):.3e} to {float(tol_row.max()):.3e}; "
+             "ties at 2j + 1/2 exact; timed at B=32")
+    return max(errs), extra, float(tol_row.max())
+
+
+def _q8_timing_inputs(torch, g, dev, sets: int) -> list:
+    """`sets` random (qi, q_scale, k8, k_scale, v8, v_scale) at B=32 H=20
+    S=224: cache rows quantized per row from std 0.5, the query from std
+    2 / sqrt(64), so scores have std ~1."""
+    from whisperkit_tpu_torch.models.whisper import _q8_row_quantize
+
+    def q8_rows(shape, std):
+        return _q8_row_quantize(torch.randn(shape, generator=g, device=dev) * std)
+
+    shape = (GROUP, 20, S_SELF, 64)
+    return [(*q8_rows(shape[:2] + (1, 64), 2 * 64**-0.5), *q8_rows(shape, 0.5), *q8_rows(shape, 0.5))
+            for _ in range(sets)]
+
+
+def time_self_attend_q8(torch, g, dev, traces) -> dict:
+    """K5 at S=224, the mask open to S/2 and to S-1, on four random cache
+    sets (codes and per-token scales, 79 MB) that rotate so launches read
+    device memory, and the plain version's CUDA-event ms at S-1; the
+    device-time traces join `traces`. Returns {"plain_ms", "times":
+    {position: figures}}."""
+    from whisperkit_tpu_torch.ops import attention_decode
+    from whisperkit_tpu_torch.tools import decode_attn_check as dc
+
+    b, h, s = GROUP, 20, S_SELF
+    sets = _q8_timing_inputs(torch, g, dev, 4)
+    qi, q_scale = sets[0][:2]
+    caches = [c[2:] for c in sets]
+    times = {}
+    for pos in (s // 2, s - 1):
+        mask_row = dc.mask_upto(s, pos, dev)
+        n = pos + 1
+        times[pos] = {
+            "kernel": launch_times(
+                torch, lambda i, m=mask_row: attention_decode.self_attend_q8(qi, q_scale, *caches[i % 4], m), 50,
+                traces, "self_attend_q8_kernel"),
+            # the visible keys' int8 codes and f32 scales of K and V, the
+            # query, the mask row and the f32 output
+            **bound(2 * b * h * n * (64 + 4) + qi.numel() + 4 * (q_scale.numel() + s + b * h * 64),
+                    4 * b * h * n * 64, "int8"),
+        }
     plain = cuda_ms(torch, lambda i: attention_decode.self_attend_q8_reference(qi, q_scale, *caches[i % 4], mask_row),
                     50)
-    extra = (f" | int8 cache B=32 S={s} pos {s // 2} and {s - 1}; limit per row {K5_FLIPS} flips × 127 × p_scale, "
-             f"{float(tol_row.min()):.3e} to {float(tol_row.max()):.3e}; worst row at {worst:.4f} of its limit; "
-             "ties at 2j + 1/2 exact")
-    # every key visible in the timed launches: int8 codes and f32 scales of
-    # K and V, the query, the mask row and the f32 output
-    n_bytes = 2 * b * h * s * (64 + 4) + qi.numel() + 4 * (q_scale.numel() + s + b * h * 64)
-    return max(errs), float(tol_row.max()), ms, plain, n_bytes, extra
+    return {"plain_ms": plain, "times": times}
 
 
 def transcribe_twice(torch, pipe, audio, options) -> dict:
@@ -650,6 +914,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == [TIMES_ARG]:
+        say(json.dumps(traced_times(torch)))
+        return
 
     name, card = phase_card(torch)
     phase_build()

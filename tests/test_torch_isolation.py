@@ -56,6 +56,7 @@ def test_port_modules_load_without_the_jax_package():
         "import sys\n"
         "import whisperkit_tpu_torch.pipelines.whisper\n"
         "import whisperkit_tpu_torch.tools.profile_step, whisperkit_tpu_torch.tools.k2_check\n"
+        "import whisperkit_tpu_torch.tools.decode_attn_check, whisperkit_tpu_torch.tools.launch_cost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisperkit_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

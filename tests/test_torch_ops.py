@@ -21,7 +21,7 @@ from whisperkit_tpu.ops import mel as jmel
 from whisperkit_tpu.ops.attention import mha_encoder_pallas
 from whisperkit_tpu_torch.models.whisper import _merge_heads, _q8_row_quantize, _split_heads
 from whisperkit_tpu_torch.ops import _build, attention, attention_decode, mel
-from whisperkit_tpu_torch.tools import k2_check
+from whisperkit_tpu_torch.tools import decode_attn_check, k2_check
 
 
 def _t(x):
@@ -75,6 +75,86 @@ def test_log_mel_single_window_and_raw_frames(mel_audio):
     raw = mel.log_mel_frames(_t(mel_audio), 80, 400)
     assert raw.shape == (2, 400, 80)
     assert float(raw.min()) >= -10.0
+
+
+@pytest.mark.parametrize("ks, nt, lane", [(0, 0, 0), (7, 13, 22), (49, 50, 31), (49, 51, 5), (25, 1, 17)])
+def test_dft_basis_fragments_hold_the_mma_b_fragments(ks, nt, lane):
+    """Lane 4g + t of n-tile nt at k-step ks holds the basis at (sample
+    8 ks + t, column g) and (8 ks + t + 4, g); n-tile 2G is the cos and
+    2G + 1 the sin of frequencies 8G .. 8G + 7, zero past the 201st."""
+    frags = mel.dft_basis_fragments()
+    assert frags.shape == (50, 52, 32, 2) and frags.dtype == np.float32
+    cos_m, sin_m = mel._dft_window_matrices()
+    g, t = divmod(lane, 4)
+    freq = 8 * (nt // 2) + g
+    src = (cos_m, sin_m)[nt % 2]
+    want = [src[8 * ks + t + d, freq] if freq < 201 else 0.0 for d in (0, 4)]
+    np.testing.assert_array_equal(frags[ks, nt, lane], want)
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_spans_cover_every_nonzero_filter_weight(n_mels):
+    mel_w = mel.mel_filters(n_mels).T
+    spans = mel.mel_spans(mel_w)
+    rows = np.arange(mel_w.shape[0])[:, None]
+    inside = (rows >= spans[:, 0]) & (rows < spans[:, 1])
+    assert not mel_w[~inside].any()
+    assert all(mel_w[lo, m] and mel_w[hi - 1, m] for m, (lo, hi) in enumerate(spans))
+    power = np.random.default_rng(n_mels).random((5, mel_w.shape[0])).astype(np.float32)
+    sparse = np.array([[p[lo:hi] @ mel_w[lo:hi, m] for m, (lo, hi) in enumerate(spans)] for p in power])
+    np.testing.assert_allclose(sparse, power @ mel_w, rtol=1e-6)
+
+
+def test_tf32_round_keeps_ten_mantissa_bits_ties_away_from_zero():
+    ulp = 2.0**-10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 4, -(1 + ulp / 2), 1 + 3 * ulp / 4, 3.0e-30])
+    r = mel.tf32_round(x)
+    assert r[:5].tolist() == [1.0, 1 + ulp, 1.0, -(1 + ulp), 1 + ulp]
+    assert not bool((r.view(torch.int32) & 0x1FFF).any())
+
+
+@pytest.fixture(scope="module")
+def k1_inputs():
+    """Raw log10 mel against float64 on random and speech-like audio: the
+    float32 plain version, the kernel's 3xTF32 numerics and plain TF32."""
+    from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
+
+    rng = np.random.default_rng(4)
+    audio = {
+        "random": _t((rng.standard_normal((2, 120_000)) * 0.1).astype(np.float32)),
+        "speech-like": _t(synth_speechlike_audio(15.0, seed=2).reshape(2, 120_000)),
+    }
+    out = {}
+    for name, a in audio.items():
+        padded = mel._padded_rows(a, 750)
+        exact = mel.log_mel_frames_reference(padded, 128, 750, torch.float64)
+        forms = {
+            "float32": mel.log_mel_frames_reference(padded, 128, 750),
+            "3xtf32": mel.log_mel_frames_3xtf32(padded, 128, 750),
+            "tf32": mel.log_mel_frames_3xtf32(padded, 128, 750, products=1),
+        }
+        out[name] = {
+            k: (float((x - exact).abs().max()),
+                float((mel.normalize_log_mel(x) - mel.normalize_log_mel(exact)).abs().max()))
+            for k, x in forms.items()
+        }
+    return out
+
+
+@pytest.mark.parametrize("audio", ["random", "speech-like"])
+def test_log_mel_3xtf32_stays_within_the_checks_limit_and_tf32_does_not(k1_inputs, audio):
+    """The precision argument of csrc/mel.cu, as chip_smoke.py checks the
+    kernel: 3xTF32 within 16x the float32 plain version's error against
+    float64 (raw and normalised), plain TF32 far outside it."""
+    errs = k1_inputs[audio]
+    assert all(e <= 16 * f for e, f in zip(errs["3xtf32"], errs["float32"])), errs
+    assert all(e > 16 * f for e, f in zip(errs["tf32"], errs["float32"])), errs
+
+
+def test_log_mel_3xtf32_matches_jax_xla(mel_audio):
+    ref = np.asarray(jmel.log_mel_spectrogram(jnp.asarray(mel_audio), n_mels=80, n_frames=400))
+    out = mel.normalize_log_mel(mel.log_mel_frames_3xtf32(mel._padded_rows(_t(mel_audio), 400), 80, 400))
+    np.testing.assert_allclose(out.numpy(), ref, atol=5e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +324,128 @@ def test_self_attend_matches_pallas_interpret(cache_dtype, pos):
     tdt = getattr(torch, cache_dtype)
     out = attention_decode.self_attend(_t(q), _t(k).to(tdt), _t(v).to(tdt), _t(mask)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s, pos", [(8, 0), (8, 7), (40, 0), (40, 20), (40, 39), (227, 0), (227, 113), (227, 226)])
+def test_self_attend_split_reference_matches_pallas_and_plain(cache_dtype, s, pos):
+    """K4's split-key algorithm (the kernel's chunks, online softmax and
+    merge) against the Pallas kernel in interpret mode and the plain
+    version, at the kernel's limit of 1e-5: ragged S, S = 8 (the language
+    probe), positions 0, mid and S - 1."""
+    rng = np.random.default_rng(100 + s + pos)
+    b, h = 2, 3
+    q = (rng.standard_normal((b, h, 1, 64)) * 0.3).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, s, 64)).astype(np.float32) for _ in range(2))
+    mask = np.where(np.arange(s)[None, :] <= pos, 0.0, -np.inf).astype(np.float32)
+    jdt, tdt = jnp.dtype(cache_dtype), getattr(torch, cache_dtype)
+    ref = np.asarray(
+        jad.self_attend_pallas(jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(mask))
+    )
+    args = (_t(q), _t(k).to(tdt), _t(v).to(tdt), _t(mask))
+    out = attention_decode.self_attend_split_reference(*args)
+    assert out.shape == (b, h, 1, 64) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), attention_decode.self_attend_reference(*args).numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 5, 32, 113, 224, 448])
+def test_split_chunks_cover_the_visible_keys_in_equal_chunks(n):
+    s = 448
+    mask = torch.full((1, s), float("-inf"))
+    mask[:, :n] = 0.0
+    chunks = attention_decode.split_chunks(mask)
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(chunks, chunks[1:]))
+    size = chunks[0][1] - chunks[0][0]
+    assert size % 4 == 0 or len(chunks) == 1
+    assert all(b - a == size for a, b in chunks[:-1]) and 0 < chunks[-1][1] - chunks[-1][0] <= size
+    assert len(chunks) <= attention_decode.SPLIT_WARPS
+
+
+def test_split_chunks_end_at_the_last_visible_key_of_any_mask():
+    mask = torch.full((1, 64), float("-inf"))
+    mask[:, [0, 9, 30]] = 0.0
+    assert attention_decode.split_chunks(mask)[-1][1] == 31
+    assert attention_decode.split_chunks(torch.full((1, 8), float("-inf"))) == []
+
+
+def test_self_attend_split_reference_takes_any_mask_row():
+    rng = np.random.default_rng(7)
+    q = _t((rng.standard_normal((1, 2, 1, 64)) * 0.3).astype(np.float32))
+    k, v = (_t(rng.standard_normal((1, 2, 50, 64)).astype(np.float32)) for _ in range(2))
+    mask = torch.where(torch.from_numpy(rng.random((1, 50)) < 0.5), 0.0, float("-inf"))
+    mask[0, 0], mask[0, 3] = 0.0, -1.5  # an additive term, not only 0 / -inf
+    torch.testing.assert_close(attention_decode.self_attend_split_reference(q, k, v, mask),
+                               attention_decode.self_attend_reference(q, k, v, mask), rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K4/K5's on-card check (tools/decode_attn_check.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def k4_faults():
+    g = torch.Generator().manual_seed(0)
+    return decode_attn_check.fault_table(
+        [decode_attn_check.check_inputs(1, 6, 224, pos, g, "cpu") for pos in decode_attn_check.positions(224)]
+    )
+
+
+def test_k4_limit_passes_the_split_algorithm(k4_faults):
+    assert decode_attn_check.worst(k4_faults["split"]) <= 1.0, k4_faults["split"]
+    assert decode_attn_check.separates(k4_faults)
+
+
+@pytest.mark.parametrize(
+    "fault, pos, kind",
+    [
+        ("no_rescale", 223, "peaked_first_chunk"),
+        ("no_rescale", 112, "near_flat"),
+        ("drop_last_chunk", 223, "peaked_last_chunk"),
+        ("drop_last_chunk", 112, "peaked_last_chunk"),
+        ("masked_scored_zero", 112, "near_flat"),
+        ("masked_scored_zero", 0, "near_flat"),
+    ],
+)
+def test_k4_limit_fails_each_fault(k4_faults, fault, pos, kind):
+    """Each altered form exceeds the limit where the inputs were built to
+    show it (masked keys exist only before S - 1)."""
+    assert k4_faults[fault][f"pos {pos}"][kind] > 1.0, k4_faults[fault]
+
+
+@pytest.mark.parametrize("pos", [0, 112, 223])
+def test_decode_check_inputs_put_the_max_where_each_row_kind_says(pos):
+    g = torch.Generator().manual_seed(pos)
+    q, k, _, mask = decode_attn_check.check_inputs(2, 6, 224, pos, g, "cpu")
+    scores = (q @ k.float().transpose(-1, -2) + mask)[:, :, 0]  # [B, H, S]
+    kinds = decode_attn_check.row_kinds(2, 6, "cpu")
+    (first0, first1), (last0, last1) = attention_decode.split_chunks(mask)[0], attention_decode.split_chunks(mask)[-1]
+    top = scores.argmax(-1)
+    assert bool(((top >= last0) & (top < last1))[kinds == 0].all())
+    assert bool(((top >= first0) & (top < first1))[kinds == 1].all())
+    visible = scores[..., : pos + 1]
+    if pos > 8:
+        assert float(visible[kinds == 2].std()) < 1.0
+        assert float(visible[kinds == 0].std()) >= 2.0
+
+
+def test_decode_check_inputs_q8_leave_the_masked_rows_unwritten():
+    g = torch.Generator().manual_seed(3)
+    qi, q_scale, k8, ks, v8, vs, mask = args = decode_attn_check.check_inputs_q8(1, 3, 40, 17, g, "cpu")
+    assert qi.dtype == k8.dtype == v8.dtype == torch.int8
+    for t in (k8, ks, v8, vs):
+        assert not bool(t[:, :, 18:].any()) and bool(t[:, :, :18].any())
+    limit = decode_attn_check.q8_row_limit(args)
+    assert limit.shape == (1, 3, 1, 1) and bool((limit > 0).all())
+    out = attention_decode.self_attend_q8(*args)
+    assert float(decode_attn_check.excess(out, attention_decode.self_attend_q8_reference(*args), limit).max()) == 0.0
+
+
+def test_decode_check_excess_counts_nan_as_past_the_limit():
+    out = torch.full((1, 1, 1, 4), float("nan"))
+    assert decode_attn_check.excess(out, torch.zeros_like(out), 1e-5).item() == float("inf")
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ fallback ladder off: JAX keys and torch generators draw different numbers.
 """
 
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -25,6 +26,7 @@ from whisperkit_tpu.ops import quant as jquant
 from whisperkit_tpu.pipelines.whisper import WhisperPipeline as JaxPipeline
 from whisperkit_tpu_torch.core.configurations import ComputeOptions, DecodingOptions, WhisperConfig
 from whisperkit_tpu_torch.models import whisper as model
+from whisperkit_tpu_torch.ops.mel import log_mel_spectrogram
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
 
@@ -124,6 +126,31 @@ def test_vad_path_groups_and_tail_bucket(pipes):
     res = torch_pipe.transcribe(audio, options)
     assert res.timings.total_decoding_windows == len(chunks)
     assert res.timings.total_encoding_runs == len(chunks)
+
+
+@pytest.mark.parametrize("workers", [4, 8])
+def test_vad_pad_window_shares_the_chunks_mel_launch(pipes, monkeypatch, workers):
+    """A partial last group pads its rows with the mel of a zero window,
+    computed in the same mel batch as the chunks (one kernel launch for up
+    to MEL_BATCH windows), not in a launch of its own; it equals the mel of
+    a zero window computed alone."""
+    _, torch_pipe = pipes
+    audio = _speechlike(65.0)
+    options = DecodingOptions(chunking_strategy="vad", concurrent_worker_count=workers, **GREEDY)
+    n = len(torch_pipe._vad_chunks(audio, options))
+    group = min(workers, 1 << math.ceil(math.log2(n)))
+    n_last = n % group or group
+    assert n_last & (n_last - 1), f"{n} chunks in groups of {group} leave no partial group to pad"
+    batches, pads = [], []
+    mel_batch, encode = torch_pipe._mel_batch, torch_pipe._encode
+    monkeypatch.setattr(torch_pipe, "_mel_batch", lambda w: (batches.append(len(w)), mel_batch(w))[1])
+    monkeypatch.setattr(torch_pipe, "_mel", lambda *a: pytest.fail("the pad window took a mel call of its own"))
+    monkeypatch.setattr(torch_pipe, "_encode", lambda mel, o: (pads.append(mel[n_last:]), encode(mel, o))[1])
+    res = torch_pipe.transcribe(audio, options)
+    assert batches == [n + 1]
+    assert res.timings.total_log_mel_runs == n
+    alone = log_mel_spectrogram(torch.zeros(480_000), n_mels=DIMS.n_mels)
+    torch.testing.assert_close(pads[-1], alone[None].expand_as(pads[-1]), rtol=0, atol=0)
 
 
 def test_serving_preset_int8_cross_kv_matches_jax(jparams):

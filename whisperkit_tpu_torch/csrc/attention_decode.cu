@@ -15,14 +15,17 @@
 // cross-K/V, and up to 1.2 GB of bf16 self-K/V or 0.6 GB of int8 self-K/V
 // (plus 38 MB of per-token scales) over all 32 layers.
 //
-// Design (simple and right first): one block of 256 threads per (batch,
-// head[, query row]); B x H = 640 blocks over 132 SMs. Pass 1: each thread
-// takes whole key rows (one 64-wide row is 64 B of int8 or 128 B of bf16,
-// read with 16-byte loads) and writes its score to shared memory. The
-// softmax runs over the shared scores with block reductions. Pass 2: the
-// threads split the key axis into groups and each lane owns a slice of the
-// 64 channels, so a warp reads whole contiguous rows of V; the groups'
-// partial sums meet in shared memory. K and V are each read exactly once.
+// K3 (simple and right first): one block of 256 threads per (batch, head,
+// query row); B x H = 640 blocks over 132 SMs. Pass 1: each thread takes
+// whole key rows (one 64-wide row is 64 B of int8, read with 16-byte loads)
+// and writes its score to shared memory. The softmax runs over the shared
+// scores with block reductions. Pass 2: the threads split the key axis
+// into groups and each lane owns a slice of the 64 channels, so a warp
+// reads whole contiguous rows of V; the groups' partial sums meet in shared
+// memory. K and V are each read exactly once.
+//
+// K4 splits each row's key axis among the block's warps and stages V in
+// shared memory: see its section below. K5 keeps K3's layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,43 +169,124 @@ cross_attend_q8_kernel(const int8_t* __restrict__ qi,     // [BH, T, DH]
 }
 
 // ---------------------------------------------------------------------------
-// Self-attention over the raw cache (K4). Same math as the JAX kernel:
-//   scores = q . k + mask     f32 (q arrives scaled by dh^-0.5)
-//   out = softmax(scores) . v f32
-// Keys whose mask entry is -inf are not read: their score is -inf either
-// way and their probability exactly 0.
+// Self-attention over the raw cache (K4): one block of SPLIT_NW warps per
+// (batch, head) row, the key axis split among the warps.
+//
+// What bounds it: device-memory bandwidth, and at these sizes the chain of
+// latencies before it. At S = 224 a row is 57 KB of bf16 K/V; a launch
+// moves 36.7 MB over 640 rows, 11 us at 3.35 TB/s. So the design keeps few
+// round trips to device memory on the path and all 640 rows resident in one
+// wave (5 blocks per SM on 132 SMs: under 45 KB of shared memory and 48
+// registers a thread):
+//
+//   1. The mask row goes to shared memory and the block learns n, one past
+//      the last visible key (one barrier). Keys past n are never read, nor
+//      any masked key inside [0, n): the mask is any additive row.
+//   2. [0, n) splits into SPLIT_NW contiguous chunks of a multiple of 4
+//      keys, the last ragged (ops/attention_decode.py::split_chunks); warp w
+//      owns chunk w.
+//   3. K is read straight into registers, whole rows coalesced: a 128-B bf16
+//      row is 8 lanes x 16 B, 4 rows per warp load, 4 loads in flight a
+//      lane; the dot is reduced across the row's 8 lanes with shuffles.
+//   4. As soon as its scores are in, each warp requests its visible V rows
+//      into shared memory with cp.async (the whole chunk at once), and they
+//      arrive while it takes its max m_w and sum l_w of exp(x - m_w).
+//      Requesting V at the block's start instead, beside K, measured slower
+//      on the H100: the K loads, which the scores wait for, then queue
+//      behind V.
+//   5. Each warp forms its unnormalised partial P.V from the staged rows;
+//      one barrier merges the warps' (m_w, l_w, partial) with the weights
+//      exp(m_w - m), and the output is divided by the row's sum at the end.
 // ---------------------------------------------------------------------------
-template <typename T> struct Row8;
-template <> struct Row8<__nv_bfloat16> {
-  // 8 bf16 values from a 16-byte aligned address
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* x) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
+constexpr int SPLIT_NW = 8;  // warps per block: attention_decode.SPLIT_WARPS
+constexpr int SNT = SPLIT_NW * 32;
+constexpr int MAX_SELF_KEYS = 512;  // attention_decode.MAX_SELF_KEYS
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Steps 1 and 2: copy the mask row to `msk`, return this warp's chunk
+// [c0, c1) (empty when c1 <= c0).
+__device__ __forceinline__ int2 split_chunk(const float* __restrict__ mask, float* msk, int* warp_hi, int S) {
+  const int tid = threadIdx.x;
+  int hi = 0;
+  for (int s = tid; s < S; s += SNT) {
+    const float m = mask[s];
+    msk[s] = m;
+    if (m != -INFINITY) hi = s + 1;
+  }
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if ((tid & 31) == 0) warp_hi[tid >> 5] = hi;
+  __syncthreads();
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < SPLIT_NW; ++i) n = max(n, warp_hi[i]);
+  const int size = 4 * ((n + 4 * SPLIT_NW - 1) / (4 * SPLIT_NW));
+  const int c0 = (tid >> 5) * size;
+  return make_int2(c0, min(n, c0 + size));
+}
+
+// One key row's 8 channels of one lane (16 B of bf16, 32 B of f32)
+template <typename T> struct KRow;
+template <> struct KRow<__nv_bfloat16> {
+  static constexpr int BATCH = 4;  // row loads in flight per lane
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { u = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void zero() { u = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ float dot(const float* qv) const {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    float acc = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
+      acc = fmaf(qv[2 * i], f.x, acc);
+      acc = fmaf(qv[2 * i + 1], f.y, acc);
     }
+    return acc;
   }
   static __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   }
 };
-template <> struct Row8<float> {
-  static __device__ __forceinline__ void load(const float* p, float* x) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+template <> struct KRow<float> {
+  static constexpr int BATCH = 2;
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = reinterpret_cast<const float4*>(p)[0];
+    b = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ float dot(const float* qv) const {
+    float acc = 0.f;
+    acc = fmaf(qv[0], a.x, acc); acc = fmaf(qv[1], a.y, acc);
+    acc = fmaf(qv[2], a.z, acc); acc = fmaf(qv[3], a.w, acc);
+    acc = fmaf(qv[4], b.x, acc); acc = fmaf(qv[5], b.y, acc);
+    acc = fmaf(qv[6], b.z, acc); acc = fmaf(qv[7], b.w, acc);
+    return acc;
   }
   static __device__ __forceinline__ float2 load2(const float* p) {
     return *reinterpret_cast<const float2*>(p);
   }
 };
 
+// ---------------------------------------------------------------------------
+// K4: self-attention over the raw cache. Same math as the JAX kernel
+// (_self_decode_kernel):
+//   scores = q . k + mask     f32 (q arrives scaled by dh^-0.5)
+//   out = softmax(scores) . v f32
+// in the split form: out = sum_w e^(m_w - m) P_w.V_w / sum_w e^(m_w - m) l_w.
+// ---------------------------------------------------------------------------
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(SNT, 5)
 self_attend_kernel(const float* __restrict__ q,     // [BH, DH]
                    const T* __restrict__ k,         // [BH, S, DH]
                    const T* __restrict__ v,         // [BH, S, DH]
@@ -210,67 +294,104 @@ self_attend_kernel(const float* __restrict__ q,     // [BH, DH]
                    float* __restrict__ out,         // [BH, DH]
                    int S) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sc = reinterpret_cast<float*>(smem);  // S scores / probs
-  __shared__ float qv[DH];
-  __shared__ float red[NWARP];
-  __shared__ float ored[NWARP][DH];
+  T* vst = reinterpret_cast<T*>(smem);                          // [S, DH] staged V rows
+  float* sc = reinterpret_cast<float*>(vst + (size_t)S * DH);  // [S] scores, then exps
+  float* msk = sc + S;                                          // [S] the mask row
+  __shared__ int warp_hi[SPLIT_NW];
+  __shared__ float red_m[SPLIT_NW], red_l[SPLIT_NW];
+  __shared__ float red_o[SPLIT_NW][DH];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const long bh = blockIdx.x;
-  if (tid < DH) qv[tid] = q[bh * DH + tid];
-  __syncthreads();
+  const int2 chunk = split_chunk(mask, msk, warp_hi, S);
+  const int c0 = chunk.x, c1 = chunk.y;
 
-  const T* kb = k + bh * S * DH;
-  float lmax = -INFINITY;
-  for (int s = tid; s < S; s += NT) {
-    const float mk = mask[s];
-    float x = -INFINITY;
-    if (mk != -INFINITY) {
-      const T* kr = kb + (long)s * DH;
-      float acc = 0.f;
+  // step 3: lane group g (8 lanes) scores rows c0 + g, c0 + g + 4, ...;
+  // lane `sub` of the group owns channels 8 sub .. 8 sub + 7
+  const int g = lane >> 3, sub = lane & 7;
+  float qv[8];
+  {
+    const float4 a = reinterpret_cast<const float4*>(q + bh * DH + 8 * sub)[0];
+    const float4 b = reinterpret_cast<const float4*>(q + bh * DH + 8 * sub)[1];
+    qv[0] = a.x; qv[1] = a.y; qv[2] = a.z; qv[3] = a.w;
+    qv[4] = b.x; qv[5] = b.y; qv[6] = b.z; qv[7] = b.w;
+  }
+  constexpr int BATCH = KRow<T>::BATCH;
+  const T* kb = k + bh * S * DH + 8 * sub;
+  float m_w = -INFINITY;
+  for (int r0 = c0; r0 < c1; r0 += 4 * BATCH) {
+    KRow<T> rows[BATCH];
 #pragma unroll
-      for (int c = 0; c < DH; c += 8) {
-        float kk[8];
-        Row8<T>::load(kr + c, kk);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc = fmaf(qv[c + i], kk[i], acc);
-      }
-      x = acc + mk;
+    for (int j = 0; j < BATCH; ++j) {
+      const int r = r0 + 4 * j + g;
+      if (r < c1 && msk[r] != -INFINITY) rows[j].load(kb + (long)r * DH);
+      else rows[j].zero();
     }
-    sc[s] = x;
-    lmax = fmaxf(lmax, x);
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int r = r0 + 4 * j + g;
+      float acc = rows[j].dot(qv);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+      if (r < c1) {
+        const float x = msk[r] != -INFINITY ? acc + msk[r] : -INFINITY;
+        if (sub == 0) sc[r] = x;
+        m_w = fmaxf(m_w, x);
+      }
+    }
   }
-  const float mx = block_max(lmax, red);
-
-  float lsum = 0.f;
-  for (int s = tid; s < S; s += NT) {
-    const float e = expf(sc[s] - mx);
-    sc[s] = e;
-    lsum += e;
-  }
-  const float sum = block_sum(lsum, red);
-  for (int s = tid; s < S; s += NT) sc[s] = sc[s] / sum;
-  __syncthreads();
-
-  // pass 2: one warp per group of keys, lane owns channels 2 lane, 2 lane + 1
-  const int g = tid >> 5, lane = tid & 31;
+  // step 4: this warp's visible V rows, 16-byte pieces
+  constexpr int PIECE = 16 / sizeof(T), PIECES = DH / PIECE;
   const T* vb = v + bh * S * DH;
-  float a0 = 0.f, a1 = 0.f;
-  for (int s = g; s < S; s += NWARP) {
-    const float p = sc[s];
-    if (p == 0.f) continue;  // warp-uniform: the whole warp shares s
-    const float2 vv = Row8<T>::load2(vb + (long)s * DH + 2 * lane);
-    a0 = fmaf(p, vv.x, a0);
-    a1 = fmaf(p, vv.y, a1);
+  for (int i = lane; i < (c1 - c0) * PIECES; i += 32) {
+    const int r = c0 + i / PIECES, off = r * DH + (i % PIECES) * PIECE;
+    if (msk[r] != -INFINITY) cp_async16(vst + off, vb + off);
   }
-  ored[g][2 * lane] = a0;
-  ored[g][2 * lane + 1] = a1;
+  m_w = warp_max(m_w);
+  __syncwarp();
+
+  // exps and their sum over the chunk (0 for masked keys)
+  float l_w = 0.f;
+  for (int r = c0 + lane; r < c1; r += 32) {
+    const float e = m_w == -INFINITY ? 0.f : expf(sc[r] - m_w);
+    sc[r] = e;
+    l_w += e;
+  }
+  l_w = warp_sum(l_w);
+  cp_async_wait_all();
+  __syncwarp();
+
+  // step 5: the warp's partial P.V from the staged rows; lane owns channels
+  // 2 lane, 2 lane + 1; a zero probability (every masked key) adds nothing,
+  // and its row was not staged
+  float o0 = 0.f, o1 = 0.f;
+  for (int r = c0; r < c1; ++r) {
+    const float p = sc[r];
+    if (p == 0.f) continue;  // warp-uniform
+    const float2 vv = KRow<T>::load2(vst + r * DH + 2 * lane);
+    o0 = fmaf(p, vv.x, o0);
+    o1 = fmaf(p, vv.y, o1);
+  }
+  if (lane == 0) {
+    red_m[w] = m_w;
+    red_l[w] = l_w;
+  }
+  red_o[w][2 * lane] = o0;
+  red_o[w][2 * lane + 1] = o1;
   __syncthreads();
   if (tid < DH) {
-    float tot = 0.f;
+    float m = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < NWARP; ++i) tot += ored[i][tid];
-    out[bh * DH + tid] = tot;
+    for (int i = 0; i < SPLIT_NW; ++i) m = fmaxf(m, red_m[i]);
+    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int i = 0; i < SPLIT_NW; ++i) {
+      const float c = red_m[i] == -INFINITY ? 0.f : expf(red_m[i] - m);
+      l = fmaf(c, red_l[i], l);
+      o = fmaf(c, red_o[i][tid], o);
+    }
+    out[bh * DH + tid] = o / l;  // no visible key: 0 / 0, as the softmax of all -inf
   }
 }
 
@@ -287,11 +408,10 @@ self_attend_kernel(const float* __restrict__ q,     // [BH, DH]
 // (one block per (batch, head)). Keys whose mask entry is -inf are not
 // read, neither codes nor scales: an unwritten cache row has scale 0, and
 // 0 * -inf is never evaluated. Position 0 is always visible, so the row
-// max is finite. At B = 32, S = 227 a launch reads 18.6 MB of int8 K/V and
-// 1.2 MB of scales, half of K4's bytes; one block per (b, h) row gives
-// 640 blocks of 227 keys, too little work each to reach full bandwidth
-// (K4 reaches 26% with the same layout). Splitting the key axis is later
-// speed work.
+// max is finite. At B = 32, S = 224 a launch reads 18.4 MB of int8 K/V and
+// 1.1 MB of scales; by device time it takes 10.8 us with every key visible,
+// 55% of the 5.9 us bandwidth bound on the H100 (chip_smoke.py phase 3). A
+// split-key form like K4's measured no faster there, so this layout stays.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(NT)
 self_attend_q8_kernel(const int8_t* __restrict__ qi,      // [BH, DH]
@@ -412,34 +532,47 @@ extern "C" int wk_cross_attend_q8(const void* qi, const void* q_scale, const voi
   return (int)cudaGetLastError();
 }
 
+// Allow `smem` bytes of dynamic shared memory, and ask for the smallest
+// shared-memory carveout that holds 5 such blocks on an SM: the rest of the
+// SM's 256 KB stays L1, which holds the K rows in flight to registers. Once
+// per kernel and size: `*done` holds the largest size set so far.
+template <typename Kernel>
+static cudaError_t configure(Kernel kernel, size_t smem, size_t* done) {
+  if (smem <= *done) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) {
+    const size_t max_shared = 228 * 1024, per_block = smem + attr.sharedSizeBytes + 1024;
+    const size_t percent = (5 * per_block * 100 + max_shared - 1) / max_shared;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             percent < 100 ? (int)percent : 100);
+  }
+  if (e == cudaSuccess) *done = smem;
+  return e;
+}
+
+template <typename T>
+static int launch_self_attend(const void* q, const void* k, const void* v, const void* mask, void* out,
+                       int bh, int s, cudaStream_t st) {
+  static size_t done = 0;
+  // staged V rows, the scores and the mask row
+  const size_t smem = (size_t)s * DH * sizeof(T) + 2 * (size_t)s * sizeof(float);
+  cudaError_t e = configure(self_attend_kernel<T>, smem, &done);
+  if (e != cudaSuccess) return (int)e;
+  self_attend_kernel<T><<<bh, SNT, smem, st>>>((const float*)q, (const T*)k, (const T*)v,
+                                                (const float*)mask, (float*)out, s);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int wk_self_attend(const void* q, const void* k, const void* v,
                               const void* mask, void* out, int bh, int s, int is_bf16,
                               void* stream) {
-  if (bh <= 0 || s <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = aligned16((size_t)s * sizeof(float));
+  if (bh <= 0 || s <= 0 || s > MAX_SELF_KEYS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(self_attend_kernel<__nv_bfloat16>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    self_attend_kernel<__nv_bfloat16><<<bh, NT, smem, st>>>(
-        (const float*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (const float*)mask, (float*)out, s);
-  } else {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(self_attend_kernel<float>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    self_attend_kernel<float><<<bh, NT, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const float*)mask,
-        (float*)out, s);
-  }
-  return (int)cudaGetLastError();
+  return is_bf16 ? launch_self_attend<__nv_bfloat16>(q, k, v, mask, out, bh, s, st)
+                 : launch_self_attend<float>(q, k, v, mask, out, bh, s, st);
 }
 
 extern "C" int wk_self_attend_q8(const void* qi, const void* q_scale, const void* k,

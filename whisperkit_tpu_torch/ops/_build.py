@@ -49,7 +49,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the exported launchers (csrc/*.cu), all returning int
 _SIGNATURES = {
-    # padded, cos, sin, mel_w, out, batch, n_frames, n_mels, stream
+    # padded, basis fragments, mel_w, mel spans, out, batch, n_frames, n_mels, stream
     "wk_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, out, strides (9 x int64: B, H, S of q, k, v), batch, heads,
     # seq, is_bf16, scale, stream

@@ -6,6 +6,12 @@
   self_attend_q8   T==1 self-attention over the int8 per-token-scale
                    cache (K5)
 
+K4 splits each (batch, head) row's keys among SPLIT_WARPS warps
+(`split_chunks`), each with its own softmax max and sum, merged once;
+`self_attend_split_reference` is that algorithm in plain torch, for the
+tests and the on-card check (tools/decode_attn_check.py), never on the
+main path.
+
 For CUDA tensors each launches its hand-written kernel in
 csrc/attention_decode.cu; for CPU tensors it runs the plain torch version
 beside it. torch's int8 matmul returns int8 and overflows, so the plain
@@ -20,6 +26,12 @@ from __future__ import annotations
 import torch
 
 from whisperkit_tpu_torch.ops import _build
+
+# K4 splits each (batch, head) row's keys among this many warps
+SPLIT_WARPS = 8
+# the longest cache K4 takes (its V rows are staged in shared memory);
+# the decode loop's is at most 2 · MAX_TOKEN_CONTEXT = 448
+MAX_SELF_KEYS = 512
 
 
 def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,6 +95,53 @@ def self_attend_reference(q, k, v, mask_row) -> torch.Tensor:
     return probs @ v.float()
 
 
+def split_chunks(mask_row: torch.Tensor, n_keys: int | None = None) -> list[tuple[int, int]]:
+    """K4's split of the key axis: the keys up to the last visible one
+    (or the first `n_keys`), in SPLIT_WARPS contiguous chunks of equal
+    length, a multiple of 4 keys, the last one ragged; empty chunks left
+    out."""
+    if n_keys is None:
+        visible = torch.nonzero(mask_row[0] != float("-inf"))
+        n_keys = int(visible[-1]) + 1 if len(visible) else 0
+    size = 4 * -(-n_keys // (4 * SPLIT_WARPS))
+    return [(w * size, min(n_keys, (w + 1) * size)) for w in range(SPLIT_WARPS) if w * size < n_keys]
+
+
+SPLIT_FAULTS = ("no_rescale", "drop_last_chunk", "masked_scored_zero")
+
+
+def self_attend_split_reference(q, k, v, mask_row, fault: str | None = None) -> torch.Tensor:
+    """K4's algorithm in plain torch, shapes as in `self_attend_reference`:
+    the keys in `split_chunks`, each chunk's own max m_w, sum l_w of
+    exp(score - m_w) and partial P·V in float32, merged once with the
+    weights exp(m_w - m). `fault` names one of SPLIT_FAULTS to alter it
+    (for the check's proof that it can fail): no rescale at the merge, the
+    last chunk dropped, or masked keys scored 0 instead of -inf (and the
+    chunks then over all keys)."""
+    if fault not in (None, *SPLIT_FAULTS):
+        raise ValueError(f"unknown fault {fault!r}")
+    scores = q.float() @ k.float().transpose(-1, -2) + mask_row
+    chunks = split_chunks(mask_row)
+    if fault == "masked_scored_zero":
+        scores = torch.where(mask_row == float("-inf"), 0.0, scores)
+        chunks = split_chunks(mask_row, k.shape[2])
+    if fault == "drop_last_chunk":
+        chunks = chunks[:-1]
+    if not chunks:  # no visible key: 0 / 0, as the softmax of all -inf
+        return torch.full(q.shape, float("nan"), device=q.device)
+    inf = float("-inf")
+    m_w = [scores[..., a:b].amax(dim=-1, keepdim=True) for a, b in chunks]
+    m = torch.stack(m_w).amax(dim=0)
+    l, o = 0.0, 0.0
+    for (a, b), mw in zip(chunks, m_w):
+        e = torch.exp(scores[..., a:b] - torch.where(mw == inf, 0.0, mw))  # a chunk with no visible key: 0
+        c = torch.ones_like(mw) if fault == "no_rescale" else torch.exp(mw - m)
+        c = torch.where(mw == inf, 0.0, c)
+        l = l + c * e.sum(dim=-1, keepdim=True)
+        o = o + c * (e @ v[:, :, a:b].float())
+    return o / l
+
+
 def self_attend(q, k, v, mask_row) -> torch.Tensor:
     """T==1 self-attention over the raw cache, shapes as in
     `self_attend_reference`. CUDA: csrc/attention_decode.cu; CPU: the
@@ -104,7 +163,9 @@ def self_attend(q, k, v, mask_row) -> torch.Tensor:
         )
     if tuple(mask_row.shape) != (1, s):
         raise ValueError(f"mask_row: expected shape (1, {s}), got {tuple(mask_row.shape)}")
-    for name, x in (("k", k), ("v", v)):
+    if s > MAX_SELF_KEYS:
+        raise ValueError(f"self_attend takes a cache of at most {MAX_SELF_KEYS} keys, got {s}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
     out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)

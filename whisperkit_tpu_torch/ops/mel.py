@@ -4,10 +4,12 @@
   slaney mel → log10 → per-row (max − 8) clamp → (x + 4) / 4
 
 `log_mel_frames` is the fused part (framing through log10). For a CUDA
-tensor it launches the hand-written kernel in csrc/mel.cu; for a CPU
-tensor it runs `log_mel_frames_reference`, the plain torch version of the
-same math. `log_mel_spectrogram` adds the clamp, the normalisation and the
-transpose in torch, as the JAX wrapper does.
+tensor it launches the hand-written kernel in csrc/mel.cu (the DFT on the
+tensor cores in 3xTF32); for a CPU tensor it runs
+`log_mel_frames_reference`, the plain torch version of the same math in
+float32. `log_mel_frames_3xtf32` is the kernel's split-product numerics in
+plain torch, for the tests. `log_mel_spectrogram` adds the clamp, the
+normalisation and the transpose in torch, as the JAX wrapper does.
 """
 
 from __future__ import annotations
@@ -92,6 +94,79 @@ def _bases(device: torch.device, n_mels: int):
     return tuple(torch.from_numpy(m).to(device) for m in (cos_m, sin_m, mel_w))
 
 
+def dft_basis_fragments() -> np.ndarray:
+    """The kernel's DFT basis [50, 52, 32, 2] f32: for k-step ks (8
+    samples), n-tile nt (cos, for nt even, or sin of the 8 frequencies
+    8 (nt // 2) .. + 7; zero past the 201st) and lane 4 g + t of the
+    mma.sync.m16n8k8 B fragment, the basis at (sample 8 ks + t, column g)
+    and at (sample 8 ks + t + 4, column g)."""
+    cos_m, sin_m = _dft_window_matrices()
+    n_freq = cos_m.shape[1]
+    groups = -(-n_freq // 8)
+    w = np.zeros((N_FFT, 2 * groups, 8), np.float32)  # [sample, n-tile, column]
+    for s, m in enumerate((cos_m, sin_m)):
+        padded = np.zeros((N_FFT, 8 * groups), np.float32)
+        padded[:, :n_freq] = m
+        w[:, s::2] = padded.reshape(N_FFT, groups, 8)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    ks = np.arange(N_FFT // 8)[:, None, None]
+    nt = np.arange(2 * groups)[None, :, None]
+    return np.stack([w[8 * ks + t, nt, g], w[8 * ks + t + 4, nt, g]], axis=-1)
+
+
+def mel_spans(mel_w: np.ndarray) -> np.ndarray:
+    """[n_mels, 2] int32: each filter's nonzero frequency rows [lo, hi) of
+    mel_w [n_freq, n_mels] (an empty filter gives [0, 0))."""
+    spans = np.zeros((mel_w.shape[1], 2), np.int32)
+    for m in range(mel_w.shape[1]):
+        nz = np.nonzero(mel_w[:, m])[0]
+        if len(nz):
+            spans[m] = nz[0], nz[-1] + 1
+    return spans
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_bases(device: torch.device, n_mels: int):
+    """(basis fragments, mel_w [201, n_mels], mel spans [n_mels, 2]) on
+    `device`, as csrc/mel.cu takes them."""
+    mel_w = np.ascontiguousarray(mel_filters(n_mels).T)
+    return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(device)
+                 for m in (dft_basis_fragments(), mel_w, mel_spans(mel_w)))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 rounds (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def log_mel_frames_3xtf32(padded: torch.Tensor, n_mels: int, n_frames: int, products: int = 3) -> torch.Tensor:
+    """The kernel's DFT numerics in plain torch: each frame sample and basis
+    value split into TF32 parts x = x_hi + x_lo, and the products summed as
+    x_lo w_hi + x_hi w_lo + x_hi w_hi (exactly, in float64, then float32);
+    `products=1` keeps only x_hi w_hi (plain TF32), to show what the split
+    buys. The rest as `log_mel_frames_reference`."""
+    cos_m, sin_m, mel_w = _bases(padded.device, n_mels)
+    frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]
+
+    def parts(x):
+        hi = tf32_round(x)
+        return hi.double(), tf32_round(x - hi).double()
+
+    f_hi, f_lo = parts(frames)
+    out = []
+    for basis in (cos_m, sin_m):
+        w_hi, w_lo = parts(basis)
+        y = f_hi @ w_hi
+        if products == 3:
+            y = y + f_lo @ w_hi + f_hi @ w_lo
+        out.append(y.float())
+    power = out[0] * out[0] + out[1] * out[1]
+    return torch.log10(torch.clamp_min(power @ mel_w, 1e-10))
+
+
 def _padded_rows(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
     """[B, N] → reflect-padded signal cut or zero-filled to exactly the
     (n_frames + 2) hop rows the framing reads, [B, (n_frames + 2) * 160]."""
@@ -103,16 +178,18 @@ def _padded_rows(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
     return F.pad(padded, (0, total - padded.shape[1]))
 
 
-def log_mel_frames_reference(padded: torch.Tensor, n_mels: int, n_frames: int) -> torch.Tensor:
+def log_mel_frames_reference(padded: torch.Tensor, n_mels: int, n_frames: int,
+                             dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain torch version of the kernel: [B, (T+2)*160] → raw log10 mel
-    [B, T, n_mels], every product in true float32."""
-    cos_m, sin_m, mel_w = _bases(padded.device, n_mels)
-    frames = padded.unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]  # [B, T, 400]
+    [B, T, n_mels] float32, every product in true float32 (or in `dtype`:
+    float64 gives the checks an exact yardstick)."""
+    cos_m, sin_m, mel_w = (m.to(dtype) for m in _bases(padded.device, n_mels))
+    frames = padded.to(dtype).unfold(-1, N_FFT, HOP_LENGTH)[:, :n_frames]  # [B, T, 400]
     real = frames @ cos_m
     imag = frames @ sin_m
     power = real * real + imag * imag
     mel = power @ mel_w
-    return torch.log10(torch.clamp_min(mel, 1e-10))
+    return torch.log10(torch.clamp_min(mel, 1e-10)).float()
 
 
 def log_mel_frames(audio: torch.Tensor, n_mels: int, n_frames: int = N_FRAMES) -> torch.Tensor:
@@ -123,15 +200,23 @@ def log_mel_frames(audio: torch.Tensor, n_mels: int, n_frames: int = N_FRAMES) -
         return log_mel_frames_reference(padded, n_mels, n_frames)
     b = padded.shape[0]
     _build.check_cuda("audio", padded, torch.float32, 2)
-    cos_m, sin_m, mel_w = _bases(padded.device, n_mels)
+    basis, mel_w, spans = _kernel_bases(padded.device, n_mels)
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=padded.device)
     with torch.cuda.device(padded.device):
         _build.launch(
             "log_mel", "wk_log_mel",
-            _build.ptr(padded), _build.ptr(cos_m), _build.ptr(sin_m), _build.ptr(mel_w),
+            _build.ptr(padded), _build.ptr(basis), _build.ptr(mel_w), _build.ptr(spans),
             _build.ptr(out), b, n_frames, n_mels,
         )
     return out
+
+
+def normalize_log_mel(log_mel: torch.Tensor) -> torch.Tensor:
+    """Raw log10 mel [B, T, n_mels] → the model's input [B, n_mels, T]: clamp
+    to (max − 8) per row, then (x + 4) / 4."""
+    row_max = log_mel.amax(dim=(1, 2), keepdim=True)
+    log_spec = torch.maximum(log_mel, row_max - 8.0)
+    return ((log_spec + 4.0) / 4.0).transpose(1, 2)
 
 
 def log_mel_spectrogram(
@@ -146,9 +231,5 @@ def log_mel_spectrogram(
     squeeze = audio.dim() == 1
     if squeeze:
         audio = audio[None]
-    log_mel = log_mel_frames(audio, n_mels, n_frames)
-    row_max = log_mel.amax(dim=(1, 2), keepdim=True)
-    log_spec = torch.maximum(log_mel, row_max - 8.0)
-    log_spec = (log_spec + 4.0) / 4.0
-    out = log_spec.transpose(1, 2)  # [B, n_mels, T]
+    out = normalize_log_mel(log_mel_frames(audio, n_mels, n_frames))
     return out[0] if squeeze else out

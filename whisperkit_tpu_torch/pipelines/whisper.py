@@ -552,26 +552,37 @@ class WhisperPipeline:
         self.timings.audio_processing += time.perf_counter() - t_chunk
         self.timings.total_audio_processing_runs += 1
 
-        t_mel = time.perf_counter()
-        windows = [
-            audio[c.seek_offset_index : c.seek_offset_index + min(len(c.audio_samples), WINDOW_SAMPLES)]
-            for c in chunks
-        ]
-        mels = self._mel_batch(windows) if windows else None
-        self._sync()
-        self.timings.log_mels += time.perf_counter() - t_mel
-        self.timings.total_log_mel_runs += len(windows)
-        metas = [
-            (c.seek_offset_index, min(WINDOW_FRAMES, math.ceil(len(c.audio_samples) / 160)))
-            for c in chunks
-        ]
-
         group = max(1, options.concurrent_worker_count)
         # clamp to the chunk-count bucket: a group decodes until its slowest
         # row, so pad rows beyond the power-of-two bucket cost a full decode
         if chunks:
             group = min(group, 1 << max(0, math.ceil(math.log2(len(chunks)))))
-        pad_mel = None
+
+        def bucket(n_real: int) -> int:
+            # the final partial group decodes at the power-of-two bucket
+            # covering its real rows, not at the full group width
+            return group if n_real >= group else min(1 << max(0, math.ceil(math.log2(n_real))), group)
+
+        t_mel = time.perf_counter()
+        windows = [
+            audio[c.seek_offset_index : c.seek_offset_index + min(len(c.audio_samples), WINDOW_SAMPLES)]
+            for c in chunks
+        ]
+        # a partial last group pads its rows with the mel of a zero window,
+        # computed in the same launches as the chunks'
+        n_last = len(chunks) % group or group
+        pad_rows = bool(chunks) and n_last < bucket(n_last)
+        if pad_rows:
+            windows.append(np.zeros(WINDOW_SAMPLES, np.float32))
+        mels = self._mel_batch(windows) if windows else None
+        pad_mel = mels[len(chunks)] if pad_rows else None
+        self._sync()
+        self.timings.log_mels += time.perf_counter() - t_mel
+        self.timings.total_log_mel_runs += len(chunks)
+        metas = [
+            (c.seek_offset_index, min(WINDOW_FRAMES, math.ceil(len(c.audio_samples) / 160)))
+            for c in chunks
+        ]
 
         # length-sorted groups: similar-length chunks finish together
         order = sorted(range(len(chunks)), key=lambda i: len(chunks[i].audio_samples))
@@ -581,15 +592,9 @@ class WhisperPipeline:
         for start in range(0, len(order), group):
             batch_ids = order[start : start + group]
             n_real = len(batch_ids)
-            # the final partial group decodes at the power-of-two bucket
-            # covering its real rows, not at the full group width
-            gsize = group
-            if n_real < group:
-                gsize = min(1 << max(0, math.ceil(math.log2(n_real))), group)
+            gsize = bucket(n_real)
             mel_batch = mels[torch.tensor(batch_ids, device=self.device)]
             if n_real < gsize:
-                if pad_mel is None:
-                    pad_mel = self._mel(np.zeros(WINDOW_SAMPLES, np.float32))
                 pad = pad_mel[None].expand(gsize - n_real, *pad_mel.shape)
                 mel_batch = torch.cat([mel_batch, pad], 0)
             for i in batch_ids:

@@ -19,7 +19,8 @@ cross-KV (the serving preset's encode stage), bf16 weights. One JSON line:
   top              the 12 kernel names with the most device time
 
 Decode: `decode_loop` for STEPS decoder steps after a prompt of START
-tokens, so the steps attend over positions START .. START + STEPS, for
+tokens, so the steps attend over positions START .. START + STEPS - 1 of
+a START + STEPS + 1 = 224-key self-KV cache (the main path's length), for
 bf16 weights with the bf16 self-KV cache (the `ComputeOptions.serving()`
 decode) and the same weights quantized to W8A16 with the int8 self-KV cache (`serving(quantization="w8a16",
 quantize_self_kv=True)`). For each it prints one JSON line:
@@ -31,15 +32,22 @@ quantize_self_kv=True)`). For each it prints one JSON line:
                       `torch.profiler` trace of one more loop
   launches_per_step   device activities per step in that trace
   port_kernels        the port's kernel launches per step (`_build.launches`)
+  kernel_ms_per_launch  device ms per launch of K3, K4 and K5 in that trace
   top                 the 12 kernel names with the most device time:
                       [name (first 70 characters), count in the trace,
                       ms per step]
 
-The card's name and power limit (`nvidia-smi`) come first.
+Every wall is taken before the first trace: once a `torch.profiler`
+session has run, each later launch of the process costs the host more
+(`tools/launch_cost.py`). The card's name and power limit (`nvidia-smi`)
+come first. To compare another commit's kernels on the same card, copy
+this file into a `git archive` of that commit and run both trees in one
+call, in turns.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -47,7 +55,12 @@ import time
 
 import torch
 
-BATCH, STEPS, START, SEED = 32, 32, 60, 0
+# positions 191 .. 222 of a 224-key cache: the main path's self-KV length
+# (a 3-token prompt and 221 new tokens) near its end
+BATCH, STEPS, START, SEED = 32, 32, 191, 0
+# the decode step's attention kernels, by the name of their device activity
+STEP_KERNELS = {"self_attend": "self_attend_kernel", "self_attend_q8": "self_attend_q8_kernel",
+                "cross_attend_q8": "cross_attend_q8_kernel"}
 
 
 def _busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -93,10 +106,35 @@ def _span_ms(device: list, pick) -> float:
     return sum(e.time_range.end - e.time_range.start for e in device if pick(e.name)) / 1e3
 
 
-def profile_decode(pipe, mel, steps: int, start: int) -> dict:
+def _per_launch_ms(device: list) -> dict:
+    """Mean device ms per launch of each of STEP_KERNELS found in the trace."""
+    out = {}
+    for key, name in STEP_KERNELS.items():
+        n = sum(1 for e in device if name in e.name)
+        if n:
+            out[key] = _span_ms(device, lambda s: name in s) / n
+    return out
+
+
+def _walls(fn, per: float = 1.0) -> list:
+    """Host-clock ms (over `per`) of three calls of `fn` after a warm-up
+    one, the device synced before and after each."""
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / per)
+    return walls
+
+
+def decode_runner(pipe, mel, steps: int, start: int):
+    """A call that runs `decode_loop` for `steps` steps after a prompt of
+    `start` tokens (prefilled once here)."""
     from whisperkit_tpu_torch.core.configurations import DecodingOptions
     from whisperkit_tpu_torch.decoding.loop import decode_loop, prefill_window
-    from whisperkit_tpu_torch.ops import _build
 
     sp = pipe.tokenizer.special
     options = DecodingOptions(language="en", first_token_log_prob_threshold=None)
@@ -120,47 +158,32 @@ def profile_decode(pipe, mel, steps: int, start: int) -> dict:
             suppress_blank=options.suppress_blank, prefill=pre,
         )
 
-    loop()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loop()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    return loop
+
+
+def profile_decode(loop, steps: int) -> dict:
+    """The decode line's traced figures, from one more call of `loop`."""
+    from whisperkit_tpu_torch.ops import _build
 
     _build.reset_launches()
     device = _trace(loop)
     counts = {k: v / steps for k, v in _build.launches.items() if v}
     return {
-        "step_ms_unprofiled": walls,
         "device_busy_ms": _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / steps,
         "launches_per_step": len(device) / steps,
         "port_kernels": counts,
+        "kernel_ms_per_launch": _per_launch_ms(device),
         "top": _top(device, steps),
     }
 
 
-def profile_encode(params, mel, dims) -> dict:
-    """One group through the serving encode stage (int8 cross-KV)."""
-    from whisperkit_tpu_torch.decoding.loop import encode_window
-
-    def call():
-        return encode_window(params, mel, dims, quantize_kv=True)
-
-    call()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+def profile_encode(call) -> dict:
+    """The encode line's traced figures, from one more call of `call`."""
     device = _trace(call)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
     k2 = _span_ms(device, lambda n: "mha_encoder" in n)
     return {
-        "wall_ms": walls, "device_busy_ms": busy, "launches": len(device),
+        "device_busy_ms": busy, "launches": len(device),
         "k2_ms": k2, "k2_share": k2 / busy,
         "copies_ms": _span_ms(device, lambda n: "copy" in n.lower() or "memcpy" in n.lower()),
         "top": _top(device, 1),
@@ -173,6 +196,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.decoding.loop import encode_window
     from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
     from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
     from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
@@ -190,20 +214,27 @@ def main() -> None:
         "int8": (ComputeOptions.serving(quantization="w8a16", quantize_self_kv=True),
                  quantize_whisper_params(params)),
     }
-    for label, (compute, tree) in configs.items():
-        pipe = WhisperPipeline(WhisperConfig(compute_options=compute, load=False),
-                               dims=dims, params=tree, device="cuda")
-        audio = [(torch.randn(480_000, generator=g, device="cuda") * 0.1).cpu().numpy()
-                 for _ in range(BATCH)]
-        mel = pipe._mel_batch(audio)
-        if label == "bf16":
-            with torch.inference_mode():
-                print(json.dumps({"encode": "bf16", "batch": BATCH, **profile_encode(tree, mel, dims)}),
-                      flush=True)
-        with torch.inference_mode():
-            result = profile_decode(pipe, mel, STEPS, START)
-        print(json.dumps({"config": label, "batch": BATCH, "positions": [START, START + STEPS],
-                          **result}), flush=True)
+    # (the line's first fields, the call, steps per call, its traced figures)
+    jobs = []
+    with torch.inference_mode():
+        for label, (compute, tree) in configs.items():
+            pipe = WhisperPipeline(WhisperConfig(compute_options=compute, load=False),
+                                   dims=dims, params=tree, device="cuda")
+            audio = [(torch.randn(480_000, generator=g, device="cuda") * 0.1).cpu().numpy()
+                     for _ in range(BATCH)]
+            mel = pipe._mel_batch(audio)
+            if label == "bf16":
+                jobs.append(({"encode": "bf16", "batch": BATCH},
+                             functools.partial(encode_window, tree, mel, dims, quantize_kv=True), 1, profile_encode))
+            jobs.append(({"config": label, "batch": BATCH, "positions": [START, START + STEPS - 1]},
+                         decode_runner(pipe, mel, STEPS, START), STEPS,
+                         functools.partial(profile_decode, steps=STEPS)))
+        # every wall before the first trace: once a profiler session has run,
+        # each later launch of the process costs the host more
+        walls = [_walls(fn, per) for _, fn, per, _ in jobs]
+        for (head, fn, per, profile), wall in zip(jobs, walls):
+            key = "wall_ms" if "encode" in head else "step_ms_unprofiled"
+            print(json.dumps({**head, key: wall, **profile(fn)}), flush=True)
 
 
 if __name__ == "__main__":
