@@ -36,6 +36,29 @@ Phases, one line each; any failure exits non-zero:
   7. phase 5 over the int8 self-KV cache with the W8A16 weights
   8. W4A16 and W8A8: one transcribe each on 60 s of the audio, and the
      encoder of 4 windows timed with W8A16 and with W8A8 (int8 activations)
+  9. word timestamps: phase 4's pipeline with ALIGNMENT_HEADS on the 600 s
+     run, one pass: every K3 launch on a layer that holds an alignment
+     head takes the probs form (launch counts), and each segment's words
+     are in order and inside it; the alignment buffer's transfer timed
+ 10. beam search, beam 5, on 60 s of the audio under the serving preset
+     (the raw bf16 cross-KV, K4 over B·K rows): tokens and scores printed
+ 11. segmented decode on the 600 s run's 32-row group, with an EOT bias
+     chosen from an unbiased run's margins so that rows end at different
+     steps: the decode must compact; its tokens against the uncompacted
+     decode's with the same bias; then an early-stop flag, set before the
+     run, stops every window after its first segment
+ 12. speculative decoding at batch 1 on 30 s of the audio, a random
+     distil-large-v3 draft: its tokens against the same pipeline's
+     without the draft
+
+Phase 3 also holds K3's probs form against its plain version (B=4 and
+B=32, one and three query rows, peaked and near-flat rows): the
+probabilities within 1e-6, the output bit for bit the plain launch's; it
+times the form by events here and by device time in the timing process.
+Where phases 11 and 12 hold one decode's tokens against another's, bf16
+GEMMs at other batch sizes or query counts may round otherwise: they print
+the rows that match exactly and fail only where a row's first divergence
+sits at a top-2 gap of the reference's filtered logits above BF16_GAP_TOL.
 
 Each path's kernels must all launch between the counts' reset just before
 it and their reading just after it. The line before last is a JSON object
@@ -61,6 +84,13 @@ AUDIO_SECONDS = 600.0
 GROUP = 32
 # the argument that runs phase 3's timing process (`traced_times`)
 TIMES_ARG = "--traced-times"
+# phase 9's alignment heads: ten (layer, head) pairs of large-v3, one in
+# each of ten layers from 7 to 25 (on random weights any list serves)
+ALIGNMENT_HEADS = ((7, 0), (10, 17), (12, 18), (13, 12), (16, 1), (17, 14), (19, 11), (21, 4), (24, 1), (25, 6))
+# phases 11 and 12: the largest top-2 gap of the reference's filtered
+# logits at which a bf16 decode may pick the other token (the logits of
+# two bf16 runs through 32 layers differ by up to ~0.07, phase 5)
+BF16_GAP_TOL = 0.25
 
 
 def fail(message: str) -> None:
@@ -243,10 +273,10 @@ def phase_kernels(torch, card: str) -> dict:
     qi, q_scale = q8_inputs(1)
     ms = cuda_ms(torch, lambda i: attention_decode.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale), 20)
     plain = cuda_ms(torch, lambda i: attention_decode.cross_attend_q8_reference(qi, q_scale, *kv[i % 2], v_scale), 5)
-    k3_bytes = 2 * b * h * s * 64 + qi.numel() + 4 * (q_scale.numel() + v_scale.numel() + b * h * 64)
-    del kv
     record(results, card, "cross_attend_q8", max(errs), 2e-4 + 2e-3 * float(ref.abs().max()), ms, plain,
-           bound(k3_bytes, 4 * b * h * s * 64, "int8"), extra=" | B=32 S=1500 T=1 (T=3 checked too)")
+           bound(k3_bytes(b, h, s, 1), 4 * b * h * s * 64, "int8"), extra=" | B=32 S=1500 T=1 (T=3 checked too)")
+    results["cross_attend_q8_probs"] = check_cross_probs(torch, g, dev, card, qi, q_scale, kv, v_scale)
+    del kv
 
     # K4 and K5: self-attention over the bf16 and the int8 cache, B=32 H=20
     # S=224; their figures are recorded with their times
@@ -257,11 +287,91 @@ def phase_kernels(torch, card: str) -> dict:
     return results
 
 
+def k3_bytes(b: int, h: int, s: int, t: int, probs_heads: int = 0) -> int:
+    """Bytes K3 must move: int8 K and V once, the int8 query, the f32
+    query and V scales and output, and, in the probs form, the f32
+    probabilities of `probs_heads` heads."""
+    return 2 * b * h * s * 64 + b * h * t * 64 + 4 * (b * h * t + b * h * 64 + b * h * t * 64) + 4 * b * probs_heads * t * s
+
+
+def check_cross_probs(torch, g, dev, card, qi, q_scale, kv, v_scale) -> dict:
+    """K3's probs form against its plain version on the check inputs of
+    tools/decode_attn_check.py (peaked rows at the last or the first frames,
+    near-flat rows) at B=4 and B=32, one and three query rows (the step;
+    the prefill and the speculative verify): every head's probabilities
+    within K3_PROBS_LIMIT of the plain version's, the output bit for bit
+    the plain launch's, and the heads without a slot not written (a
+    strided view of an alignment buffer [T, B, 3, S] NaN-filled, two heads
+    given slots). Then the form's CUDA-event times at B=32 T=1 for one
+    head (the main path: one alignment head per layer) and for all 20,
+    beside plain K3's on the same inputs; device times come from the
+    timing process."""
+    from whisperkit_tpu_torch.ops import attention_decode as ad
+    from whisperkit_tpu_torch.tools import decode_attn_check as dc
+
+    h, s = 20, 1500
+    errs, worst = [], {}
+    for b in (4, GROUP):
+        for t in (1, 3):
+            args = dc.check_inputs_cross_q8(b, h, s, t, g, dev)
+            plain_out = ad.cross_attend_q8(*args)
+            probs = torch.full((b, h, t, s), float("nan"), device=dev)
+            out = ad.cross_attend_q8(*args, probs_out=probs, probs_slots=list(range(h)))
+            ref_out, ref_probs = ad.cross_attend_q8_reference(*args, return_probs=True)
+            if not torch.equal(out, plain_out):
+                fail(f"cross_attend_q8_probs B={b} T={t}: the output differs from the plain launch's")
+            if not torch.allclose(out, ref_out, rtol=2e-3, atol=2e-4):
+                fail(f"cross_attend_q8_probs B={b} T={t}: output not within rtol 2e-3 / atol 2e-4 of the plain version")
+            ratio = torch.nan_to_num((probs - ref_probs).abs().amax(dim=(-1, -2)) / dc.K3_PROBS_LIMIT, nan=float("inf"))
+            worst[f"B={b} T={t}"] = dc.worst_by_kind(ratio)
+            if not float(ratio.max()) <= 1.0:
+                fail(f"cross_attend_q8_probs B={b} T={t}: probabilities off by {worst[f'B={b} T={t}']} of "
+                     f"{dc.K3_PROBS_LIMIT} per kind {dc.ROW_KINDS}")
+            errs.append(float((probs - ref_probs).abs().max()))
+            buf = torch.full((t, b, 3, s), float("nan"), device=dev)
+            slots = [-1] * h
+            slots[7], slots[0] = 2, 0
+            again = ad.cross_attend_q8(*args, probs_out=buf.permute(1, 2, 0, 3), probs_slots=slots)
+            if not (torch.equal(again, plain_out) and torch.equal(buf[:, :, 2], probs[:, 7].transpose(0, 1))
+                    and torch.equal(buf[:, :, 0], probs[:, 0].transpose(0, 1)) and bool(buf[:, :, 1].isnan().all())):
+                fail(f"cross_attend_q8_probs B={b} T={t}: the slots of a strided buffer were not written as named")
+            del args, probs, ref_probs, buf
+    say(f"phase 3 cross_attend_q8_probs check, worst row / limit ({dc.K3_PROBS_LIMIT} absolute) per kind "
+        f"{dc.ROW_KINDS}: " + "; ".join(f"{k} {[float(f'{x:.3g}') for x in w.values()]}" for k, w in worst.items())
+        + f"; output bit for bit the plain launch's; strided slots written as named | {card}")
+
+    b = GROUP
+    one = [torch.empty((b, 1, 1, s), device=dev) for _ in range(2)]
+    every = [torch.empty((b, h, 1, s), device=dev) for _ in range(2)]
+    one_slot = [0] + [-1] * (h - 1)
+    times = {
+        "k3": cuda_ms(torch, lambda i: ad.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale), 20),
+        "one": cuda_ms(torch, lambda i: ad.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale, probs_out=one[i % 2],
+                                                           probs_slots=one_slot), 20),
+        "all": cuda_ms(torch, lambda i: ad.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale, probs_out=every[i % 2],
+                                                           probs_slots=list(range(h))), 20),
+    }
+
+    def plain_probs(i):
+        out, probs = ad.cross_attend_q8_reference(qi, q_scale, *kv[i % 2], v_scale, return_probs=True)
+        ad.write_head_probs(probs, one[i % 2], one_slot)
+
+    plain = cuda_ms(torch, plain_probs, 5)
+    ops = 4 * b * h * s * 64
+    all_heads = {"ms": times["all"], **bound(k3_bytes(b, h, s, 1, h), ops, "int8")}
+    say(f"phase 3 cross_attend_q8_probs B=32 T=1 events: one head {times['one']:.4f} ms, all 20 heads "
+        f"{times['all']:.4f} ms, plain K3 {times['k3']:.4f} ms, plain version (one head) {plain:.4f} ms | {card}")
+    return {"max_abs_err": max(errs), "tolerance": dc.K3_PROBS_LIMIT, "ms": times["one"], "plain_ms": plain,
+            **bound(k3_bytes(b, h, s, 1, 1), ops, "int8"), "library_ms": None, "k3_event_ms": times["k3"],
+            "all_heads": all_heads}
+
+
 def phase_traced_times(card: str, results: dict, checks: dict) -> None:
     """Run `traced_times` in a process of its own, so that its profiler
     sessions leave this process's launches, and phases 4-8, as they were.
-    Adds K1's device time to `results` and records K4 and K5 with their
-    `checks` (max abs error, a note, the tolerance)."""
+    Adds K1's and K3's device times to `results`, and the probs form's
+    beside plain K3's, and records K4 and K5 with their `checks` (max abs
+    error, a note, the tolerance)."""
     proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), TIMES_ARG],
                           capture_output=True, text=True, timeout=900, cwd=REPO)
     lines = proc.stdout.strip().splitlines()
@@ -272,6 +382,15 @@ def phase_traced_times(card: str, results: dict, checks: dict) -> None:
     t["device_ms"] = timed["log_mel_device_ms"]
     say(f"phase 3 log_mel by device time: {t['device_ms']:.4f} ms | bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}, {100 * t['bound_ms'] / t['device_ms']:.1f}% of it) | {card}")
+    k3, probs = results["cross_attend_q8"], results["cross_attend_q8_probs"]
+    k3["device_ms"] = timed["k3"]["plain"]
+    probs["device_ms"], probs["all_heads"]["device_ms"] = timed["k3"]["one"], timed["k3"]["all"]
+    probs["k3_device_ms"] = timed["k3"]["plain"]
+    say(f"phase 3 cross_attend_q8 B=32 T=1 by device time: plain {k3['device_ms']:.4f} ms (bound "
+        f"{k3['bound_ms']:.4f}, {100 * k3['bound_ms'] / k3['device_ms']:.1f}% of it); probs form, one head "
+        f"{probs['device_ms']:.4f} ms (bound {probs['bound_ms']:.4f}, {100 * probs['bound_ms'] / probs['device_ms']:.1f}%), "
+        f"all 20 heads {probs['all_heads']['device_ms']:.4f} ms (bound {probs['all_heads']['bound_ms']:.4f}, "
+        f"{100 * probs['all_heads']['bound_ms'] / probs['all_heads']['device_ms']:.1f}%) | {card}")
     for key, (err, extra, tol) in checks.items():
         times = {int(pos): v for pos, v in timed[key]["times"].items()}
         say_self_times(key, times, card)
@@ -291,13 +410,43 @@ def traced_times(torch) -> dict:
     g.manual_seed(SEED)
     traces = []
     out = {"self_attend": time_self_attend(torch, g, dev, traces),
-           "self_attend_q8": time_self_attend_q8(torch, g, dev, traces)}
+           "self_attend_q8": time_self_attend_q8(torch, g, dev, traces),
+           "k3": time_cross_attend_q8(torch, g, dev, traces)}
     audio = [torch.randn((GROUP, 480_000), generator=g, device=dev) * 0.1 for _ in range(2)]
     k1 = {}
     traces.append((k1, lambda i: mel.log_mel_frames(audio[i % 2], 128), 20, "log_mel_kernel"))
     for times, fn, iters, kernel in traces:
         times["device_ms"] = device_ms(torch, fn, iters, kernel)
     out["log_mel_device_ms"] = k1["device_ms"]
+    out["k3"] = {form: t["device_ms"] for form, t in out["k3"].items()}
+    return out
+
+
+def time_cross_attend_q8(torch, g, dev, traces) -> dict:
+    """Plain K3 and its probs form (one head, all 20) at B=32 T=1 S=1500 on
+    two random K/V sets that alternate (246 MB: launches read device
+    memory); queues their device-time traces. Returns {form: figures}."""
+    from whisperkit_tpu_torch.ops import attention_decode as ad
+
+    b, h, s = GROUP, 20, 1500
+    kv = [tuple(torch.randint(-127, 128, (b, h, s, 64), generator=g, device=dev, dtype=torch.int8) for _ in range(2))
+          for _ in range(2)]
+    qi = torch.randint(-127, 128, (b, h, 1, 64), generator=g, device=dev, dtype=torch.int8)
+    q_scale = torch.rand((b, h, 1, 1), generator=g, device=dev) * 2e-5 + 1e-5
+    v_scale = torch.rand((b, h, 1, 64), generator=g, device=dev) * 0.02 + 0.005
+    one = torch.empty((b, 1, 1, s), device=dev)
+    every = torch.empty((b, h, 1, s), device=dev)
+    forms = {
+        "plain": lambda i: ad.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale),
+        "one": lambda i: ad.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale, probs_out=one,
+                                            probs_slots=[0] + [-1] * (h - 1)),
+        "all": lambda i: ad.cross_attend_q8(qi, q_scale, *kv[i % 2], v_scale, probs_out=every,
+                                            probs_slots=list(range(h))),
+    }
+    out = {}
+    for form, fn in forms.items():
+        out[form] = {}
+        traces.append((out[form], fn, 50, "cross_attend_q8_kernel"))
     return out
 
 
@@ -891,12 +1040,324 @@ def phase_w4_w8a8(torch, card: str, bf16_pipe, int8_pipe, audio) -> None:
         + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()) + f" | {card}")
 
 
+class Spy:
+    """Within the `with` block, `module.name` is wrapped: `before` sees each
+    call's arguments, and each call's result joins `calls`."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def before(self, *args, **kwargs) -> None:
+        pass
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            self.before(*args, **kwargs)
+            out = self.orig(*args, **kwargs)
+            self.calls.append(out)
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class StepLogits(Spy):
+    """Spy on the decode loop's sampler: for each step, the filtered
+    logits' top-2 gap and the margin of the best token other than EOT over
+    EOT, [B] device tensors each (three small launches a step)."""
+
+    def __init__(self, eot: int):
+        from whisperkit_tpu_torch.decoding import loop
+
+        super().__init__(loop, "sample_token")
+        self.eot, self.gaps, self.margins = eot, [], []
+
+    def before(self, logits, *args, **kwargs) -> None:
+        top2 = logits.topk(2, dim=-1).values
+        self.gaps.append(top2[:, 0] - top2[:, 1])
+        others = logits.clone()
+        others[:, self.eot] = float("-inf")
+        self.margins.append(others.amax(dim=-1) - logits[:, self.eot])
+
+
+def divergences(label, ours, ref, gaps, sample_begin: int) -> int:
+    """Rows of `ours` and `ref` ([B, TOTAL] tokens) that match exactly;
+    fail where a row's first divergence sits at a top-2 gap of the
+    reference's filtered logits (`gaps`, one [B] tensor per step) above
+    BF16_GAP_TOL."""
+    ours, ref = ours.tolist(), ref.tolist()
+    same, report = 0, []
+    for r, (a, b) in enumerate(zip(ours, ref)):
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if first is None:
+            same += 1
+            continue
+        gap = float(gaps[first - sample_begin][r])
+        report.append(f"row {r} from position {first} (gap {gap:.4f})")
+        if gap > BF16_GAP_TOL:
+            fail(f"{label}: row {r} diverges at position {first}, where the reference's top-2 gap is {gap:.4f} "
+                 f"> {BF16_GAP_TOL}")
+    say(f"{label}: {same} of {len(ours)} rows match exactly" + (f"; diverging: {', '.join(report)}" if report else ""))
+    return same
+
+
+def timed_transcribe(torch, pipe, audio, options) -> tuple:
+    """(result, wall s, launch counts) of one transcribe with the launch
+    counts set to 0 just before it and read just after it."""
+    from whisperkit_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    result = pipe.transcribe(audio, options)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, dict(_build.launches)
+
+
+# a word may sit across its segment's edge by up to the word timing rules'
+# median-duration cap (0.7 s, text/word_timestamps.py) and 0.01 s rounding
+WORD_EDGE_TOL = 0.71
+
+
+def phase_word_timestamps(torch, card: str, pipe, audio) -> dict:
+    """Phase 4's pipeline with ALIGNMENT_HEADS and word_timestamps=True on
+    the 600 s run, one pass. Every K3 launch of a layer that holds an
+    alignment head must be the probs form: per decoder pass, one probs-form
+    launch on each such layer and a plain one on each other layer. Words
+    are in order within each segment and inside it (WORD_EDGE_TOL). Then
+    the host transfer of an alignment buffer of the group's size is timed."""
+    import dataclasses
+
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    label = "phase 9 word timestamps"
+    dims = pipe.dims
+    options = dataclasses.replace(pipeline_options(GROUP), word_timestamps=True)
+    pipe.alignment_heads = ALIGNMENT_HEADS
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        result, wall, counts = timed_transcribe(torch, pipe, audio, options)
+    finally:
+        pipe.alignment_heads = None
+    n_layer, n_align = dims.n_text_layer, len({layer for layer, _ in ALIGNMENT_HEADS})
+    check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend"),
+                   ("self_attend",), ("self_attend_q8",), n_layer)
+    probs, plain = counts["cross_attend_q8_probs"], counts["cross_attend_q8"]
+    passes = probs // n_align
+    if probs % n_align or plain != (n_layer - n_align) * passes:
+        fail(f"{label}: {probs} probs-form and {plain} plain K3 launches are not {n_align} and {n_layer - n_align} "
+             f"per decoder pass: a launch on an alignment layer took the plain form")
+    check_segments(label, result.segments)
+    n_words, across, inverted = 0, 0, 0
+    for seg in result.segments:
+        words = seg.words or []
+        if any(b.start < a.start or b.end < a.end for a, b in zip(words, words[1:])):
+            fail(f"{label}: segment {seg.id}'s words are out of order: {[(w.start, w.end) for w in words]}")
+        for w in words:
+            if not (seg.start - WORD_EDGE_TOL <= w.start and w.end <= seg.end + WORD_EDGE_TOL):
+                fail(f"{label}: word {w.word!r} [{w.start}, {w.end}] outside segment {seg.id} [{seg.start}, {seg.end}]")
+            across += not (seg.start <= w.start and w.end <= seg.end)
+            inverted += w.start > w.end
+            n_words += 1
+    if not n_words:
+        fail(f"{label}: no words")
+    t = result.timings
+    total = 3 + 221
+    buf = torch.zeros((total, GROUP, len(ALIGNMENT_HEADS), 1500), device="cuda")
+    transfer = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf.cpu()
+        transfer.append(time.perf_counter() - t0)
+    del buf
+    say(f"{label}: {AUDIO_SECONDS:.0f} s audio, {len(result.segments)} segments, {n_words} words ({across} across "
+        f"their segment's edge by up to {WORD_EDGE_TOL} s, {inverted} with start after end) | wall {wall:.3f} s "
+        f"(one pass) | decode loop {t.decoding_loop:.3f} s, word-timing host {t.decoding_timestamp_alignment:.3f} s "
+        f"| {passes} decoder passes: K3 probs form {probs}, plain {plain} | alignment buffer [{total}, {GROUP}, "
+        f"{len(ALIGNMENT_HEADS)}, 1500] f32 ({total * GROUP * len(ALIGNMENT_HEADS) * 1500 * 4 / 1e6:.1f} MB) to the "
+        f"host in {min(transfer) * 1e3:.1f}-{max(transfer) * 1e3:.1f} ms | peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches {json.dumps(counts)} | {card}")
+    return {"counts": counts, "wall": wall, "words": n_words, "transfer_ms": min(transfer) * 1e3}
+
+
+def phase_beam(torch, card: str, pipe, audio) -> dict:
+    """Beam 5 through phase 4's pipeline (serving preset: beam search gets
+    the raw bf16 cross-KV) on the first 60 s of the audio, one pass: its
+    T==1 steps run K4 over B·K rows and no K3."""
+    import dataclasses
+
+    from whisperkit_tpu_torch.pipelines import whisper as pipeline_module
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    label = "phase 10 beam 5"
+    clip = audio[: 60 * 16_000]
+    options = dataclasses.replace(pipeline_options(GROUP), beam_size=5)
+    with Spy(pipeline_module, "beam_decode_loop") as beams:
+        result, wall, counts = timed_transcribe(torch, pipe, clip, options)
+    check_launches(label, counts, ("log_mel", "mha_encoder", "self_attend"), ("self_attend",),
+                   ("cross_attend_q8", "cross_attend_q8_probs", "self_attend_q8"), pipe.dims.n_text_layer)
+    check_segments(label, result.segments)
+    lines = []
+    for out in beams.calls:
+        for r in range(out.tokens.shape[0]):
+            toks = out.tokens[r, 3:].tolist()
+            lines.append(f"row {r}: {toks[:8]}... sum log-prob {float(out.sum_logprob[r]):.3f}")
+    b = beams.calls[0].tokens.shape[0]
+    say(f"{label}: 60 s audio, {len(beams.calls)} group(s) of {b} windows × 5 beams = {5 * b} rows, "
+        f"{len(result.segments)} segments | wall {wall:.3f} s (one pass), decode loop "
+        f"{result.timings.decoding_loop:.3f} s | launches {json.dumps(counts)} | {card}")
+    say(f"  {label} hypotheses: " + "; ".join(lines))
+    return {"counts": counts, "wall": wall, "rows": 5 * b}
+
+
+def phase_segmented(torch, card: str, pipe, audio) -> dict:
+    """Segmented decode with batch compaction on the 600 s run's 32-row
+    group. Run A (the plain loop, no bias) records each step's margin of
+    the best non-EOT logit over EOT; the EOT bias is set between the 20th
+    and 21st smallest of the rows' least margins over the first three
+    segments, so 20 rows end there at their own steps (the trajectory is
+    the same until a row's EOT). Run B: segmented_decode=True with that
+    bias, which must compact; run C: the same bias uncompacted, the
+    reference for B's tokens. Run D: an early-stop flag set before the
+    run stops every window after its first 32-token segment: each row's
+    tokens are run A's first 32."""
+    from whisperkit_tpu_torch.core.concurrency import EarlyStopFlag
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.decoding import loop
+    from whisperkit_tpu_torch.pipelines import whisper as pipeline_module
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    label = "phase 11 segmented decode"
+    sp, n_layer = pipe.tokenizer.special, pipe.dims.n_text_layer
+    options = pipeline_options(GROUP)
+    begin, segment, first_segments = 3, 32, 3
+
+    with StepLogits(sp.eot) as rec_a, Spy(pipeline_module, "decode_loop") as out_a:
+        _, wall_a, _ = timed_transcribe(torch, pipe, audio, options)
+    least = torch.stack(rec_a.margins[: first_segments * segment]).amin(dim=0).sort().values.tolist()
+    if not least[20] < float("inf"):
+        fail(f"{label}: EOT is allowed at too few rows' steps to set a bias: least margins {least}")
+    bias = (least[19] + least[20]) / 2
+
+    def biased(segmented: bool):
+        p = WhisperPipeline(
+            WhisperConfig(compute_options=ComputeOptions.serving(segmented_decode=segmented), load=False),
+            dims=pipe.dims, params=pipe.params, device="cuda",
+        )
+        plain_bias = p._suppress_bias
+
+        def with_eot_bias(o):
+            b = plain_bias(o).clone()
+            b[sp.eot] += bias
+            return b
+
+        p._suppress_bias = with_eot_bias
+        return p
+
+    sizes = []  # (step, rows after, rows still decoding) of each compaction
+    compact = loop._compact
+    loop._compact = lambda st, rows, n: (sizes.append((st.pos - begin, len(rows), n)), compact(st, rows, n))[1]
+    try:
+        with Spy(pipeline_module, "decode_loop_segmented") as out_b:
+            result_b, wall_b, counts = timed_transcribe(torch, biased(True), audio, options)
+    finally:
+        loop._compact = compact
+    check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"), (),
+                   ("self_attend_q8", "cross_attend_q8_probs"), n_layer)
+    check_segments(label, result_b.segments)
+    if not sizes:
+        fail(f"{label}: the decode never compacted (EOT bias {bias:.4f})")
+    with StepLogits(sp.eot) as rec_c, Spy(pipeline_module, "decode_loop") as out_c:
+        _, wall_c, _ = timed_transcribe(torch, biased(False), audio, options)
+    ref = out_c.calls[0].tokens
+    finish = ((ref[:, begin:] != sp.eot).sum(dim=1)).tolist()
+    same_b = divergences(f"{label}, compacted vs uncompacted (EOT bias {bias:.4f})", out_b.calls[0].tokens,
+                         ref, rec_c.gaps, begin)
+
+    flag_pipe = WhisperPipeline(WhisperConfig(compute_options=ComputeOptions.serving(), load=False),
+                                dims=pipe.dims, params=pipe.params, device="cuda")
+    flag_pipe.early_stop_flag = EarlyStopFlag()
+    flag_pipe.early_stop_flag.stop()
+    with Spy(pipeline_module, "decode_loop_segmented") as out_d:
+        _, wall_d, counts_d = timed_transcribe(torch, flag_pipe, audio, options)
+    check_launches(f"{label}, early stop", counts_d, ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"),
+                   ("self_attend",), ("self_attend_q8", "cross_attend_q8_probs"), n_layer)
+    stopped = out_d.calls[0].tokens
+    if not bool((stopped[:, begin + segment :] == sp.eot).all()):
+        fail(f"{label}, early stop: a row decoded past its first segment")
+    full_a = out_a.calls[0].tokens[:, : begin + segment]
+    same_d = divergences(f"{label}, early stop vs run A's first {segment} tokens", stopped[:, : begin + segment],
+                         full_a, rec_a.gaps, begin)
+    say(f"{label}: EOT bias {bias:.4f} | rows' finish steps without compaction {sorted(finish)} | compacted at "
+        f"(step, rows, active) {sizes} | walls: A (no bias, plain loop, step recorder) {wall_a:.3f} s, B (bias, "
+        f"segmented + compaction) {wall_b:.3f} s, C (bias, plain loop, step recorder) {wall_c:.3f} s, D (early "
+        f"stop after one segment) {wall_d:.3f} s | B: {len(result_b.segments)} segments, launches "
+        f"{json.dumps(counts)} | {card}")
+    return {"counts": counts, "walls": [wall_a, wall_b, wall_c, wall_d], "compactions": sizes, "same": same_b,
+            "same_early_stop": same_d}
+
+
+def phase_speculative(torch, card: str, pipe, audio) -> dict:
+    """Batch-1 speculative decoding through the pipeline: phase 4's weights
+    and serving preset (int8 cross-KV) with a random distil-large-v3 draft
+    (init_params(SEED + 1), bf16), on the first 30 s of the audio (the
+    seek path, one window at a time). The pipeline without the draft is
+    the reference (its step logits recorded); the first window's tokens
+    are held against it. The target's K3 launches count its passes: one
+    prefill and one verify per round (draft_k + 1 = 5 query rows); the
+    draft's K4 launches are 5 T==1 steps per round on each of its 2 layers."""
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.decoding import speculative
+    from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
+    from whisperkit_tpu_torch.pipelines import whisper as pipeline_module
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    label = "phase 12 speculative"
+    sp, dims = pipe.tokenizer.special, pipe.dims
+    draft_dims = VARIANT_DIMS["distil-large-v3"]
+    draft = init_params(SEED + 1, draft_dims, torch.bfloat16)
+    spec_pipe = WhisperPipeline(WhisperConfig(compute_options=ComputeOptions.serving(), load=False), dims=dims,
+                                params=pipe.params, draft_dims=draft_dims, draft_params=draft)
+    clip = audio[: 30 * 16_000]
+    options = pipeline_options(1)
+    with StepLogits(sp.eot) as rec, Spy(pipeline_module, "decode_loop") as plain:
+        _, wall_plain, _ = timed_transcribe(torch, pipe, clip, options)
+    with Spy(pipeline_module, "speculative_decode_loop") as spec:
+        result, wall, counts = timed_transcribe(torch, spec_pipe, clip, options)
+    check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"), ("cross_attend_q8",),
+                   ("self_attend_q8", "cross_attend_q8_probs"), dims.n_text_layer)
+    check_segments(label, result.segments)
+    k = speculative.DRAFT_K
+    rounds = counts["cross_attend_q8"] // dims.n_text_layer - len(spec.calls)
+    if counts["self_attend"] != rounds * (k + 1) * draft_dims.n_text_layer:
+        fail(f"{label}: {counts['self_attend']} draft K4 launches for {rounds} rounds of {k + 1} steps on "
+             f"{draft_dims.n_text_layer} layers")
+    committed = sum(int(out.length) - 3 for out in spec.calls)
+    same = divergences(f"{label}, first window vs the pipeline without the draft", spec.calls[0].tokens,
+                       plain.calls[0].tokens, rec.gaps, 3)
+    say(f"{label}: 30 s audio, windows {len(spec.calls)} (without the draft {len(plain.calls)}), "
+        f"{len(result.segments)} segments | {committed} tokens in {rounds} rounds ({committed / max(rounds, 1):.3f} "
+        f"per target pass) | wall {wall:.3f} s, without the draft {wall_plain:.3f} s (with the step recorder), both "
+        f"one pass | launches {json.dumps(counts)} | {card}")
+    return {"counts": counts, "wall": wall, "wall_plain": wall_plain, "rounds": rounds, "same": same}
+
+
 # (kernel, source, TPU kernel it replaces, the path whose launch count it reports)
 KERNEL_TABLE = (
     ("log_mel", "whisperkit_tpu_torch/csrc/mel.cu", "whisperkit_tpu/ops/mel.py:227", "int8"),
     ("mha_encoder", "whisperkit_tpu_torch/csrc/mha_encoder.cu", "whisperkit_tpu/ops/attention.py:85", "int8"),
     ("cross_attend_q8", "whisperkit_tpu_torch/csrc/attention_decode.cu",
      "whisperkit_tpu/ops/attention_decode.py:81", "int8"),
+    ("cross_attend_q8_probs", "whisperkit_tpu_torch/csrc/attention_decode.cu",
+     "whisperkit_tpu/ops/attention_decode.py:81", "words"),
     ("self_attend", "whisperkit_tpu_torch/csrc/attention_decode.cu",
      "whisperkit_tpu/ops/attention_decode.py:191", "bf16"),
     ("self_attend_q8", "whisperkit_tpu_torch/csrc/attention_decode.cu",
@@ -927,8 +1388,17 @@ def main() -> None:
     phase_step_parity(torch, "phase 7 decoder step, W8A16 + int8 self-KV cache", int8["pipe"], bf16["audio"],
                       card)
     phase_w4_w8a8(torch, card, bf16["pipe"], int8["pipe"], bf16["audio"])
+    del int8["pipe"]
+    words = phase_word_timestamps(torch, card, bf16["pipe"], bf16["audio"])
+    phases = {
+        "word_timestamps": words,
+        "beam": phase_beam(torch, card, bf16["pipe"], bf16["audio"]),
+        "segmented": phase_segmented(torch, card, bf16["pipe"], bf16["audio"]),
+        "speculative": phase_speculative(torch, card, bf16["pipe"], bf16["audio"]),
+    }
+    say(json.dumps({"phases": {k: {x: y for x, y in v.items() if x != "counts"} for k, v in phases.items()}}))
 
-    counts = {"bf16": bf16["counts"], "int8": int8["counts"]}
+    counts = {"bf16": bf16["counts"], "int8": int8["counts"], "words": words["counts"]}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,

@@ -15,6 +15,7 @@ import pytest
 
 import bench
 from whisperkit_tpu.audio import chunker as jchunker
+from whisperkit_tpu.core import concurrency as jconcurrency
 from whisperkit_tpu.core import configurations as jconf
 from whisperkit_tpu.core import results as jresults
 from whisperkit_tpu.core import timings as jtimings
@@ -22,12 +23,14 @@ from whisperkit_tpu.text import languages as jlanguages
 from whisperkit_tpu.text import segment_seeker as jseeker
 from whisperkit_tpu.text import tokenizer as jtok
 from whisperkit_tpu.text import utils as jutils
+from whisperkit_tpu.text import word_timestamps as jword_timestamps
 from whisperkit_tpu_torch.audio import chunker
 from whisperkit_tpu_torch.audio import io as audio_io
+from whisperkit_tpu_torch.core import concurrency
 from whisperkit_tpu_torch.core import configurations as conf
 from whisperkit_tpu_torch.core import results
 from whisperkit_tpu_torch.core import timings
-from whisperkit_tpu_torch.text import languages, segment_seeker, tokenizer, utils
+from whisperkit_tpu_torch.text import languages, segment_seeker, tokenizer, utils, word_timestamps
 from whisperkit_tpu_torch.tools import workload
 
 REPO = Path(__file__).resolve().parent.parent
@@ -57,6 +60,8 @@ def test_port_modules_load_without_the_jax_package():
         "import whisperkit_tpu_torch.pipelines.whisper\n"
         "import whisperkit_tpu_torch.tools.profile_step, whisperkit_tpu_torch.tools.k2_check\n"
         "import whisperkit_tpu_torch.tools.decode_attn_check, whisperkit_tpu_torch.tools.launch_cost\n"
+        "import whisperkit_tpu_torch.decoding.beam, whisperkit_tpu_torch.decoding.speculative\n"
+        "import whisperkit_tpu_torch.core.concurrency, whisperkit_tpu_torch.text.word_timestamps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisperkit_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -265,3 +270,38 @@ def test_native_decoder_matches(tmp_path):
     other = tmp_path / "a.audio"
     shutil.copy(path, other)
     np.testing.assert_array_equal(audio_io.load_audio(other), jio.load_audio(other))
+
+
+def _same_source(ours, ref, names):
+    """Each named function's source is the original's, line for line, but
+    for the imports it was written against."""
+    import inspect
+
+    for name in names:
+        assert inspect.getsource(getattr(ours, name)) == inspect.getsource(getattr(ref, name)), name
+
+
+def test_word_timestamps_copy_matches():
+    """text/word_timestamps.py is a copy: the same functions and constants,
+    the same source, the same words on the same alignment."""
+    public = sorted(n for n in vars(jword_timestamps) if not n.startswith("__") and callable(
+        getattr(jword_timestamps, n)) and getattr(getattr(jword_timestamps, n), "__module__", "") ==
+        jword_timestamps.__name__)
+    assert public == sorted(n for n in vars(word_timestamps) if not n.startswith("__") and callable(
+        getattr(word_timestamps, n)) and getattr(getattr(word_timestamps, n), "__module__", "") ==
+        word_timestamps.__name__)
+    _same_source(word_timestamps, jword_timestamps, public)
+    for const in ("PREPEND_PUNCTUATIONS", "APPEND_PUNCTUATIONS", "SECONDS_PER_TIME_TOKEN", "MEDFILT_WIDTH",
+                  "_SENTENCE_END"):
+        assert getattr(word_timestamps, const) == getattr(jword_timestamps, const), const
+    assert word_timestamps.WordTiming is results.WordTiming
+
+
+def test_early_stop_flag_copy_matches():
+    import inspect
+
+    assert inspect.getsource(concurrency.EarlyStopFlag).split('"""')[2] == (
+        inspect.getsource(jconcurrency.EarlyStopFlag).split('"""')[2])
+    for flag in (concurrency.EarlyStopFlag(), jconcurrency.EarlyStopFlag()):
+        flag.stop()
+        assert flag.should_stop

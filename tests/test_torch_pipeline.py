@@ -217,12 +217,12 @@ def test_language_detection_matches_jax(pipes):
 
 @pytest.mark.parametrize(
     "kwargs, decode",
-    [
-        ({}, {"beam_size": 2}),
-        ({}, {"word_timestamps": True}),
-        ({"compute_options": ComputeOptions(segmented_decode=True)}, {}),
+    [  # every decoding option is ported; more than one device is not
+        ({"compute_options": ComputeOptions(dp_size=2)}, {"beam_size": 2}),
+        ({"compute_options": ComputeOptions(tp_size=2)}, {"word_timestamps": True}),
+        ({"compute_options": ComputeOptions(dcn_size=2, segmented_decode=True)}, {}),
         ({"compute_options": ComputeOptions(dp_size=2)}, {}),
-        ({"draft_dims": DIMS}, {}),
+        ({"compute_options": ComputeOptions(dp_size=4), "draft_dims": DIMS}, {}),
     ],
 )
 def test_options_outside_the_slice_raise(jparams, kwargs, decode):
@@ -235,10 +235,16 @@ def test_options_outside_the_slice_raise(jparams, kwargs, decode):
 
 
 def test_early_stop_flag_and_checkpoint_loading_raise():
+    """An early-stop flag is taken now (tests/test_torch_segmented.py holds
+    it against JAX); loading a checkpoint still raises."""
+    from whisperkit_tpu_torch.core.concurrency import EarlyStopFlag
+
     tparams = model.init_params(0, DIMS, torch.float32, "cpu")
     pipe = WhisperPipeline(WhisperConfig(load=False), dims=DIMS, params=tparams, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.early_stop_flag = object()
+    assert pipe.early_stop_flag is None
+    flag = EarlyStopFlag()
+    pipe.early_stop_flag = flag
+    assert pipe.early_stop_flag is flag
     pipe.early_stop_flag = None
     with pytest.raises(NotImplementedError):
         WhisperPipeline(WhisperConfig(model="tiny"), device="cpu")

@@ -24,6 +24,10 @@
 // reads whole contiguous rows of V; the groups' partial sums meet in shared
 // memory. K and V are each read exactly once.
 //
+// K3's probs form (word timestamps) is the same kernel, which also writes
+// the f32 softmax it forms for the rows of the heads a head-to-slot map
+// names: see its section below.
+//
 // K4 splits each row's key axis among the block's warps and stages V in
 // shared memory: see its section below. K5 keeps K3's layout.
 
@@ -78,7 +82,30 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 //   pi = clip(rint(probs / p_scale), 0, 127)       round half to even
 //   out = (pi . v) [int32] * p_scale * v_scale     f32
 // Grid (B*H, T): query rows t > 0 let the prompt prefill run here too.
+//
+// The probs form (PROBS = true, word timestamps): the block of (b, h, t)
+// also stores its f32 `probs` row, as the softmax pass forms it, to
+// probs + b * sb + slot[h] * sa + t * st when slot[h] >= 0 (the alignment
+// buffer's layout, written in place). The store takes the value the pass
+// already holds in a register, beside its shared-memory write, so nothing
+// else in the block changes: the int8 output is bit for bit the plain
+// form's. It adds at most S * 4 bytes of writes to a row's 2 * S * 64 bytes
+// of int8 K/V reads (+3% for every head of a layer, +0.3% for one head).
 // ---------------------------------------------------------------------------
+constexpr int MAX_HEADS = 64;
+
+struct HeadSlots {  // slot of each head in the probs output, -1 for none
+  signed char slot[MAX_HEADS];
+};
+
+struct ProbsOut {
+  float* probs;
+  long long sb, sa, st;  // strides (floats) of batch, slot and query row
+  int n_head;
+  HeadSlots heads;
+};
+
+template <bool PROBS>
 __global__ void __launch_bounds__(NT)
 cross_attend_q8_kernel(const int8_t* __restrict__ qi,     // [BH, T, DH]
                        const float* __restrict__ q_scale,  // [BH, T]
@@ -86,7 +113,7 @@ cross_attend_q8_kernel(const int8_t* __restrict__ qi,     // [BH, T, DH]
                        const int8_t* __restrict__ v,       // [BH, S, DH]
                        const float* __restrict__ v_scale,  // [BH, DH]
                        float* __restrict__ out,            // [BH, T, DH]
-                       int T, int S) {
+                       int T, int S, const __grid_constant__ ProbsOut po) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);                  // S scores / probs
   signed char* pq = reinterpret_cast<signed char*>(sc + S);    // S int8 probs
@@ -94,11 +121,19 @@ cross_attend_q8_kernel(const int8_t* __restrict__ qi,     // [BH, T, DH]
   __shared__ float red[NWARP];
   __shared__ int vred[NT / 16][DH];
 
+  __shared__ int slot_s;  // the probs form: this row's slot, -1 for none
+
   const int tid = threadIdx.x;
   const long bh = blockIdx.x;
   const long row = bh * T + blockIdx.y;
 
   if (tid < DH / 4) qw[tid] = reinterpret_cast<const int*>(qi + row * DH)[tid];
+  // the head's slot, read by one thread of the second warp straight from
+  // the parameter bank: `__grid_constant__` lets the index be computed at
+  // run time without a copy of the struct on every thread's stack, and one
+  // reader keeps the registers of the other threads as the plain form's
+  // (either copy measured 20-27% slower on the H100)
+  if (PROBS && tid == 32) slot_s = po.heads.slot[bh % po.n_head];
   __syncthreads();
   const float qs = q_scale[row];
 
@@ -129,10 +164,14 @@ cross_attend_q8_kernel(const int8_t* __restrict__ qi,     // [BH, T, DH]
   }
   const float sum = block_sum(lsum, red);
 
+  float* prow = nullptr;  // this row's probs, when its head has a slot
+  if (PROBS && slot_s >= 0)
+    prow = po.probs + (bh / po.n_head) * po.sb + slot_s * po.sa + blockIdx.y * po.st;
   float lpmax = 0.f;
   for (int s = tid; s < S; s += NT) {
     const float p = sc[s] / sum;
     sc[s] = p;
+    if (PROBS && prow) prow[s] = p;  // coalesced: thread s, float s
     lpmax = fmaxf(lpmax, p);
   }
   const float p_scale = fmaxf(block_max(lpmax, red) / 127.f, 1e-8f);
@@ -516,20 +555,44 @@ size_t aligned16(size_t n) { return (n + 15) & ~size_t(15); }
 
 }  // namespace
 
-extern "C" int wk_cross_attend_q8(const void* qi, const void* q_scale, const void* k,
-                                  const void* v, const void* v_scale, void* out,
-                                  int bh, int t, int s, void* stream) {
+template <bool PROBS>
+static int launch_cross_attend_q8(const void* qi, const void* q_scale, const void* k, const void* v,
+                                  const void* v_scale, void* out, int bh, int t, int s,
+                                  const ProbsOut& po, cudaStream_t st) {
   if (bh <= 0 || t <= 0 || s <= 0 || t > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = aligned16((size_t)s * (sizeof(float) + 1));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        cross_attend_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cross_attend_q8_kernel<PROBS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  cross_attend_q8_kernel<<<dim3(bh, t), NT, smem, (cudaStream_t)stream>>>(
+  cross_attend_q8_kernel<PROBS><<<dim3(bh, t), NT, smem, st>>>(
       (const int8_t*)qi, (const float*)q_scale, (const int8_t*)k, (const int8_t*)v,
-      (const float*)v_scale, (float*)out, t, s);
+      (const float*)v_scale, (float*)out, t, s, po);
   return (int)cudaGetLastError();
+}
+
+extern "C" int wk_cross_attend_q8(const void* qi, const void* q_scale, const void* k,
+                                  const void* v, const void* v_scale, void* out,
+                                  int bh, int t, int s, void* stream) {
+  return launch_cross_attend_q8<false>(qi, q_scale, k, v, v_scale, out, bh, t, s, ProbsOut{},
+                                       (cudaStream_t)stream);
+}
+
+// K3's probs form: `head_slot` (host memory, n_head entries) holds each
+// head's slot in `probs`, -1 for a head whose probabilities are not kept;
+// `strides` (host memory) the strides of batch, slot and query row in floats.
+extern "C" int wk_cross_attend_q8_probs(const void* qi, const void* q_scale, const void* k,
+                                        const void* v, const void* v_scale, void* out,
+                                        int bh, int t, int s, void* probs, int n_head,
+                                        const signed char* head_slot, const long long* strides,
+                                        void* stream) {
+  if (probs == nullptr || n_head <= 0 || n_head > MAX_HEADS || bh % n_head)
+    return (int)cudaErrorInvalidValue;
+  ProbsOut po{(float*)probs, strides[0], strides[1], strides[2], n_head, {}};
+  for (int h = 0; h < MAX_HEADS; ++h) po.heads.slot[h] = h < n_head ? head_slot[h] : -1;
+  return launch_cross_attend_q8<true>(qi, q_scale, k, v, v_scale, out, bh, t, s, po,
+                                      (cudaStream_t)stream);
 }
 
 // Allow `smem` bytes of dynamic shared memory, and ask for the smallest

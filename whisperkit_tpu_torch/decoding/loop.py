@@ -10,11 +10,19 @@ EOT-filled token buffer already holds.
 
 Batching: every function is batched over B windows, with a per-row `done`
 mask for heterogeneous finish times.
+
+`decode_loop_segmented` polls the host every `segment_tokens` positions:
+for cancellation (`should_stop`) and, with `compact`, to gather the rows
+still decoding into a smaller batch. With `alignment_heads`, every step
+also writes the cross-attention probabilities of those heads into an
+alignment buffer (word timestamps); `alignment_forward` computes the same
+in one teacher-forced pass (beam search).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -45,11 +53,17 @@ class DecodeScalars(NamedTuple):
 KVCache = Union[torch.Tensor, dict[str, torch.Tensor]]
 
 
+# (layer, head) pairs of the cross-attention heads whose probabilities
+# word timestamps read
+AlignmentHeads = Optional[Sequence[Sequence[int]]]
+
+
 class DecodeLoopOutput(NamedTuple):
     tokens: torch.Tensor  # [B, TOTAL] (prompt + sampled, EOT-padded)
     token_logprobs: torch.Tensor  # [B, TOTAL] f32 (0 in the prompt region)
     length: int  # final write position
     no_speech_prob: torch.Tensor  # [B] f32
+    alignment: Optional[torch.Tensor] = None  # [TOTAL, B, A, 1500] f32, with alignment heads
 
 
 class PrefillState(NamedTuple):
@@ -69,10 +83,22 @@ class PrefillState(NamedTuple):
     kv_v: KVCache
     last_logits: torch.Tensor  # [B, V] logits at the last prompt position
     no_speech_prob: torch.Tensor  # [B]
+    align_prefix: Optional[torch.Tensor] = None  # [P, B, A, 1500] f32, with alignment heads
+
+
+def _codes(x) -> torch.Tensor:
+    """A raw tensor, or the codes of an int8 {"q8", "scale"} form."""
+    return x["q8"] if isinstance(x, dict) else x
 
 
 def _batch(cross) -> int:
-    return (cross["q8"] if isinstance(cross, dict) else cross).shape[1]
+    return _codes(cross).shape[1]
+
+
+def _alignment_buffer(rows: int, b: int, alignment_heads, cross_k) -> torch.Tensor:
+    """Zeros [rows, B, A, frames] f32 on the cross-KV's device."""
+    codes = _codes(cross_k)
+    return torch.zeros((rows, b, len(alignment_heads), codes.shape[3]), dtype=torch.float32, device=codes.device)
 
 
 @torch.inference_mode()
@@ -105,6 +131,7 @@ def prefill_window(
     sample_begin: int,
     max_new_tokens: int,
     sot_index: int,
+    alignment_heads: AlignmentHeads = None,
     quantize_self_kv: bool = False,
 ) -> PrefillState:
     """Run the prompt through the decoder once; see PrefillState.
@@ -112,16 +139,130 @@ def prefill_window(
     `quantize_self_kv=True` allocates the self-attention cache in the int8
     per-token-scale form: rows are quantized as they are written, and the
     decode step reads them through K5 (half the bytes of the bf16 cache).
-    The cache's form is fixed here; the decode loop uses whichever it gets."""
+    The cache's form is fixed here; the decode loop uses whichever it gets.
+    With `alignment_heads`, the prompt rows' alignment is captured too
+    (`align_prefix`)."""
     b, p = prompt.shape
     if p != sample_begin:
         raise ValueError(f"prompt length {p} != sample_begin {sample_begin}")
     total = sample_begin + max_new_tokens
     dtype = params["decoder"]["token_embed"].dtype
     kv_k, kv_v = init_kv_cache(dims, b, total, dtype, prompt.device, quantize=quantize_self_kv)
-    logits = decoder_forward(params, prompt, 0, kv_k, kv_v, cross_k, cross_v, dims)
+    align = None if alignment_heads is None else _alignment_buffer(p, b, alignment_heads, cross_k)
+    logits = decoder_forward(
+        params, prompt, 0, kv_k, kv_v, cross_k, cross_v, dims,
+        alignment_heads=alignment_heads, align_out=align,
+    )
     no_speech_prob = torch.softmax(logits[:, sot_index], dim=-1)[:, special.nospeech]
-    return PrefillState(kv_k, kv_v, logits[:, -1], no_speech_prob)
+    return PrefillState(kv_k, kv_v, logits[:, -1], no_speech_prob, align)
+
+
+@dataclasses.dataclass
+class _Decode:
+    """One decode's state between host checkpoints: the loop's inputs that
+    stay fixed, and the buffers and caches that the steps advance."""
+
+    params: dict
+    cross_k: object
+    cross_v: object
+    suppress_bias: torch.Tensor
+    scalars: DecodeScalars
+    dims: WhisperDims
+    special: SpecialTokens
+    sample_begin: int
+    total: int
+    top_k: int
+    use_timestamp_rules: bool
+    suppress_blank: bool
+    alignment_heads: AlignmentHeads
+    kv_k: KVCache
+    kv_v: KVCache
+    tokens: torch.Tensor  # [B, TOTAL]
+    token_logprobs: torch.Tensor  # [B, TOTAL]
+    done: torch.Tensor  # [B] bool
+    last_logits: torch.Tensor  # [B, V]
+    mask_row: torch.Tensor  # [1, TOTAL] additive mask of the T==1 step
+    align: Optional[torch.Tensor]  # [TOTAL, B, A, 1500] with alignment heads
+    pos: int  # next write position
+
+
+def _start(
+    params, cross_k, cross_v, prompt, suppress_bias, scalars, prefill: Optional[PrefillState], *,
+    dims, special, sample_begin, max_new_tokens, top_k, sot_index, use_timestamp_rules, suppress_blank,
+    alignment_heads, quantize_self_kv,
+) -> tuple[_Decode, PrefillState]:
+    """The decode's state after the prompt: `prefill`'s, or a new prefill's."""
+    if prefill is None:
+        prefill = prefill_window(
+            params, cross_k, cross_v, prompt,
+            dims=dims, special=special, sample_begin=sample_begin,
+            max_new_tokens=max_new_tokens, sot_index=sot_index,
+            alignment_heads=alignment_heads, quantize_self_kv=quantize_self_kv,
+        )
+    b, p = prompt.shape
+    total = sample_begin + max_new_tokens
+    dev = prompt.device
+    tokens = torch.full((b, total), special.eot, dtype=torch.long, device=dev)
+    tokens[:, :p] = prompt
+    align = None
+    if alignment_heads is not None:
+        if prefill.align_prefix is None:
+            raise ValueError("alignment_heads given, but the prefill did not capture the alignment")
+        align = _alignment_buffer(total, b, alignment_heads, cross_k)
+        align[:p] = prefill.align_prefix
+    # additive causal mask row of the T==1 step, opened one position per step
+    mask_row = torch.full((1, _codes(prefill.kv_k).shape[3]), float("-inf"), dtype=torch.float32, device=dev)
+    mask_row[:, :sample_begin] = 0.0
+    st = _Decode(
+        params, cross_k, cross_v, suppress_bias, scalars, dims, special, sample_begin, total, top_k,
+        use_timestamp_rules, suppress_blank, alignment_heads, prefill.kv_k, prefill.kv_v, tokens,
+        torch.zeros((b, total), dtype=torch.float32, device=dev), torch.zeros((b,), dtype=torch.bool, device=dev),
+        prefill.last_logits, mask_row, align, sample_begin,
+    )
+    return st, prefill
+
+
+def _advance(st: _Decode, end: int, stop_check_interval: int) -> None:
+    """Decode positions st.pos .. end - 1, or stop sooner once the host,
+    which reads the `done` mask every `stop_check_interval` positions,
+    sees every row done. The step at the last position runs only to
+    capture its alignment: its logits are never read."""
+    sp = st.special
+    first_threshold = st.scalars.first_token_logprob_threshold
+    while st.pos < end:
+        pos = st.pos
+        if pos > st.sample_begin and (pos - st.sample_begin) % stop_check_interval == 0:
+            if bool(st.done.all()):  # the loop's one host sync, every K steps
+                return
+        logits = st.last_logits + st.suppress_bias[None, :]
+        if st.suppress_blank:
+            logits = apply_suppress_blank(logits, sp, pos == st.sample_begin)
+        if st.use_timestamp_rules:
+            logits = apply_timestamp_rules(
+                logits, st.tokens, pos, st.sample_begin, sp, st.scalars.max_initial_timestamp_index,
+            )
+        token, logprob = sample_token(logits, st.scalars.temperature, st.scalars.generator, st.top_k)
+
+        # stop checks: EOT, the context cap (loop bound), first-token floor
+        stop = st.done
+        if pos == st.sample_begin and first_threshold != float("-inf"):
+            stop = stop | (logprob < first_threshold)
+        token = torch.where(stop, sp.eot, token)
+        logprob = torch.where(stop, 0.0, logprob)
+        st.tokens[:, pos] = token
+        st.token_logprobs[:, pos] = logprob
+        st.done = stop | (token == sp.eot)
+
+        st.pos = pos + 1
+        if st.pos < st.total or st.align is not None:
+            st.mask_row[:, pos] = 0.0
+            capture = {}
+            if st.align is not None:
+                capture = {"alignment_heads": st.alignment_heads, "align_out": st.align[pos : pos + 1]}
+            st.last_logits = decoder_forward(
+                st.params, token[:, None], pos, st.kv_k, st.kv_v, st.cross_k, st.cross_v, st.dims,
+                mask_row=st.mask_row, **capture,
+            )[:, -1]
 
 
 @torch.inference_mode()
@@ -141,69 +282,162 @@ def decode_loop(
     sot_index: int,
     use_timestamp_rules: bool,
     suppress_blank: bool,
+    alignment_heads: AlignmentHeads = None,
     prefill: Optional[PrefillState] = None,
     stop_check_interval: int = 16,
     quantize_self_kv: bool = False,
 ) -> DecodeLoopOutput:
     """Greedy (temperature 0) or top-k sampled decode of up to
     `max_new_tokens` tokens per row after the prompt. `quantize_self_kv`
-    selects the int8 self-KV cache when there is no `prefill` to reuse."""
-    b, p = prompt.shape
-    total = sample_begin + max_new_tokens
-    dev = prompt.device
-    if prefill is None:
-        prefill = prefill_window(
-            params, cross_k, cross_v, prompt,
-            dims=dims, special=special, sample_begin=sample_begin,
-            max_new_tokens=max_new_tokens, sot_index=sot_index,
-            quantize_self_kv=quantize_self_kv,
-        )
-    kv_k, kv_v = prefill.kv_k, prefill.kv_v
-    s_max = (kv_k["q8"] if isinstance(kv_k, dict) else kv_k).shape[3]
+    selects the int8 self-KV cache when there is no `prefill` to reuse.
+    With `alignment_heads`, the output carries each position's alignment
+    (a `prefill` must then have captured it too)."""
+    st, prefill = _start(
+        params, cross_k, cross_v, prompt, suppress_bias, scalars, prefill,
+        dims=dims, special=special, sample_begin=sample_begin, max_new_tokens=max_new_tokens,
+        top_k=top_k, sot_index=sot_index, use_timestamp_rules=use_timestamp_rules,
+        suppress_blank=suppress_blank, alignment_heads=alignment_heads, quantize_self_kv=quantize_self_kv,
+    )
+    _advance(st, st.total, stop_check_interval)
+    return DecodeLoopOutput(st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, st.align)
 
-    tokens = torch.full((b, total), special.eot, dtype=torch.long, device=dev)
-    tokens[:, :p] = prompt
-    token_logprobs = torch.zeros((b, total), dtype=torch.float32, device=dev)
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    last_logits = prefill.last_logits
-    # additive causal mask row of the T==1 step, opened one position per step
-    mask_row = torch.full((1, s_max), float("-inf"), dtype=torch.float32, device=dev)
-    mask_row[:, :sample_begin] = 0.0
-    first_threshold = scalars.first_token_logprob_threshold
 
-    pos = sample_begin
-    while pos < total:
-        if pos > sample_begin and (pos - sample_begin) % stop_check_interval == 0:
-            if bool(done.all()):  # the loop's one host sync, every K steps
-                break
-        logits = last_logits + suppress_bias[None, :]
-        if suppress_blank:
-            logits = apply_suppress_blank(logits, special, pos == sample_begin)
-        if use_timestamp_rules:
-            logits = apply_timestamp_rules(
-                logits, tokens, pos, sample_begin, special,
-                scalars.max_initial_timestamp_index,
-            )
-        token, logprob = sample_token(logits, scalars.temperature, scalars.generator, top_k)
+def _take_rows(x, index: torch.Tensor, dim: int):
+    """Rows `index` of axis `dim` of a tensor or of each part of an int8
+    {"q8", "scale"} form."""
+    if isinstance(x, dict):
+        return {k: v.index_select(dim, index) for k, v in x.items()}
+    return x.index_select(dim, index)
 
-        # stop checks: EOT, the context cap (loop bound), first-token floor
-        stop = done
-        if pos == sample_begin and first_threshold != float("-inf"):
-            stop = stop | (logprob < first_threshold)
-        token = torch.where(stop, special.eot, token)
-        logprob = torch.where(stop, 0.0, logprob)
-        tokens[:, pos] = token
-        token_logprobs[:, pos] = logprob
-        done = stop | (token == special.eot)
 
-        pos += 1
-        if pos < total:  # the last position's logits would never be read
-            mask_row[:, pos - 1] = 0.0
-            last_logits = decoder_forward(
-                params, token[:, None], pos - 1, kv_k, kv_v, cross_k, cross_v, dims,
-                mask_row=mask_row,
-            )[:, -1]
-    return DecodeLoopOutput(tokens, token_logprobs, pos, prefill.no_speech_prob)
+def _compact(st: _Decode, rows: list[int], n_active: int) -> None:
+    """Gather the decode's batch down to `rows` (current row indices; the
+    first `n_active` still decoding, the rest repeats of the first, marked
+    done): the caches, the cross-KV, the buffers and the alignment. The
+    kernels then run on the smaller, contiguous batch."""
+    index = torch.tensor(rows, dtype=torch.long, device=st.tokens.device)
+    st.tokens = st.tokens.index_select(0, index)
+    st.token_logprobs = st.token_logprobs.index_select(0, index)
+    st.last_logits = st.last_logits.index_select(0, index)
+    st.done = st.done.index_select(0, index)
+    st.done[n_active:] = True
+    st.kv_k, st.kv_v = _take_rows(st.kv_k, index, 1), _take_rows(st.kv_v, index, 1)
+    st.cross_k, st.cross_v = _take_rows(st.cross_k, index, 1), _take_rows(st.cross_v, index, 1)
+    if st.align is not None:
+        st.align = st.align.index_select(1, index)
+
+
+class _Banked(NamedTuple):
+    """Per original row, the final buffers of rows compacted out so far."""
+
+    tokens: torch.Tensor  # [B0, TOTAL]
+    token_logprobs: torch.Tensor
+    align: Optional[torch.Tensor]  # [TOTAL, B0, A, 1500]
+
+
+def _bank(banked: Optional[_Banked], st: _Decode, pairs: list[tuple[int, int]], b0: int) -> _Banked:
+    """Copy the buffers of current rows to their original rows; `pairs` =
+    [(current row, original row)]."""
+    if banked is None:
+        align = None if st.align is None else st.align.new_zeros((st.align.shape[0], b0, *st.align.shape[2:]))
+        banked = _Banked(st.tokens.new_empty((b0, st.total)), st.token_logprobs.new_empty((b0, st.total)), align)
+    if pairs:
+        dev = st.tokens.device
+        cur = torch.tensor([c for c, _ in pairs], dtype=torch.long, device=dev)
+        orig = torch.tensor([o for _, o in pairs], dtype=torch.long, device=dev)
+        banked.tokens.index_copy_(0, orig, st.tokens.index_select(0, cur))
+        banked.token_logprobs.index_copy_(0, orig, st.token_logprobs.index_select(0, cur))
+        if banked.align is not None:
+            banked.align.index_copy_(1, orig, st.align.index_select(1, cur))
+    return banked
+
+
+@torch.inference_mode()
+def decode_loop_segmented(
+    params,
+    cross_k,
+    cross_v,
+    prompt: torch.Tensor,
+    suppress_bias: torch.Tensor,
+    scalars: DecodeScalars,
+    *,
+    dims: WhisperDims,
+    special: SpecialTokens,
+    sample_begin: int,
+    max_new_tokens: int,
+    top_k: int,
+    sot_index: int,
+    use_timestamp_rules: bool,
+    suppress_blank: bool,
+    alignment_heads: AlignmentHeads = None,
+    prefill: Optional[PrefillState] = None,
+    segment_tokens: int = 32,
+    should_stop: Optional[Callable[[], bool]] = None,
+    compact: bool = False,
+    quantize_self_kv: bool = False,
+    stop_check_interval: int = 16,
+) -> DecodeLoopOutput:
+    """decode_loop with host checkpoints every `segment_tokens` positions
+    (the JAX `decode_loop_segmented`).
+
+    Between segments the host reads the `done` mask, stops once every row
+    is done, and polls `should_stop` (mid-window cancellation: the
+    reference's EarlyStopActor, Models.swift:643-728, at segment
+    granularity); cancelled rows keep the tokens decoded so far, the rest
+    of the buffer EOT. With `compact=True`, whenever the rows still
+    decoding fit in half the batch (and two or more segments remain), the
+    decode is gathered down to the next power of two of them
+    (`_compact`), the finished rows' buffers banked at their original
+    rows, so finished rows stop costing the steps their attention."""
+    st, prefill = _start(
+        params, cross_k, cross_v, prompt, suppress_bias, scalars, prefill,
+        dims=dims, special=special, sample_begin=sample_begin, max_new_tokens=max_new_tokens,
+        top_k=top_k, sot_index=sot_index, use_timestamp_rules=use_timestamp_rules,
+        suppress_blank=suppress_blank, alignment_heads=alignment_heads, quantize_self_kv=quantize_self_kv,
+    )
+    b0 = prompt.shape[0]
+    rows: list[Optional[int]] = list(range(b0))  # original row of each current row; None: a pad
+    banked: Optional[_Banked] = None
+    n_segments = -(-max_new_tokens // segment_tokens)
+    for seg in range(n_segments):
+        _advance(st, min(st.pos + segment_tokens, st.total), stop_check_interval)
+        done = st.done.tolist()
+        if all(done):
+            break
+        if should_stop is not None and should_stop():
+            break
+        if not compact or seg >= n_segments - 2:
+            continue
+        active = [i for i, r in enumerate(rows) if r is not None and not done[i]]
+        b_new = 1 << (len(active) - 1).bit_length()
+        if b_new > len(rows) // 2:
+            continue
+        banked = _bank(banked, st, [(i, r) for i, r in enumerate(rows) if r is not None and done[i]], b0)
+        _compact(st, active + [active[0]] * (b_new - len(active)), len(active))
+        rows = [rows[i] for i in active] + [None] * (b_new - len(active))
+
+    if banked is None:  # never compacted
+        return DecodeLoopOutput(st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, st.align)
+    banked = _bank(banked, st, [(i, r) for i, r in enumerate(rows) if r is not None], b0)
+    return DecodeLoopOutput(banked.tokens, banked.token_logprobs, st.pos, prefill.no_speech_prob, banked.align)
+
+
+@torch.inference_mode()
+def alignment_forward(
+    params, cross_k, cross_v, tokens: torch.Tensor, *, dims: WhisperDims, alignment_heads,
+) -> torch.Tensor:
+    """One teacher-forced pass over whole sequences `tokens` [B, T]
+    (prompt + sampled) capturing the alignment heads → [T, B, A, 1500]
+    f32: for decodes whose loop did not capture it (beam search), as
+    openai/whisper timing.py does. Its cache is raw in the weights' dtype."""
+    b, t = tokens.shape
+    kv_k, kv_v = init_kv_cache(dims, b, t, params["decoder"]["token_embed"].dtype, tokens.device)
+    align = _alignment_buffer(t, b, alignment_heads, cross_k)
+    decoder_forward(
+        params, tokens, 0, kv_k, kv_v, cross_k, cross_v, dims,
+        alignment_heads=alignment_heads, align_out=align,
+    )
+    return align
 
 
 @torch.inference_mode()
@@ -213,7 +447,7 @@ def detect_language_logits(
     """One decode step from SOT → language probabilities [B, n_languages].
     Its tiny cache is always raw, whatever the serving mode (as in JAX)."""
     b = _batch(cross_k)
-    dev = (cross_k["q8"] if isinstance(cross_k, dict) else cross_k).device
+    dev = _codes(cross_k).device
     dtype = params["decoder"]["token_embed"].dtype
     kv_k, kv_v = init_kv_cache(dims, b, 8, dtype, dev)  # tiny cache for one step
     prompt = torch.full((b, 1), special.sot, dtype=torch.long, device=dev)

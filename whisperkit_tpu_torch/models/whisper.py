@@ -12,13 +12,17 @@ Entry points:
   init_params / params_from_numpy / params_to_numpy
   encoder_forward              mel → encoder output
   compute_cross_kv[_quantized] encoder output → per-layer cross K/V
-  decoder_forward              prefill (T > 1) and the T == 1 step
+  decoder_forward              prefill (T > 1) and the T == 1 step, with the
+                               alignment heads' cross-attention probabilities
+                               written to `align_out` (word timestamps)
 
 Attention runs through the port's kernels where the JAX package has a
 Pallas kernel: the encoder's self-attention (ops/attention.py), the T==1
 self-attention over the raw cache (ops/attention_decode.self_attend) or
 the int8 cache (ops/attention_decode.self_attend_q8) and the int8
-cross-attention (ops/attention_decode.cross_attend_q8). Prefill
+cross-attention (ops/attention_decode.cross_attend_q8, in its probs form
+on the layers that hold an alignment head when probabilities are
+captured). Prefill
 self-attention, raw cross-attention, the dense layers (plain, W8A16, W4A16
 and W8A8, ops/quant.py), the convolutions and the vocabulary projection
 are plain torch, as the JAX package leaves them to XLA.
@@ -31,7 +35,7 @@ uint8 codes and its bf16 scales through `params_from_numpy` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ from whisperkit_tpu_torch.ops.attention_decode import (
     self_attend,
     self_attend_q8,
     self_attend_q8_reference,
+    write_head_probs,
 )
 
 Params = dict[str, Any]
@@ -328,12 +333,13 @@ def _attend_self_q8(q, k, v, mask):
     return out.to(q.dtype)
 
 
-def _attend(q, k, v, mask=None, force_f32_scores=False):
+def _attend(q, k, v, mask=None, force_f32_scores=False, return_probs=False):
     """Plain attention, q [B,H,Tq,Dh], k/v [B,H,Tk,Dh]; Whisper scales q
     and k by dh^-0.25. Scores are float32 when an operand is float32 or
     when `force_f32_scores` (the raw decode cross path), else in the
     operands' dtype. An int8 {"q8", "scale"} cache goes to
-    `_attend_self_q8`."""
+    `_attend_self_q8`. `return_probs` also returns the softmax in
+    float32 (raw operands only)."""
     if isinstance(k, dict):
         return _attend_self_q8(q, k, v, mask)
     scale = q.shape[-1] ** -0.25
@@ -345,7 +351,8 @@ def _attend(q, k, v, mask=None, force_f32_scores=False):
     if mask is not None:
         scores = scores + mask.to(scores.dtype)
     probs = torch.softmax(scores, dim=-1)
-    return probs.to(v.dtype) @ v
+    out = probs.to(v.dtype) @ v
+    return (out, probs.float()) if return_probs else out
 
 
 # ---------------------------------------------------------------------------
@@ -431,19 +438,46 @@ def _layer(cross, li):
     return cross[li]
 
 
-def _cross_attend(cq, ck, cv):
+def _cross_attend(cq, ck, cv, probs_out=None, probs_slots=None):
     """Cross-attention over one layer's cached K/V: raw [B,H,1500,Dh]
     tensors (plain attention, float32 scores), or int8 {"q8", "scale"}
-    dicts (the int8 kernel, any number of query rows)."""
+    dicts (the int8 kernel, any number of query rows).
+
+    With `probs_out` ([B,A,T,1500] f32) and `probs_slots` (per head, its
+    index on probs_out's axis 1 or -1), the float32 softmax of the heads
+    with a slot is written there too (the JAX `capture_probs`): by K3's
+    probs form over the int8 cross-KV, from the plain softmax over the raw
+    one."""
     if not isinstance(ck, dict):
-        return _attend(cq, ck, cv, force_f32_scores=True)
+        if probs_out is None:
+            return _attend(cq, ck, cv, force_f32_scores=True)
+        out, probs = _attend(cq, ck, cv, force_f32_scores=True, return_probs=True)
+        write_head_probs(probs, probs_out, probs_slots)
+        return out
     scale = cq.shape[-1] ** -0.25  # same dh^-.25 on q as _attend (k's is folded)
     qs = cq.float() * (scale * scale) * ck["scale"]
     qi, q_scale = _q8_row_quantize(qs)
-    out = cross_attend_q8(
-        qi.contiguous(), q_scale.contiguous(), ck["q8"], cv["q8"], cv["scale"]
-    )
+    capture = {} if probs_out is None else {"probs_out": probs_out, "probs_slots": probs_slots}
+    out = cross_attend_q8(qi.contiguous(), q_scale.contiguous(), ck["q8"], cv["q8"], cv["scale"], **capture)
     return out.to(cq.dtype)
+
+
+def head_slots(alignment_heads: Sequence[Sequence[int]], n_layer: int, n_head: int) -> list[Optional[list[int]]]:
+    """Per decoder layer, the slot of each head in the alignment axis (the
+    index of its (layer, head) pair in `alignment_heads`, the order of the
+    JAX `_gather_alignment`), -1 for heads outside it; None for a layer
+    without an alignment head."""
+    per_layer: list[Optional[list[int]]] = [None] * n_layer
+    for a, (layer, head) in enumerate(alignment_heads):
+        layer, head = int(layer), int(head)
+        if not (0 <= layer < n_layer and 0 <= head < n_head):
+            raise ValueError(f"alignment head ({layer}, {head}) is outside {n_layer} layers x {n_head} heads")
+        if per_layer[layer] is None:
+            per_layer[layer] = [-1] * n_head
+        if per_layer[layer][head] >= 0:
+            raise ValueError(f"alignment head ({layer}, {head}) is named twice")
+        per_layer[layer][head] = a
+    return per_layer
 
 
 # ---------------------------------------------------------------------------
@@ -496,8 +530,17 @@ def decoder_forward(
     cross_v,
     dims: WhisperDims,
     mask_row: Optional[torch.Tensor] = None,
+    alignment_heads: Optional[Sequence[Sequence[int]]] = None,
+    align_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Run T tokens through the decoder → logits [B, T, V] float32.
+
+    With `alignment_heads` ((layer, head) pairs) and `align_out` (f32
+    [T, B, A, 1500], e.g. the decode loop's alignment buffer at these
+    positions), the cross-attention probabilities of those heads are
+    written into `align_out` (the JAX `capture_alignment` followed by
+    `_gather_alignment`); on the int8 cross-KV the layers that hold an
+    alignment head run K3's probs form, the others the plain K3.
 
     Unlike the JAX version, which returns an updated cache, this writes the
     new keys and values into `kv_k`/`kv_v` IN PLACE at positions
@@ -530,6 +573,16 @@ def decoder_forward(
         mask = torch.zeros((t, s_max), dtype=torch.float32, device=dev)
         mask = mask.masked_fill(key_pos > query_pos, float("-inf"))[None, None]
 
+    if (alignment_heads is None) != (align_out is None):
+        raise ValueError("alignment_heads and align_out go together")
+    slots = [None] * dims.n_text_layer
+    if align_out is not None:
+        slots = head_slots(alignment_heads, dims.n_text_layer, n_head)
+        if align_out.shape[:3] != (t, b, len(alignment_heads)):
+            raise ValueError(f"align_out: expected [{t}, {b}, {len(alignment_heads)}, frames], "
+                             f"got {tuple(align_out.shape)}")
+        probs_view = align_out.permute(1, 2, 0, 3)  # [B, A, T, frames]
+
     for li, bp in enumerate(dec["blocks"]):
         kk, vv = _layer(kv_k, li), _layer(kv_v, li)
         h = layer_norm(x, bp["attn_ln"])
@@ -544,7 +597,8 @@ def decoder_forward(
 
         h = layer_norm(x, bp["cross_attn_ln"])
         cq = _split_heads(dense(h, bp["cross_attn"]["q"]), n_head)
-        cross_out = _cross_attend(cq, _layer(cross_k, li), _layer(cross_v, li))
+        capture = {} if slots[li] is None else {"probs_out": probs_view, "probs_slots": slots[li]}
+        cross_out = _cross_attend(cq, _layer(cross_k, li), _layer(cross_v, li), **capture)
         x = x + dense(_merge_heads(cross_out), bp["cross_attn"]["out"])
 
         h = layer_norm(x, bp["mlp_ln"])

@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend", "self_attend_q8")
+KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend", "self_attend_q8")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P = ctypes.c_void_p
@@ -56,6 +56,10 @@ _SIGNATURES = {
     "wk_mha_encoder": (_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _I, _F, _P),
     # qi, q_scale, k, v, v_scale, out, batch*heads, t, s, stream
     "wk_cross_attend_q8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # the same, then probs, n_head, head slots (n_head x int8, host), probs
+    # strides (3 x int64, host: batch, slot, query row), stream
+    "wk_cross_attend_q8_probs": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P,
+                                 ctypes.POINTER(ctypes.c_longlong), _P),
     # q, k, v, mask, out, batch*heads, s, is_bf16, stream
     "wk_self_attend": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # qi, q_scale, k, k_scale, v, v_scale, mask, out, batch*heads, s, stream

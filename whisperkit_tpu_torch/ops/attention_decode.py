@@ -1,7 +1,9 @@
 """Decode-step attention (port of whisperkit_tpu/ops/attention_decode.py).
 
   cross_attend_q8  int8 cross-attention over the int8 cross-KV (K3), for
-                   one or more query rows (the T==1 step and the prefill)
+                   one or more query rows (the T==1 step and the prefill);
+                   with `probs_out` it also writes the softmax rows of the
+                   heads it is given (K3's probs form, word timestamps)
   self_attend      T==1 self-attention over the raw bf16/f32 cache (K4)
   self_attend_q8   T==1 self-attention over the int8 per-token-scale
                    cache (K5)
@@ -23,6 +25,9 @@ alike.
 
 from __future__ import annotations
 
+import ctypes
+from typing import Optional, Sequence
+
 import torch
 
 from whisperkit_tpu_torch.ops import _build
@@ -32,6 +37,8 @@ SPLIT_WARPS = 8
 # the longest cache K4 takes (its V rows are staged in shared memory);
 # the decode loop's is at most 2 · MAX_TOKEN_CONTEXT = 448
 MAX_SELF_KEYS = 512
+# the most heads K3's probs form maps to slots (its kernel's MAX_HEADS)
+MAX_PROBS_HEADS = 64
 
 
 def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,23 +46,69 @@ def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.double() @ b.double()
 
 
-def cross_attend_q8_reference(qi, q_scale, k_q8, v_q8, v_scale) -> torch.Tensor:
+def cross_attend_q8_reference(qi, q_scale, k_q8, v_q8, v_scale, return_probs: bool = False):
     """Plain torch version of K3 (the JAX `cross_attend_q8_reference`):
     qi [B,H,T,Dh] i8, q_scale [B,H,T,1] f32, k/v [B,H,S,Dh] i8,
-    v_scale [B,H,1,Dh] f32 → [B,H,T,Dh] f32."""
+    v_scale [B,H,1,Dh] f32 → [B,H,T,Dh] f32; with `return_probs`, also
+    the f32 softmax [B,H,T,S] the output is formed from (the JAX
+    `_cross_attend(capture_probs=True)` probs)."""
     scores_i = _int_dot(qi, k_q8.transpose(-1, -2))
     probs = torch.softmax(scores_i.float() * q_scale, dim=-1)
     p_scale = torch.clamp_min(probs.amax(dim=-1, keepdim=True) / 127.0, 1e-8)
     pi = torch.clamp(torch.round(probs / p_scale), 0, 127)
     out_i = _int_dot(pi, v_q8)
-    return out_i.float() * p_scale * v_scale
+    out = out_i.float() * p_scale * v_scale
+    return (out, probs) if return_probs else out
 
 
-def cross_attend_q8(qi, q_scale, k_q8, v_q8, v_scale) -> torch.Tensor:
+def write_head_probs(probs: torch.Tensor, probs_out: torch.Tensor, slots: Sequence[int]) -> None:
+    """Copy head h's rows of `probs` [B,H,T,S] to `probs_out[:, slots[h]]`
+    ([B,A,T,S]) for every head with a slot (≥ 0): what K3's probs form
+    writes."""
+    for h, a in enumerate(slots):
+        if a >= 0:
+            probs_out[:, a] = probs[:, h]
+
+
+def _check_probs_out(probs_out, slots, b, h, t, s) -> None:
+    _build.check_cuda("probs_out", probs_out, torch.float32, 4, contiguous=False)
+    if probs_out.shape[0] != b or tuple(probs_out.shape[2:]) != (t, s):
+        raise ValueError(f"probs_out: expected shape ({b}, A, {t}, {s}), got {tuple(probs_out.shape)}")
+    if probs_out.stride(-1) != 1:
+        raise ValueError("probs_out: the key axis must be contiguous")
+    if h > MAX_PROBS_HEADS:
+        raise ValueError(f"the probs form takes at most {MAX_PROBS_HEADS} heads, got {h}")
+    if len(slots) != h or not all(-1 <= a < probs_out.shape[1] for a in slots):
+        raise ValueError(f"probs_slots: expected {h} slots in [-1, {probs_out.shape[1]}), got {list(slots)}")
+    taken = [a for a in slots if a >= 0]
+    if len(set(taken)) != len(taken):
+        raise ValueError(f"probs_slots: a slot is named twice in {list(slots)}")
+    # the kernel stores one float at a time, so f32 alignment is all it needs
+    if probs_out.data_ptr() % 4:
+        raise ValueError("probs_out: data must be 4-byte aligned")
+
+
+def cross_attend_q8(
+    qi, q_scale, k_q8, v_q8, v_scale,
+    probs_out: Optional[torch.Tensor] = None, probs_slots: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
     """int8 cross-attention, shapes as in `cross_attend_q8_reference`.
-    CUDA: csrc/attention_decode.cu; CPU: the plain version."""
+    CUDA: csrc/attention_decode.cu; CPU: the plain version.
+
+    K3's probs form: with `probs_out` (f32 [B,A,T,S], the key axis
+    contiguous, other strides free, e.g. a view of the alignment buffer)
+    and `probs_slots` (one entry per head: the index on probs_out's axis 1
+    that takes that head's softmax rows, or -1), the kernel also writes the
+    softmax it forms, for those heads only; the output is bit for bit the
+    same."""
+    if (probs_out is None) != (probs_slots is None):
+        raise ValueError("probs_out and probs_slots go together")
     if not qi.is_cuda:
-        return cross_attend_q8_reference(qi, q_scale, k_q8, v_q8, v_scale)
+        if probs_out is None:
+            return cross_attend_q8_reference(qi, q_scale, k_q8, v_q8, v_scale)
+        out, probs = cross_attend_q8_reference(qi, q_scale, k_q8, v_q8, v_scale, return_probs=True)
+        write_head_probs(probs, probs_out, probs_slots)
+        return out
     _build.check_cuda("qi", qi, torch.int8, 4)
     _build.check_cuda("q_scale", q_scale, torch.float32, 4)
     _build.check_cuda("k", k_q8, torch.int8, 4)
@@ -78,12 +131,19 @@ def cross_attend_q8(qi, q_scale, k_q8, v_q8, v_scale) -> torch.Tensor:
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
     out = torch.empty((b, h, t, dh), dtype=torch.float32, device=qi.device)
+    args = (_build.ptr(qi), _build.ptr(q_scale), _build.ptr(k_q8), _build.ptr(v_q8),
+            _build.ptr(v_scale), _build.ptr(out), b * h, t, s)
     with torch.cuda.device(qi.device):
-        _build.launch(
-            "cross_attend_q8", "wk_cross_attend_q8",
-            _build.ptr(qi), _build.ptr(q_scale), _build.ptr(k_q8), _build.ptr(v_q8),
-            _build.ptr(v_scale), _build.ptr(out), b * h, t, s,
-        )
+        if probs_out is None:
+            _build.launch("cross_attend_q8", "wk_cross_attend_q8", *args)
+        else:
+            _check_probs_out(probs_out, probs_slots, b, h, t, s)
+            slots = (ctypes.c_byte * h)(*probs_slots)
+            strides = (ctypes.c_longlong * 3)(probs_out.stride(0), probs_out.stride(1), probs_out.stride(2))
+            _build.launch(
+                "cross_attend_q8_probs", "wk_cross_attend_q8_probs", *args,
+                _build.ptr(probs_out), h, ctypes.cast(slots, ctypes.c_void_p), strides,
+            )
     return out
 
 

@@ -7,15 +7,20 @@ and decoded together, in length-sorted groups of `concurrent_worker_count`
 windows with a power-of-two bucket for the last, partial group; audio of at
 most one window takes the seek path.
 
-The port covers greedy and top-k decoding with the temperature-fallback
-ladder, timestamp rules, language detection, bf16/f32 weights and
+The port covers the JAX pipeline's decoding choices: greedy and top-k
+decoding with the temperature-fallback ladder, beam search
+(`beam_size > 1`, `length_penalty`), word timestamps (`word_timestamps`,
+with `alignment_heads`), timestamp rules, language detection, segmented
+decode with batch compaction (`ComputeOptions.segmented_decode`),
+mid-window cancellation (`early_stop_flag`), batch-1 speculative decoding
+with a draft model (`draft_dims`/`draft_params`), bf16/f32 weights and
 `ComputeOptions`' int8 side: the int8 cross-KV serving mode
 (`ComputeOptions.serving()`), the int8 self-KV cache (`quantize_self_kv`)
 and W8A16/W4A16/W8A8 weights. Params come in already quantized
 (`ops/quant.quantize_whisper_params`, as the JAX pipeline takes them when
 it does not load a checkpoint); `quantization` selects only the W8A8
-encoder's int8 activations here. Options outside the port so far raise
-NotImplementedError and name the later work that brings them.
+encoder's int8 activations here. Checkpoint loading and more than one
+device raise NotImplementedError and name the later work that brings them.
 """
 
 from __future__ import annotations
@@ -47,14 +52,18 @@ from whisperkit_tpu_torch.core.results import (
     TranscriptionSegment,
 )
 from whisperkit_tpu_torch.core.timings import TranscriptionTimings
+from whisperkit_tpu_torch.decoding.beam import beam_decode_loop
 from whisperkit_tpu_torch.decoding.filters import non_speech_token_ids, suppress_tokens_bias
 from whisperkit_tpu_torch.decoding.loop import (
     DecodeScalars,
+    alignment_forward,
     decode_loop,
+    decode_loop_segmented,
     detect_language_logits,
     encode_window,
     prefill_window,
 )
+from whisperkit_tpu_torch.decoding.speculative import speculative_decode_loop
 from whisperkit_tpu_torch.models.whisper import WhisperDims, _map
 from whisperkit_tpu_torch.ops.mel import log_mel_spectrogram
 from whisperkit_tpu_torch.text.languages import LANGUAGES
@@ -65,6 +74,7 @@ from whisperkit_tpu_torch.text.segment_seeker import (
 )
 from whisperkit_tpu_torch.text.tokenizer import FakeTokenizer
 from whisperkit_tpu_torch.text.utils import compression_ratio_text
+from whisperkit_tpu_torch.text.word_timestamps import add_word_timestamps
 
 WINDOW_SAMPLES = 480_000  # Constants.windowSamples (Models.swift:1457)
 MAX_TOKEN_CONTEXT = 224  # Constants.maxTokenContext (Models.swift:1334)
@@ -82,6 +92,7 @@ class _WindowDecode:
     no_speech_prob: float
     temperature: float
     language: str
+    alignment: Optional[np.ndarray] = None  # [T, A, 1500] (prompt + sampled rows)
     sample_begin: int = 0
 
 
@@ -110,16 +121,28 @@ class WhisperPipeline:
     ):
         self.device = resolve_device(device)
         self.config = config or WhisperConfig(**kwargs)
-        self._check_compute_options()
-        if draft_dims is not None or draft_params is not None:
-            raise _not_in_slice("speculative decoding with a draft model")
+        co = self.config.compute_options
+        if (co.dp_size or 1) * co.tp_size * co.dcn_size > 1:
+            raise _not_in_slice("running on more than one device")
         self.model_state = ModelState.UNLOADED
         self.dims = dims
         self.tokenizer = tokenizer
-        self.alignment_heads = alignment_heads  # read by word timestamps, later
+        self.alignment_heads = alignment_heads
         self.timings = TranscriptionTimings()
         self._suppress_cache: dict[tuple, torch.Tensor] = {}
         self._detected_language: Optional[str] = None
+        # speculative decoding (batch-1 latency mode): a draft model sharing
+        # the vocab makes greedy batch-1 decodes run the lossless
+        # draft-verify loop (decoding/speculative.py)
+        self.draft_dims = draft_dims
+        self.draft_params = (
+            None if draft_params is None else _map(lambda _, t: t.to(self.device), draft_params)
+        )
+        self._draft_kv = None  # (cross_k, cross_v) of the draft for the current window
+        # cross-thread cancellation (core/concurrency.EarlyStopFlag, or
+        # anything with .should_stop): when set, greedy decodes run in
+        # segments and the flag is polled between them
+        self.early_stop_flag = None
         self.params = None
         if params is not None and dims is not None:
             self.params = _map(lambda _, t: t.to(self.device), params)
@@ -128,23 +151,6 @@ class WhisperPipeline:
             self.model_state = ModelState.LOADED
         elif self.config.load:
             raise _not_in_slice("loading a checkpoint (models/loader.load_whisper)")
-
-    def _check_compute_options(self) -> None:
-        co = self.config.compute_options
-        if co.segmented_decode:
-            raise _not_in_slice("segmented decode with batch compaction")
-        if (co.dp_size or 1) * co.tp_size * co.dcn_size > 1:
-            raise _not_in_slice("running on more than one device")
-
-    @property
-    def early_stop_flag(self):
-        """Mid-window cancellation flag; only None is supported so far."""
-        return None
-
-    @early_stop_flag.setter
-    def early_stop_flag(self, flag) -> None:
-        if flag is not None:
-            raise _not_in_slice("mid-window cancellation (early_stop_flag)")
 
     def unload_models(self) -> None:
         self.params = None
@@ -237,10 +243,27 @@ class WhisperPipeline:
         return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
 
     def _encode(self, mel_batch: torch.Tensor, options: DecodingOptions):
-        """encode_window with the serving-mode int8 cross-KV fused in."""
+        """encode_window with the serving-mode int8 cross-KV fused in (not
+        for beam search, which repeats the raw cross-KV per beam). With a
+        draft model, a batch of 1 and no option that keeps the decode off
+        the speculative path, the draft's cross-KV of the same window is
+        computed too."""
+        co = self.config.compute_options
+        if (
+            self.draft_params is not None
+            and mel_batch.shape[0] == 1
+            and options.beam_size <= 1
+            and not (options.word_timestamps and self.alignment_heads is not None)
+            and self.early_stop_flag is None
+            and not co.segmented_decode
+        ):
+            _, dck, dcv = encode_window(self.draft_params, mel_batch, self.draft_dims)
+            self._draft_kv = (dck, dcv)
+        else:
+            self._draft_kv = None
         return encode_window(
             self.params, mel_batch, self.dims,
-            quantize_kv=self.config.compute_options.quantize_cross_kv, act8=self._act8,
+            quantize_kv=co.quantize_cross_kv and options.beam_size <= 1, act8=self._act8,
         )
 
     # -- language detection -------------------------------------------------
@@ -337,10 +360,15 @@ class WhisperPipeline:
         prompt_arr = torch.tensor([p for p, _ in prompts], dtype=torch.long, device=self.device)
         suppress = self._suppress_bias(options)
         max_new = min(options.sample_length, MAX_TOKEN_CONTEXT - len(prompt))
+        capture = options.word_timestamps and self.alignment_heads is not None
+        align_heads = tuple(map(tuple, np.asarray(self.alignment_heads).tolist())) if capture else None
+        co = self.config.compute_options
 
-        prefill = None  # one prompt pass, reused by every rung of the ladder
+        # one prompt pass, reused by every rung of the ladder; made when a
+        # rung first needs it (beam search runs its own)
+        prefill = None
         # the self-KV cache's form is fixed where the prefill allocates it
-        qskv = self.config.compute_options.quantize_self_kv
+        qskv = co.quantize_self_kv
 
         def get_prefill():
             nonlocal prefill
@@ -349,7 +377,8 @@ class WhisperPipeline:
                 prefill = prefill_window(
                     self.params, cross_k, cross_v, prompt_arr,
                     dims=self.dims, special=sp, sample_begin=len(prompt),
-                    max_new_tokens=max_new, sot_index=sot_index, quantize_self_kv=qskv,
+                    max_new_tokens=max_new, sot_index=sot_index, alignment_heads=align_heads,
+                    quantize_self_kv=qskv,
                 )
                 self._sync()
                 self.timings.prefill += time.perf_counter() - t_pre
@@ -357,20 +386,58 @@ class WhisperPipeline:
                 self.timings.prefill_cache_hits += 1
             return prefill
 
+        common = dict(
+            dims=self.dims, special=sp, sample_begin=len(prompt), max_new_tokens=max_new,
+            sot_index=sot_index, use_timestamp_rules=not options.without_timestamps,
+            suppress_blank=options.suppress_blank,
+        )
         results: list[Optional[_WindowDecode]] = [None] * b
         for rung, temperature in enumerate(options.temperatures):
             t0 = time.perf_counter()
             scalars = self._decode_scalars(options, temperature, window_index * 101 + rung)
-            out = decode_loop(
-                self.params, cross_k, cross_v, prompt_arr, suppress, scalars,
-                dims=self.dims, special=sp, sample_begin=len(prompt),
-                max_new_tokens=max_new, top_k=options.top_k, sot_index=sot_index,
-                use_timestamp_rules=not options.without_timestamps,
-                suppress_blank=options.suppress_blank, prefill=get_prefill(),
-            )
+            use_beam = options.beam_size > 1 and temperature == 0.0
+            flag = self.early_stop_flag
+            if use_beam:
+                out = beam_decode_loop(
+                    self.params, cross_k, cross_v, prompt_arr, suppress,
+                    scalars.max_initial_timestamp_index, beam_size=options.beam_size,
+                    length_penalty=options.length_penalty, **common,
+                )
+            elif (
+                self._draft_kv is not None and b == 1 and temperature == 0.0 and not capture
+                and flag is None and not co.segmented_decode
+            ):
+                # batch-1 latency mode: lossless draft-verify with prefills of
+                # its own, sized for a round's writes past the window's budget
+                out = speculative_decode_loop(
+                    self.params, self.draft_params, cross_k, cross_v, *self._draft_kv,
+                    prompt_arr, suppress, scalars, draft_dims=self.draft_dims, **common,
+                )
+            elif flag is not None or co.segmented_decode:
+                out = decode_loop_segmented(
+                    self.params, cross_k, cross_v, prompt_arr, suppress, scalars,
+                    top_k=options.top_k, alignment_heads=align_heads, prefill=get_prefill(),
+                    should_stop=(lambda: flag.should_stop) if flag is not None else None,
+                    compact=co.segmented_decode, **common,
+                )
+            else:
+                out = decode_loop(
+                    self.params, cross_k, cross_v, prompt_arr, suppress, scalars,
+                    top_k=options.top_k, alignment_heads=align_heads, prefill=get_prefill(), **common,
+                )
             tokens_np = out.tokens.cpu().numpy()
             lps_np = out.token_logprobs.cpu().numpy()
             nsp_np = out.no_speech_prob.float().cpu().numpy()
+            align_np = None
+            if capture and use_beam:
+                # beam search does not capture in its loop: one teacher-forced
+                # pass over the winning hypotheses (openai timing.py style)
+                align_np = alignment_forward(
+                    self.params, cross_k, cross_v, out.tokens, dims=self.dims, alignment_heads=align_heads,
+                ).cpu().numpy()
+            elif capture:
+                # the rows past the loop's last position are zeros
+                align_np = out.alignment[: min(out.length + 1, out.alignment.shape[0])].cpu().numpy()
             self.timings.decoding_loop += time.perf_counter() - t0
             if rung > 0:
                 self.timings.decoding_fallback += time.perf_counter() - t0
@@ -407,6 +474,7 @@ class WhisperPipeline:
                         tokens=sampled, logprobs=lps, avg_logprob=avg_lp,
                         compression_ratio=cr, no_speech_prob=float(nsp_np[i]),
                         temperature=temperature, language=langs[i],
+                        alignment=None if align_np is None else align_np[: len(prompt) + n + 1, i],
                         sample_begin=len(prompt),
                     )
                 else:
@@ -417,12 +485,6 @@ class WhisperPipeline:
 
     # -- transcribe ---------------------------------------------------------
 
-    def _check_options(self, options: DecodingOptions) -> None:
-        if options.beam_size > 1:
-            raise _not_in_slice("beam search (decoding/beam.py)")
-        if options.word_timestamps:
-            raise _not_in_slice("word timestamps (text/word_timestamps.py)")
-
     def transcribe(
         self,
         audio: Union[str, Path, np.ndarray, Sequence],
@@ -432,7 +494,6 @@ class WhisperPipeline:
         """Transcribe a path, an array, or a list of either (a list returns
         a list of per-item results, exceptions preserved per item)."""
         options = decode_options or DecodingOptions()
-        self._check_options(options)
         if isinstance(audio, (list, tuple)):
             return self._transcribe_batch(list(audio), options, callback)
         t0 = time.perf_counter()
@@ -520,6 +581,8 @@ class WhisperPipeline:
                     avg_logprob=wd.avg_logprob, compression_ratio=wd.compression_ratio,
                     no_speech_prob=wd.no_speech_prob,
                 ).segments
+                if options.word_timestamps and wd.alignment is not None:
+                    segments = self._add_word_timestamps(segments, wd, 0.0, window_frames)
                 for s in segments:
                     s.language = wd.language
             result = TranscriptionResult(
@@ -647,6 +710,8 @@ class WhisperPipeline:
                 compression_ratio=wd.compression_ratio, no_speech_prob=wd.no_speech_prob,
                 segment_id_start=len(all_segments),
             ).segments
+            if options.word_timestamps and wd.alignment is not None:
+                segs = self._add_word_timestamps(segs, wd, start_sample / SAMPLE_RATE, window_frames)
             for s in segs:
                 s.language = wd.language
             all_segments.extend(self.window_post_process(start_sample // 160, window_frames, segs))
@@ -742,6 +807,8 @@ class WhisperPipeline:
                     segment_id_start=len(all_segments),
                 )
                 segs = res.segments
+                if options.word_timestamps and wd.alignment is not None:
+                    segs = self._add_word_timestamps(segs, wd, seek / FRAMES_PER_SECOND, window_frames)
                 for s in segs:
                     s.language = wd.language
                 all_segments.extend(self.window_post_process(seek, window_frames, segs))
@@ -792,3 +859,14 @@ class WhisperPipeline:
         if len(frames) % 2 == 1:
             frames.append(content_frames)
         return [(frames[i], frames[i + 1]) for i in range(0, len(frames), 2)]
+
+    def _add_word_timestamps(self, segments, wd: _WindowDecode, time_offset: float, window_frames: int):
+        t0 = time.perf_counter()
+        try:
+            return add_word_timestamps(
+                segments=segments, alignment=wd.alignment, sample_begin=wd.sample_begin,
+                tokens=wd.tokens, tokenizer=self.tokenizer, language=wd.language,
+                time_offset=time_offset, window_frames=window_frames,
+            )
+        finally:
+            self.timings.decoding_timestamp_alignment += time.perf_counter() - t0

@@ -1,5 +1,5 @@
-"""The decode-step self-attention kernels' (K4's and K5's) check, and proof
-that K4's can fail.
+"""The decode-step attention kernels' check inputs (K3's probs form, K4,
+K5), and proof that K4's check can fail.
 
     python -m whisperkit_tpu_torch.tools.decode_attn_check
 
@@ -21,6 +21,12 @@ well away from 0, and the rows' sums show. The mask is open up to a
 position (0, S/2 or S - 1 in the check); the rows after it hold K/V data
 (K4) or are unwritten, zero codes and scales (K5, as the cache holds
 them), and a correct kernel never reads them.
+
+K3's probs form is checked on `check_inputs_cross_q8`: the same three row
+kinds over the 1500 frames of the int8 cross-KV (kind 0 peaked at the last
+frames, kind 1 at the first, kind 2 near flat), for one or more query
+rows; its probabilities within `K3_PROBS_LIMIT` of the plain version's,
+its output bit for bit the plain launch's.
 
 Run as a script, this builds K4's inputs on the CPU at B=4 H=20 S=224
 (the main path's cache length) and reports, for K4's split-key algorithm
@@ -47,6 +53,9 @@ K4_LIMIT = 1e-5
 # sum order) are allowed, at most this many per row; one flip moves an
 # output of its row by at most 127 · p_scale (one int8 V code)
 K5_FLIPS = 2
+# K3's probs form: float32 softmax against the plain version's, another
+# exp and sum order; probabilities lie in [0, 1]
+K3_PROBS_LIMIT = 1e-6
 BATCH, HEADS, SEQ, SEED = 4, 20, 224, 0
 
 
@@ -101,6 +110,29 @@ def check_inputs_q8(b: int, h: int, s: int, pos: int, generator, device):
     for t in cache:
         t[:, :, pos + 1 :] = 0
     return (qi, q_scale, *cache, mask_row)
+
+
+def check_inputs_cross_q8(b: int, h: int, s: int, t: int, generator, device):
+    """(qi, q_scale, k8, v8, v_scale) for K3, `t` query rows per (batch,
+    head): K and V ~ N(0, 1) quantized per channel over the frames (the
+    int8 cross-KV recipe), each query of its row's kind, folded with K's
+    scales and quantized per row as the decoder does (`_cross_attend`).
+    Peaked rows put a score of ~24 on one frame in the last or first 64,
+    near-flat rows have scores of std 1/4."""
+    k = torch.randn((b, h, s, 64), generator=generator, device=device)
+    v = torch.randn((b, h, s, 64), generator=generator, device=device) + 0.75
+    k_scale = torch.clamp_min(k.abs().amax(dim=-2, keepdim=True) / 127.0, 1e-8)
+    k8 = torch.clamp(torch.round(k / k_scale), -127, 127).to(torch.int8)
+    v_scale = torch.clamp_min(v.abs().amax(dim=-2, keepdim=True) / 127.0, 1e-8)
+    v8 = torch.clamp(torch.round(v / v_scale), -127, 127).to(torch.int8)
+    kinds = row_kinds(b, h, device)[..., None].expand(b, h, t)
+    u = (torch.rand((b, h, t), generator=generator, device=device) * 64).long()
+    j = torch.where(kinds == 0, s - 1 - u, u)
+    q = 0.375 * torch.gather(k, 2, j[..., None].expand(b, h, t, 64))
+    flat = torch.randn((b, h, t, 64), generator=generator, device=device) / 32
+    q = torch.where((kinds == 2)[..., None], flat, q)
+    qi, q_scale = _q8_row_quantize(q * k_scale)
+    return qi, q_scale, k8, v8, v_scale
 
 
 def excess(out: torch.Tensor, ref: torch.Tensor, limit) -> torch.Tensor:
