@@ -50,12 +50,27 @@ Phases, one line each; any failure exits non-zero:
  12. speculative decoding at batch 1 on 30 s of the audio, a random
      distil-large-v3 draft: its tokens against the same pipeline's
      without the draft
+ 13. the checkpoint: phase 4's tree written as an HF folder
+     (tools/checkpoint.py) with ALIGNMENT_HEADS and a byte-level vocab in
+     a temporary directory, loaded by WhisperPipeline(WhisperConfig(
+     model_folder=...)) as W8A16 serving; every leaf equal to
+     quantize_whisper_params of phase 4's tree; write and load seconds
+ 14. the server: create_app on 127.0.0.1 over phase 13's pipeline, nine
+     concurrent requests from threads (json 120/90/60/30 s WAVs cut from
+     phase 4's audio, verbose_json with word timestamps, SSE, the latency
+     class, /health, a post with no file); every response through
+     server/schema.py; every batched window against the pipeline on its
+     request alone under the top-2-gap rule; K1-K4 and K3's probs form
+     must launch; latencies and the batcher's stats
+ 15. the CLI: `python -m whisperkit_tpu_torch.cli transcribe` on the folder
+     and the 60 s WAV in a child process, exit 0, its JSON report against
+     an in-process pipeline with the CLI's options under the same rule
 
 Phase 3 also holds K3's probs form against its plain version (B=4 and
 B=32, one and three query rows, peaked and near-flat rows): the
 probabilities within 1e-6, the output bit for bit the plain launch's; it
 times the form by events here and by device time in the timing process.
-Where phases 11 and 12 hold one decode's tokens against another's, bf16
+Where phases 11, 12, 14 and 15 hold one decode's tokens against another's, bf16
 GEMMs at other batch sizes or query counts may round otherwise: they print
 the rows that match exactly and fail only where a row's first divergence
 sits at a top-2 gap of the reference's filtered logits above BF16_GAP_TOL.
@@ -71,6 +86,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -1350,6 +1366,409 @@ def phase_speculative(torch, card: str, pipe, audio) -> dict:
     return {"counts": counts, "wall": wall, "wall_plain": wall_plain, "rounds": rounds, "same": same}
 
 
+# phases 13-15: the request lengths cut from phase 4's audio, in seconds
+WAV_SECONDS = (120, 90, 60, 30)
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def tree_mismatches(torch, ours, ref, path: str = "") -> list:
+    """Where two parameter trees differ: their keys or layer counts, or a
+    leaf that differs in dtype, shape or any value (`torch.equal`)."""
+    if isinstance(ref, dict):
+        if not isinstance(ours, dict) or sorted(ours) != sorted(ref):
+            return [f"{path}: keys differ"]
+        return [m for k in ref for m in tree_mismatches(torch, ours[k], ref[k], f"{path}.{k}")]
+    if isinstance(ref, list):
+        if not isinstance(ours, list) or len(ours) != len(ref):
+            return [f"{path}: layer counts differ"]
+        return [m for i, (a, b) in enumerate(zip(ours, ref)) for m in tree_mismatches(torch, a, b, f"{path}[{i}]")]
+    if ours.dtype == ref.dtype and ours.shape == ref.shape and bool(torch.equal(ours, ref)):
+        return []
+    return [f"{path}: {ours.dtype} {tuple(ours.shape)} vs {ref.dtype} {tuple(ref.shape)}"]
+
+
+def n_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(n_leaves(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_leaves(v) for v in tree)
+    return 1
+
+
+def phase_checkpoint(torch, card: str, bf16_pipe, folder: Path, device: str = "cuda") -> dict:
+    """Phase 13: phase 4's bf16 tree written as an HF checkpoint folder
+    (tools/checkpoint.write_hf_checkpoint, with ALIGNMENT_HEADS, and a
+    byte-level vocab from write_synthetic_tokenizer), then loaded through
+    the port's entry point, WhisperPipeline(WhisperConfig(model_folder=...,
+    download=False, compute_options=ComputeOptions.serving(quantization=
+    "w8a16"))): the headline configuration (W8A16 weights, int8 cross-KV,
+    the bf16 self-KV cache). Every leaf of the loaded tree must be
+    `torch.equal` to quantize_whisper_params of phase 4's tree (codes,
+    scales and the unquantized leaves), its alignment heads ALIGNMENT_HEADS,
+    its tokenizer the folder's BPE."""
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.text.tokenizer import WhisperTokenizer
+    from whisperkit_tpu_torch.tools.checkpoint import write_hf_checkpoint, write_synthetic_tokenizer
+
+    label = "phase 13 checkpoint"
+    dims = bf16_pipe.dims
+    sync(torch, device)
+    t0 = time.perf_counter()
+    n_bytes = write_hf_checkpoint(folder, dims, bf16_pipe.params, alignment_heads=ALIGNMENT_HEADS)
+    write_synthetic_tokenizer(folder, dims.n_vocab)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = WhisperPipeline(
+        WhisperConfig(model_folder=str(folder), download=False,
+                      compute_options=ComputeOptions.serving(quantization="w8a16")),
+        device=device,
+    )
+    sync(torch, device)
+    t_load = time.perf_counter() - t0
+    if pipe.dims != dims or pipe.device.type != device:
+        fail(f"{label}: loaded {pipe.dims} on {pipe.device}, not {dims} on {device}")
+    bad = tree_mismatches(torch, pipe.params, quantize_whisper_params(bf16_pipe.params))
+    if bad:
+        fail(f"{label}: {len(bad)} leaves differ from quantize_whisper_params of phase 4's tree: {bad[:5]}")
+    heads = [tuple(h) for h in pipe.alignment_heads.tolist()]
+    if heads != list(ALIGNMENT_HEADS):
+        fail(f"{label}: alignment heads {heads} are not {ALIGNMENT_HEADS}")
+    if not isinstance(pipe.tokenizer, WhisperTokenizer):
+        fail(f"{label}: the tokenizer is {type(pipe.tokenizer).__name__}, not the folder's BPE")
+    say(f"{label}: large-v3 bf16 tree as an HF folder: model.safetensors {n_bytes} bytes "
+        f"({n_bytes / 2**30:.3f} GiB), written with the tokenizer in {t_write:.3f} s | WhisperPipeline(model_folder, "
+        f"serving(quantization=\"w8a16\")) in {t_load:.3f} s (timings.model_loading "
+        f"{pipe.timings.model_loading:.3f} s) | all {n_leaves(pipe.params)} leaves torch.equal to "
+        f"quantize_whisper_params of phase 4's tree; {len(heads)} alignment heads equal | {card}")
+    return {"pipe": pipe, "bytes": n_bytes, "write_s": t_write, "load_s": t_load,
+            "model_loading_s": pipe.timings.model_loading}
+
+
+def window_key(window) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(window, np.float32).tobytes()).hexdigest()
+
+
+class WindowRecorder:
+    """On one pipeline instance, within the `with` block: each
+    `_mel_batch` call's windows (`mels`) and each `_decode_with_fallback`
+    call's (word_timestamps, per-row decodes) (`decodes`), in call order,
+    with the decode options' fields in `held` replaced. Phase 14 holds
+    them as tools/workload.pipeline_options does for phases 4-12: the
+    fallback ladder at temperature 0 (random weights fail every quality
+    threshold, so the ladder would end in tokens sampled at t = 1.0, whose
+    draws depend on the batch's makeup and seeds) and no first-token floor
+    (which would end every random-weight window at its first token)."""
+
+    def __init__(self, pipe, **held):
+        self.pipe, self.held, self.mels, self.decodes = pipe, held, [], []
+
+    def __enter__(self):
+        import dataclasses
+
+        import numpy as np
+
+        mel_batch, decode = self.pipe._mel_batch, self.pipe._decode_with_fallback
+
+        def recorded_mel_batch(windows):
+            self.mels.append([np.asarray(w) for w in windows])
+            return mel_batch(windows)
+
+        def greedy_decode(ck, cv, options, language, window_index):
+            out = decode(ck, cv, dataclasses.replace(options, **self.held), language, window_index)
+            self.decodes.append((options.word_timestamps, out))
+            return out
+
+        self.pipe._mel_batch, self.pipe._decode_with_fallback = recorded_mel_batch, greedy_decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.pipe._mel_batch, self.pipe._decode_with_fallback
+
+    def clear(self) -> None:
+        self.mels.clear()
+        self.decodes.clear()
+
+
+def reference_windows(torch, pipe, rec: WindowRecorder, audio, options) -> tuple:
+    """`pipe.transcribe` of one request's audio alone (the list form for
+    ≤ 30 s, the scheduler's one-window path), recorded: (result, {window
+    key: (seek frame, sampled tokens, the filtered logits' top-2 gap of
+    each step)}). Its VAD windows decode as one length-sorted group."""
+    from whisperkit_tpu_torch.pipelines.whisper import WINDOW_SAMPLES
+
+    short = len(audio) <= WINDOW_SAMPLES
+    rec.clear()
+    with StepLogits(pipe.tokenizer.special.eot) as steps:
+        result = pipe.transcribe([audio], options)[0] if short else pipe.transcribe(audio, options)
+    if isinstance(result, Exception):
+        raise result
+    if len(rec.mels) != 1 or len(rec.decodes) != 1:
+        fail(f"reference of {len(audio) / 16000:.0f} s: {len(rec.mels)} mel and {len(rec.decodes)} decode calls, "
+             "not one group")
+    windows, decodes = rec.mels[0], rec.decodes[0][1]
+    if short:
+        order, seeks = [0], [0]
+    else:
+        chunks = pipe._vad_chunks(audio, options)
+        # the pipeline's own order: one group of the chunks sorted by length
+        order = sorted(range(len(chunks)), key=lambda i: len(chunks[i].audio_samples))
+        seeks = [c.seek_offset_index // 160 for c in chunks]
+        if len(order) > options.concurrent_worker_count:
+            fail(f"reference of {len(audio) / 16000:.0f} s: {len(order)} chunks take more than one group")
+    gaps = torch.stack(steps.gaps).float().cpu()  # [steps, rows]
+    return result, {window_key(windows[i]): (seeks[i], decodes[r].tokens, gaps[:, r].tolist())
+                    for r, i in enumerate(order)}
+
+
+def first_divergence(ours: list, ref: list, gaps: list) -> tuple | None:
+    """None when the token lists are equal, else (step of the first
+    difference, the reference's top-2 gap there): where one list ended
+    (EOT) and the other went on, the step of that EOT."""
+    first = next((k for k, (a, b) in enumerate(zip(ours, ref)) if a != b), None)
+    if first is None:
+        if len(ours) == len(ref):
+            return None
+        first = min(len(ours), len(ref))
+    return first, (gaps[first] if first < len(gaps) else float("inf"))
+
+
+def write_wav(path: Path, audio) -> Path:
+    import wave
+
+    import numpy as np
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16_000)
+        w.writeframes((np.clip(audio, -1.0, 1.0) * 32767).astype("<i2").tobytes())
+    return path
+
+
+def phase_server(torch, card: str, pipe, audio, audio_dir: Path, device: str = "cuda") -> dict:
+    """Phase 14: phase 13's pipeline behind create_app(batching=True,
+    max_batch=16) on 127.0.0.1, an ephemeral port, in a thread. 16-bit WAVs
+    of the first 120, 90, 60 and 30 s of phase 4's audio, posted together
+    from threads with urllib: each as `json`, the 60 s also as
+    `verbose_json` with word timestamps (K3's probs form), the 90 s with
+    `stream=true` (SSE, ending in transcript.text.done), the 30 s with
+    `priority=latency`; GET /health; a post with no file (400). Every
+    response is checked with server/schema.py. Each window the batcher
+    decoded is held against `pipe.transcribe` of its request's WAV alone
+    (WindowRecorder: greedy, no first-token floor, in both runs) under the
+    top-2-gap rule; where every
+    window matches, every text must equal its reference's. K1, K2, K3, K3's
+    probs form and K4 must launch during the requests."""
+    import threading
+
+    from whisperkit_tpu_torch.audio.io import load_audio
+    from whisperkit_tpu_torch.core.configurations import DecodingOptions
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.server import client, schema
+    from whisperkit_tpu_torch.server.openai_api import create_app
+
+    label = "phase 14 server"
+    paths = {s: write_wav(audio_dir / f"clip_{s}s.wav", audio[: s * 16_000]) for s in WAV_SECONDS}
+    words = [("response_format", "verbose_json"), ("timestamp_granularities[]", "word")]
+    requests = [(f"json {s} s", s, []) for s in WAV_SECONDS] + [
+        ("words 60 s", 60, words), ("stream 90 s", 90, [("stream", "true")]),
+        ("latency 30 s", 30, [("priority", "latency")]), ("no file", None, []),
+    ]
+    responses: dict = {}
+    with WindowRecorder(pipe, temperature_fallback_count=0, first_token_log_prob_threshold=None) as rec:
+        app = create_app(pipe, batching=True, max_batch=16)
+        host, port = app.start("127.0.0.1", 0)
+        base = f"http://{host}:{port}"
+        try:
+            def send(name, seconds=None, fields=None):
+                """One request; its (status, headers, body, seconds), or the
+                exception that stopped it, lands in `responses`."""
+                t0 = time.perf_counter()
+                try:
+                    if fields is None:
+                        got = client.get(base + "/health", timeout=600)
+                    else:
+                        files = [("file", paths[seconds].name, paths[seconds].read_bytes())] if seconds else []
+                        got = client.post(base + "/v1/audio/transcriptions", [("language", "en")] + fields, files,
+                                          timeout=600)
+                    responses[name] = got + (time.perf_counter() - t0,)
+                except Exception as e:  # noqa: BLE001 — reported by the check below
+                    responses[name] = e
+
+            sync(torch, device)
+            _build.reset_launches()
+            threads = [threading.Thread(target=send, args=r) for r in requests]
+            threads.append(threading.Thread(target=send, args=("health",)))
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            sync(torch, device)
+            wall = time.perf_counter() - t0
+            counts = dict(_build.launches)
+            if any(t.is_alive() for t in threads):
+                fail(f"{label}: requests still open after 900 s")
+            errors = {k: repr(v) for k, v in responses.items() if isinstance(v, Exception)}
+            if errors:
+                fail(f"{label}: requests failed: {errors}")
+            stats = app.scheduler.stats
+            after = client.get(base + "/health", timeout=60)
+        finally:
+            app.close()
+        served = list(zip(rec.mels, rec.decodes))
+
+        # every response: status and schema
+        texts = {}
+        for name, seconds, fields in requests:
+            status, headers, body, _ = responses[name]
+            if name == "no file":
+                if status != 400:
+                    fail(f"{label}: a post with no file answered {status}, not 400")
+                schema.ErrorResponse.validate(json.loads(body))
+                continue
+            if status != 200:
+                fail(f"{label}: {name} answered {status}: {body[:300]!r}")
+            if name.startswith("stream"):
+                events = [b[len("data: "):] for b in body.decode().split("\n\n") if b.startswith("data: ")]
+                if events[-1] != "[DONE]" or json.loads(events[-2])["type"] != "transcript.text.done":
+                    fail(f"{label}: {name} does not end with transcript.text.done and [DONE]: {events[-2:]}")
+                for e in events[:-2]:
+                    schema.StreamDeltaEvent.validate(json.loads(e))
+                texts[name] = schema.StreamDoneEvent.validate(json.loads(events[-2])).text
+            elif name.startswith("words"):
+                payload = schema.VerboseTranscriptionResponse.validate(json.loads(body))
+                if not payload.segments:
+                    fail(f"{label}: {name} has no segments")
+                n_words = len(payload.words or [])
+                texts[name] = payload.text
+            else:
+                texts[name] = schema.TranscriptionResponse.validate(json.loads(body)).text
+        for got in (responses["health"], after):
+            if got[0] != 200:
+                fail(f"{label}: /health answered {got[0]}")
+            schema.HealthResponse.validate(json.loads(got[2]))
+        check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs",
+                                       "self_attend"), (), ("self_attend_q8",), pipe.dims.n_text_layer)
+
+        # the references: each request's WAV alone, through the same pipeline
+        refs, ref_texts = {False: {}, True: {}}, {}
+        for seconds, word_ts in sorted({(s, bool(f) and f == words) for _, s, f in requests if s}):
+            options = DecodingOptions(language="en", word_timestamps=word_ts, chunking_strategy="vad")
+            result, windows = reference_windows(torch, pipe, rec, load_audio(paths[seconds]), options)
+            refs[word_ts].update(windows)
+            ref_texts[(seconds, word_ts)] = result.text
+
+    same, diverged = 0, []
+    for batch_windows, (word_ts, decodes) in served:
+        for w, wd in zip(batch_windows, decodes):
+            if not w.any():
+                continue  # a silent pad row
+            key = window_key(w)
+            if key not in refs[word_ts]:
+                fail(f"{label}: a served window ({len(w)} samples) has no reference window")
+            seek, ref_tokens, gaps = refs[word_ts][key]
+            div = first_divergence(wd.tokens, ref_tokens, gaps)
+            if div is None:
+                same += 1
+                continue
+            diverged.append(f"window at {seek / 100:.2f} s{' (words)' if word_ts else ''} from step {div[0]} "
+                            f"(gap {div[1]:.4f})")
+            if div[1] > BF16_GAP_TOL:
+                fail(f"{label}: a window at {seek / 100:.2f} s diverges at step {div[0]}, where the reference's "
+                     f"top-2 gap is {div[1]:.4f} > {BF16_GAP_TOL}")
+    text_same = {name: texts[name] == ref_texts[(s, f == words)] for name, s, f in requests if s}
+    if not diverged and not all(text_same.values()):
+        fail(f"{label}: every window matched, but texts differ: {text_same}")
+    latencies = {name: round(responses[name][3], 3) for name in list(texts) + ["no file", "health"]}
+    say(f"{label}: {len(requests) + 1} requests in {wall:.3f} s ({n_words} words in the verbose_json) | latency s "
+        f"{json.dumps(latencies)} | scheduler "
+        f"{json.dumps(stats)} | {same} served windows equal to their reference alone"
+        + (f"; diverging within the rule: {', '.join(diverged)}" if diverged else "")
+        + f" | texts equal {sum(text_same.values())} of {len(text_same)} | launches {json.dumps(counts)} | {card}")
+    return {"counts": counts, "wall": wall, "latencies": latencies, "stats": stats, "same": same,
+            "diverged": len(diverged), "words": n_words, "paths": paths}
+
+
+def phase_cli(torch, card: str, bf16_pipe, folder: Path, wav: Path, out_dir: Path, device: str = "cuda") -> dict:
+    """Phase 15: `python -m whisperkit_tpu_torch.cli transcribe` on phase
+    13's folder and the 60 s WAV (VAD, reports json and srt, the fallback
+    ladder off by its flag so the decode is greedy) in a child process,
+    which must exit 0. Its JSON report's segments are held, window by
+    window, against an in-process WhisperPipeline with the CLI's own
+    ComputeOptions (no quantization, bf16 cross-KV) and options, its
+    first-token floor included, on phase 4's tree (the tree the folder
+    holds) under the top-2-gap rule."""
+    import re
+
+    from whisperkit_tpu_torch.audio.io import load_audio
+    from whisperkit_tpu_torch.cli import main as cli
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.text.tokenizer import load_tokenizer
+
+    label = "phase 15 CLI"
+    argv = ["transcribe", "--model-folder", str(folder), "--audio-path", str(wav), "--chunking-strategy", "vad",
+            "--no-download", "--temperature-fallback-count", "0", "--report", "--report-format", "json", "srt",
+            "--report-path", str(out_dir), "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", *argv], capture_output=True, text=True,
+                          cwd=REPO, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    rtf = re.search(r"\(RTF ([0-9.]+)\)", proc.stderr)
+    report = json.loads((out_dir / f"{wav.stem}.json").read_text())
+    if not (out_dir / f"{wav.stem}.srt").read_text().startswith("1\n") or not report["segments"]:
+        fail(f"{label}: empty reports")
+
+    ref_pipe = WhisperPipeline(WhisperConfig(compute_options=ComputeOptions(), load=False), dims=bf16_pipe.dims,
+                               params=bf16_pipe.params, tokenizer=load_tokenizer(folder, bf16_pipe.dims.n_vocab),
+                               device=device)
+    options = cli._decode_options(cli.build_parser().parse_args(argv), ref_pipe.tokenizer)
+    with WindowRecorder(ref_pipe) as rec:
+        result, windows = reference_windows(torch, ref_pipe, rec, load_audio(wav), options)
+    by_seek = {seek: (tokens, gaps) for seek, tokens, gaps in windows.values()}
+
+    def per_window(segments):
+        out: dict = {}
+        for s in segments:
+            out.setdefault(s["seek"] if isinstance(s, dict) else s.seek, []).extend(
+                s["tokens"] if isinstance(s, dict) else s.tokens)
+        return out
+
+    ours, ref = per_window(report["segments"]), per_window(result.segments)
+    same, diverged = 0, []
+    for seek in sorted(set(ours) | set(ref)):
+        if ours.get(seek) == ref.get(seek):
+            same += 1
+            continue
+        if seek not in by_seek:
+            fail(f"{label}: the report has a window at {seek / 100:.2f} s that the reference does not decode")
+        tokens, gaps = by_seek[seek]
+        step, gap = first_divergence(ours.get(seek, []), tokens, gaps) or (len(ours.get(seek, [])), 0.0)
+        diverged.append(f"window at {seek / 100:.2f} s from step {step} (gap {gap:.4f})")
+        if gap > BF16_GAP_TOL:
+            fail(f"{label}: the window at {seek / 100:.2f} s diverges at step {step}, where the reference's top-2 "
+                 f"gap is {gap:.4f} > {BF16_GAP_TOL}")
+    say(f"{label}: `python -m whisperkit_tpu_torch.cli transcribe` on the 60 s WAV, exit 0 in {wall:.3f} s "
+        f"(process start, device probe, checkpoint load, build reuse and transcribe), CLI's RTF "
+        f"{rtf.group(1) if rtf else 'not printed'} | {len(report['segments'])} segments; {same} of "
+        f"{len(set(ours) | set(ref))} windows equal to the in-process pipeline's"
+        + (f"; diverging within the rule: {', '.join(diverged)}" if diverged else "") + f" | {card}")
+    return {"wall": wall, "rtf": float(rtf.group(1)) if rtf else None, "same": same, "diverged": len(diverged)}
+
+
 # (kernel, source, TPU kernel it replaces, the path whose launch count it reports)
 KERNEL_TABLE = (
     ("log_mel", "whisperkit_tpu_torch/csrc/mel.cu", "whisperkit_tpu/ops/mel.py:227", "int8"),
@@ -1396,13 +1815,25 @@ def main() -> None:
         "segmented": phase_segmented(torch, card, bf16["pipe"], bf16["audio"]),
         "speculative": phase_speculative(torch, card, bf16["pipe"], bf16["audio"]),
     }
+    # phases 13-15 share one temporary folder: the checkpoint, the WAVs and
+    # the CLI's reports; it is deleted when they end
+    with tempfile.TemporaryDirectory(prefix="whisperkit-smoke-") as tmp:
+        root = Path(tmp)
+        for sub in ("model", "audio", "reports"):
+            (root / sub).mkdir()
+        phases["checkpoint"] = phase_checkpoint(torch, card, bf16["pipe"], root / "model")
+        phases["server"] = phase_server(torch, card, phases["checkpoint"].pop("pipe"), bf16["audio"], root / "audio")
+        wav = phases["server"].pop("paths")[60]
+        phases["cli"] = phase_cli(torch, card, bf16["pipe"], root / "model", wav, root / "reports")
     say(json.dumps({"phases": {k: {x: y for x, y in v.items() if x != "counts"} for k, v in phases.items()}}))
 
-    counts = {"bf16": bf16["counts"], "int8": int8["counts"], "words": words["counts"]}
+    counts = {"bf16": bf16["counts"], "int8": int8["counts"], "words": words["counts"],
+              "server": phases["server"]["counts"]}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[path][key], "path": path, **kernel_results[key],
+            "launches": counts[path][key], "path": path,
+            "launches_by_path": {p: c[key] for p, c in counts.items()}, **kernel_results[key],
         }
         for key, source, replaces, path in KERNEL_TABLE
     ]

@@ -62,7 +62,85 @@ def test_port_modules_load_without_the_jax_package():
         "import whisperkit_tpu_torch.tools.decode_attn_check, whisperkit_tpu_torch.tools.launch_cost\n"
         "import whisperkit_tpu_torch.decoding.beam, whisperkit_tpu_torch.decoding.speculative\n"
         "import whisperkit_tpu_torch.core.concurrency, whisperkit_tpu_torch.text.word_timestamps\n"
+        "import whisperkit_tpu_torch.cli.main, whisperkit_tpu_torch.server.openai_api\n"
+        "import whisperkit_tpu_torch.pipelines.scheduler, whisperkit_tpu_torch.models.loader\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisperkit_tpu', 'bench'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+# packages the card's machine lacks: the port imports none of them, but for
+# the registry's download step, which imports huggingface_hub when it runs
+ABSENT_ON_THE_CARD = ("aiohttp", "safetensors", "transformers", "tokenizers", "pydantic", "orbax",
+                      "huggingface_hub")
+LAZY_IMPORTS = {("whisperkit_tpu_torch/core/registry.py", "_download_snapshot", "huggingface_hub")}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_no_package_the_card_lacks(path):
+    """No import of those packages anywhere in the port or chip_smoke.py,
+    at module level or in a function, but the registry's lazy download."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    parents = {child: node for node in ast.walk(tree) for child in ast.iter_child_nodes(node)}
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            if name.split(".")[0] not in ABSENT_ON_THE_CARD:
+                continue
+            scope = node
+            while scope in parents and not isinstance(scope, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                scope = parents[scope]
+            func = getattr(scope, "name", None)
+            if (str(path.relative_to(REPO)), func, name.split(".")[0]) not in LAZY_IMPORTS:
+                bad.append(f"{name} (line {node.lineno}, {'in ' + func if func else 'module level'})")
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_entry_points_import_with_those_packages_blocked():
+    """With every package of ABSENT_ON_THE_CARD made unimportable, the
+    port's entry points and the modules they reach still import."""
+    code = (
+        "import sys\n"
+        f"BLOCKED = {ABSENT_ON_THE_CARD!r}\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in BLOCKED]:\n"
+        "    del sys.modules[m]\n"
+        "import whisperkit_tpu_torch.cli, whisperkit_tpu_torch.cli.main, whisperkit_tpu_torch.server.openai_api\n"
+        "import whisperkit_tpu_torch.server.schema, whisperkit_tpu_torch.server.client\n"
+        "import whisperkit_tpu_torch.pipelines.scheduler, whisperkit_tpu_torch.models.loader\n"
+        "import whisperkit_tpu_torch.core.registry, whisperkit_tpu_torch.core.model_support\n"
+        "import whisperkit_tpu_torch.core.device_probe, whisperkit_tpu_torch.tools.checkpoint\n"
+        "import whisperkit_tpu_torch.text.writers, whisperkit_tpu_torch.text.transcription_utils\n"
+        "from whisperkit_tpu_torch.cli.main import build_parser\n"
+        "build_parser().parse_args(['transcribe', '--audio-path', 'a.wav'])\n"
+        "from whisperkit_tpu_torch.core import registry\n"
+        "from whisperkit_tpu_torch.core.errors import ModelsUnavailable\n"
+        "try:\n"
+        "    registry._download_snapshot('openai/whisper-tiny', __import__('pathlib').Path('unused'))\n"
+        "except ModelsUnavailable as e:\n"
+        "    assert 'huggingface_hub unavailable' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('the download step ran without huggingface_hub')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED + ('jax', 'whisperkit_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -305,3 +383,22 @@ def test_early_stop_flag_copy_matches():
     for flag in (concurrency.EarlyStopFlag(), jconcurrency.EarlyStopFlag()):
         flag.stop()
         assert flag.should_stop
+
+
+def test_writer_and_transcription_utils_copies_match():
+    """text/writers.py and text/transcription_utils.py are copies: the same
+    functions and classes, the same source but for the imports."""
+    import inspect
+
+    from whisperkit_tpu.text import transcription_utils as jtu
+    from whisperkit_tpu.text import writers as jwriters
+    from whisperkit_tpu_torch.text import transcription_utils as tu
+    from whisperkit_tpu_torch.text import writers as twriters
+
+    for ours, ref in ((twriters, jwriters), (tu, jtu)):
+        names = sorted(n for n, v in vars(ref).items() if (inspect.isfunction(v) or inspect.isclass(v))
+                       and v.__module__ == ref.__name__)
+        assert names == sorted(n for n, v in vars(ours).items() if (inspect.isfunction(v) or inspect.isclass(v))
+                               and v.__module__ == ours.__name__)
+        _same_source(ours, ref, names)
+    assert sorted(twriters.WRITERS) == sorted(jwriters.WRITERS)

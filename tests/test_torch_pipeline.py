@@ -235,9 +235,12 @@ def test_options_outside_the_slice_raise(jparams, kwargs, decode):
 
 
 def test_early_stop_flag_and_checkpoint_loading_raise():
-    """An early-stop flag is taken now (tests/test_torch_segmented.py holds
-    it against JAX); loading a checkpoint still raises."""
+    """An early-stop flag is taken (tests/test_torch_segmented.py holds it
+    against JAX); loading a checkpoint is ported, so a folder that does not
+    exist raises ModelsUnavailable, as the JAX pipeline does, and no longer
+    NotImplementedError."""
     from whisperkit_tpu_torch.core.concurrency import EarlyStopFlag
+    from whisperkit_tpu_torch.core.errors import ModelsUnavailable
 
     tparams = model.init_params(0, DIMS, torch.float32, "cpu")
     pipe = WhisperPipeline(WhisperConfig(load=False), dims=DIMS, params=tparams, device="cpu")
@@ -246,8 +249,100 @@ def test_early_stop_flag_and_checkpoint_loading_raise():
     pipe.early_stop_flag = flag
     assert pipe.early_stop_flag is flag
     pipe.early_stop_flag = None
-    with pytest.raises(NotImplementedError):
-        WhisperPipeline(WhisperConfig(model="tiny"), device="cpu")
+    with pytest.raises(ModelsUnavailable, match="does not exist"):
+        WhisperPipeline(WhisperConfig(model_folder=str(REPO / "no-such-model")), device="cpu")
+    with pytest.raises(Exception, match="does not exist") as ref:
+        JaxPipeline(jconf.WhisperConfig(model_folder=str(REPO / "no-such-model")))
+    assert type(ref.value).__name__ == "ModelsUnavailable"
+
+
+def test_tiny_checkpoint_loads_and_transcribes_as_jax(jparams, tmp_path):
+    """The JAX tree written as an HF folder loads in both pipelines (as
+    float32, via load_whisper) to the same tensors, heads and tokens; the
+    pipeline's own load_models (bf16) takes the same folder, with its BPE
+    tokenizer, and prewarms."""
+    from whisperkit_tpu.models import loader as jloader
+    from whisperkit_tpu_torch.models import loader
+    from whisperkit_tpu_torch.tools.checkpoint import write_hf_checkpoint, write_synthetic_tokenizer
+
+    tparams = model.params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu", torch.float32)
+    write_hf_checkpoint(tmp_path, DIMS, tparams, alignment_heads=[[1, 0], [0, 3]])
+    write_synthetic_tokenizer(tmp_path, DIMS.n_vocab)
+    dims, params, heads = loader.load_whisper(tmp_path, dtype=torch.float32, device="cpu")
+    jdims, jp, jheads = jloader.load_whisper(tmp_path, dtype=jnp.float32)
+    assert dims == DIMS and heads.tolist() == jheads.tolist() == [[1, 0], [0, 3]]
+    ours = jax.tree.leaves(model.params_to_numpy(params))
+    ref = jax.tree.leaves(jax.tree.map(np.asarray, jp))
+    assert len(ours) == len(ref) and all(np.array_equal(a, b) for a, b in zip(ours, ref))
+    jax_pipe = JaxPipeline(jconf.WhisperConfig(compute_options=jconf.ComputeOptions(dp_size=1), load=False),
+                           dims=JDIMS, params=jp)
+    torch_pipe = WhisperPipeline(WhisperConfig(load=False), dims=dims, params=params, device="cpu")
+    audio = _audio(4.0, 11)
+    options, joptions = _options(**GREEDY)
+    _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, joptions))
+
+    loaded = WhisperPipeline(WhisperConfig(model_folder=str(tmp_path), prewarm=True), device="cpu")
+    assert type(loaded.tokenizer).__name__ == "WhisperTokenizer"
+    assert loaded.params["decoder"]["token_embed"].dtype == torch.bfloat16
+    assert loaded.alignment_heads.tolist() == [[1, 0], [0, 3]]
+    assert loaded.timings.encoder_specialization_time > 0 and str(loaded.model_state) == "loaded"
+    assert loaded.transcribe(audio, options).segments is not None
+
+
+@pytest.mark.parametrize("flag", [False, True], ids=["flag_off", "int16_forced"])
+def test_int16_audio_transfer_matches_jax(jparams, flag):
+    """ComputeOptions.int16_audio_transfer: off-grid audio (synth_speechlike,
+    which lies on the int16 grid, scaled by 0.9) rounds to the grid before
+    the mel in both pipelines, on the VAD path and the long seek path, and
+    the tokens are JAX's; without the flag both upload float32."""
+    jax_pipe, torch_pipe = _pipes(jparams, int16_audio_transfer=flag)
+
+    def off_grid(seconds):
+        audio = _speechlike(seconds) * np.float32(0.9)
+        assert not np.array_equal(np.rint(audio * 32768.0), audio * 32768.0)
+        return audio
+
+    for seconds, chunking in ((65.0, "vad"), (40.0, None)):
+        audio = off_grid(seconds)
+        options, joptions = _options(chunking_strategy=chunking, concurrent_worker_count=4, **GREEDY)
+        _assert_same_result(torch_pipe.transcribe(audio, options), jax_pipe.transcribe(audio, joptions))
+    # one window: the port rounds here too (JAX's `_mel` uploads float32),
+    # so its tokens are JAX's on the audio rounded beforehand
+    audio = off_grid(8.0)
+    rounded = (np.clip(np.rint(audio * 32768.0), -32768, 32767) / 32768.0).astype(np.float32)
+    options, joptions = _options(**GREEDY)
+    _assert_same_result(torch_pipe.transcribe(audio, options),
+                        jax_pipe.transcribe(rounded if flag else audio, joptions))
+
+
+def test_int16_audio_upload(jparams):
+    """Audio on the int16 grid uploads as int16 with the flag on or off and
+    gives bit-equal mels and tokens; off-grid audio with the flag rounds
+    (np.rint), clips to [-32768, 32767] and maps NaN to 0, never leaving an
+    uninitialised value; without the flag it uploads as float32."""
+    _, plain = _pipes(jparams)
+    _, forced = _pipes(jparams, int16_audio_transfer=True)
+    on_grid = (np.round(_speechlike(65.0) * 32768.0).clip(-32768, 32767) / 32768.0).astype(np.float32)
+    for pipe in (plain, forced):
+        up = pipe._upload_audio(on_grid[None])
+        assert torch.equal(up, torch.from_numpy(on_grid[None]))
+    options, _ = _options(chunking_strategy="vad", concurrent_worker_count=4, **GREEDY)
+    a, b = plain.transcribe(on_grid, options), forced.transcribe(on_grid, options)
+    assert [s.tokens for s in a.segments] == [s.tokens for s in b.segments] and a.segments
+    torch.testing.assert_close(plain._mel_batch([on_grid[:480_000]]), forced._mel_batch([on_grid[:480_000]]),
+                               rtol=0, atol=0)
+
+    odd = np.array([0.1, -0.25, 1.5, -1.5, np.nan, 3e-5, -np.inf, np.inf, 1 / 65536], np.float32)
+    up = forced._upload_audio(odd.copy())
+    expect = np.clip(np.nan_to_num(np.rint(odd * 32768.0), nan=0.0), -32768, 32767) / 32768.0
+    np.testing.assert_array_equal(up.numpy(), expect.astype(np.float32))
+    assert torch.isfinite(up).all() and up[4] == 0
+    assert torch.equal(plain._upload_audio(odd[:4].copy()), torch.from_numpy(odd[:4]))
+    # NaN audio runs through the whole pipeline without an error
+    nan_audio = _speechlike(5.0)
+    nan_audio[1000:2000] = np.nan
+    res = forced.transcribe(nan_audio, DecodingOptions(chunking_strategy="vad", **GREEDY))
+    assert all(np.isfinite(s.avg_logprob) for s in res.segments)
 
 
 def test_cuda_pipeline_without_a_card_raises(monkeypatch):

@@ -1,0 +1,3 @@
+from whisperkit_tpu_torch.cli.main import main
+
+raise SystemExit(main())

@@ -1,0 +1,322 @@
+"""The port's command line: transcribe / serve (port of
+whisperkit_tpu/cli/main.py).
+
+    python -m whisperkit_tpu_torch.cli transcribe --model-folder FOLDER --audio-path a.wav
+    python -m whisperkit_tpu_torch.cli serve --model-folder FOLDER --port 50060
+
+Reference: Sources/ArgmaxCLI/ArgmaxCLI.swift:9-26 (subcommand root),
+TranscribeCLI.swift / ServeCLI.swift. The parser is the JAX package's, flag
+for flag (the reference's argument structs, snake-case → --kebab-case,
+TranscribeCLIArguments.swift:6-111), plus `--device {cuda,cpu}` (default
+cuda), which takes the place of JAX_PLATFORMS. With `--device cuda` a
+child process first checks that the card initialises
+(core/device_probe.py); a failure exits 1 and never falls back to the CPU.
+
+Subcommands and flags of features the port does not have yet still parse,
+then exit 2 with a message that names the ROADMAP item that brings them:
+`diarize` and `--diarization` (A.7), `tts` (A.8), `--stream` and
+`--stream-simulated` (A.6), `--profile-dir` (A.12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+from whisperkit_tpu_torch.core.errors import DeviceUnavailable
+
+# what each feature outside the port waits for (ROADMAP.md §A)
+NOT_PORTED = {
+    "diarize": "speaker diarization is not in the port yet (ROADMAP.md A.7)",
+    "--diarization": "speaker diarization is not in the port yet (ROADMAP.md A.7)",
+    "tts": "text-to-speech is not in the port yet (ROADMAP.md A.8)",
+    "--stream": "live and simulated streaming are not in the port yet (ROADMAP.md A.6)",
+    "--profile-dir": "device traces of a run (core/signposts.py) are not in the port yet (ROADMAP.md A.12)",
+}
+
+
+def _add_model_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model", default=None, help="model name (tiny ... large-v3)")
+    p.add_argument("--model-repo", default=None, help="HF repo to resolve the model from")
+    p.add_argument("--model-folder", default=None, help="local checkpoint folder")
+    p.add_argument("--tokenizer-folder", default=None)
+    p.add_argument("--download", action="store_true", default=True)
+    p.add_argument("--no-download", dest="download", action="store_false")
+    p.add_argument("--prewarm", action="store_true")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument(
+        "--draft-model-folder", default=None,
+        help="local checkpoint of a vocab-sharing draft model (e.g. turbo "
+        "for large-v3): batch-1 greedy decodes run lossless speculative "
+        "decoding (decoding/speculative.py)",
+    )
+    p.add_argument(
+        "--quantization", choices=["w8a16", "w8a8", "w4a16"], default=None,
+        help="quantize linear weights at load (the reference ships these "
+        "as separate compressed model folders, fastlane/Fastfile:26-55; "
+        "here any checkpoint quantizes on the fly — w4a16 is the analog "
+        "of the 4-bit palettized variants; w8a8 = w8a16 weights plus "
+        "int8-activation ENCODER matmuls, transcribe/serve only)",
+    )
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="where the model runs: the CUDA card (default) or, when asked "
+        "for, the host CPU; there is no silent fallback from one to the other",
+    )
+    p.add_argument(
+        "--device-probe-timeout", type=float, default=90.0,
+        help="with --device cuda, fail fast if the card does not initialize "
+        "and run one op within this many seconds (0 disables the probe; "
+        "core/device_probe.py)",
+    )
+
+
+def _add_decoding_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--task", choices=["transcribe", "translate"], default="transcribe")
+    p.add_argument("--language", default=None)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--temperature-increment-on-fallback", type=float, default=0.2)
+    p.add_argument("--temperature-fallback-count", type=int, default=5)
+    p.add_argument("--best-of", dest="top_k", type=int, default=5)
+    p.add_argument("--beam-size", type=int, default=1)
+    p.add_argument("--sample-length", type=int, default=224)
+    p.add_argument("--skip-special-tokens", action="store_true")
+    p.add_argument("--without-timestamps", action="store_true")
+    p.add_argument("--word-timestamps", action="store_true")
+    p.add_argument("--detect-language", action="store_true")
+    p.add_argument("--max-initial-timestamp", type=float, default=1.0)
+    p.add_argument("--clip-timestamps", type=float, nargs="*", default=[])
+    p.add_argument("--prompt", default=None, help="text prompt to condition on")
+    p.add_argument("--prefix", default=None, help="text prefix to force-decode")
+    p.add_argument("--suppress-blank", action="store_true")
+    p.add_argument("--compression-ratio-threshold", type=float, default=2.4)
+    p.add_argument("--logprob-threshold", type=float, default=-1.0)
+    p.add_argument("--no-speech-threshold", type=float, default=0.6)
+    p.add_argument("--chunking-strategy", choices=["none", "vad"], default="none")
+    p.add_argument("--concurrent-worker-count", type=int, default=16)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="whisperkit-tpu-torch", description="speech toolkit (PyTorch/CUDA port)"
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("transcribe", help="speech-to-text")
+    _add_model_args(t)
+    _add_decoding_args(t)
+    t.add_argument("--audio-path", nargs="+", required=False, default=[])
+    t.add_argument("--audio-folder", default=None)
+    t.add_argument("--stream", action="store_true",
+                   help="live microphone transcription (needs PortAudio)")
+    t.add_argument("--stream-simulated", action="store_true",
+                   help="replay the file as a live stream with eager word confirmation")
+    t.add_argument("--report", action="store_true", help="write report files")
+    t.add_argument("--report-path", default=".", help="report output dir")
+    t.add_argument(
+        "--profile-dir", default=None,
+        help="write a device trace for the whole run to this directory "
+        "(not in the port yet: exits 2)",
+    )
+    t.add_argument("--report-format", nargs="*", default=["json"],
+                   choices=["json", "srt", "vtt", "txt"])
+    t.add_argument("--diarization", action="store_true",
+                   help="run speaker diarization and merge speaker labels")
+
+    d = sub.add_parser("diarize", help="speaker diarization")
+    _add_model_args(d)
+    d.add_argument("--audio-path", required=True)
+    d.add_argument("--num-speakers", type=int, default=None)
+    d.add_argument("--cluster-distance-threshold", type=float, default=None)
+    d.add_argument("--rttm-path", default=None, help="write RTTM to this path")
+
+    s = sub.add_parser("tts", help="text-to-speech")
+    _add_model_args(s)
+    s.add_argument("--text", required=True)
+    s.add_argument("--voice", default=None)
+    s.add_argument("--tts-language", default="english")
+    s.add_argument("--instruction", default=None)
+    s.add_argument("--output-path", default="speech.wav")
+    s.add_argument("--temperature", type=float, default=0.9)
+    s.add_argument("--top-k", type=int, default=50)
+    s.add_argument("--repetition-penalty", type=float, default=1.05)
+    s.add_argument("--max-new-tokens", type=int, default=245)
+    s.add_argument("--seed", type=int, default=0)
+
+    v = sub.add_parser("serve", help="OpenAI-compatible local server")
+    _add_model_args(v)
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=50060)
+
+    return parser
+
+
+def _decode_options(args, tokenizer=None):
+    from whisperkit_tpu_torch.core.configurations import DecodingOptions
+
+    prompt_tokens = None
+    prefix_tokens = None
+    if tokenizer is not None:
+        if args.prompt:
+            prompt_tokens = tokenizer.encode(" " + args.prompt.strip())
+        if args.prefix:
+            prefix_tokens = tokenizer.encode(" " + args.prefix.strip())
+    return DecodingOptions(
+        task=args.task,
+        language=args.language,
+        temperature=args.temperature,
+        temperature_increment_on_fallback=args.temperature_increment_on_fallback,
+        temperature_fallback_count=args.temperature_fallback_count,
+        top_k=args.top_k,
+        beam_size=args.beam_size,
+        sample_length=args.sample_length,
+        skip_special_tokens=args.skip_special_tokens,
+        without_timestamps=args.without_timestamps,
+        word_timestamps=args.word_timestamps or args.stream_simulated,
+        detect_language=args.detect_language,
+        max_initial_timestamp=args.max_initial_timestamp,
+        clip_timestamps=args.clip_timestamps,
+        prompt_tokens=prompt_tokens,
+        prefix_tokens=prefix_tokens,
+        suppress_blank=args.suppress_blank,
+        compression_ratio_threshold=args.compression_ratio_threshold,
+        logprob_threshold=args.logprob_threshold,
+        no_speech_threshold=args.no_speech_threshold,
+        chunking_strategy=args.chunking_strategy,
+        concurrent_worker_count=args.concurrent_worker_count,
+    )
+
+
+def _not_ported(feature: str) -> int:
+    print(f"{feature}: {NOT_PORTED[feature]}", file=sys.stderr)
+    return 2
+
+
+def _probe_device_or_raise(args) -> None:
+    """With --device cuda, check in a child process that the card
+    initialises and runs one op (core/device_probe.py); raises
+    DeviceUnavailable. Skipped for --device cpu and a timeout of 0."""
+    timeout = getattr(args, "device_probe_timeout", 0)
+    if getattr(args, "device", "cuda") != "cuda" or not timeout or timeout <= 0:
+        return
+    from whisperkit_tpu_torch.core.device_probe import probe_backend
+
+    probe_backend(timeout)
+
+
+def _build_pipeline(args):
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+    _probe_device_or_raise(args)
+    device = getattr(args, "device", "cuda")
+    config = WhisperConfig(
+        model=args.model,
+        model_repo=args.model_repo,
+        model_folder=args.model_folder,
+        tokenizer_folder=args.tokenizer_folder,
+        download=args.download,
+        prewarm=args.prewarm,
+        verbose=args.verbose,
+        compute_options=ComputeOptions(quantization=getattr(args, "quantization", None)),
+    )
+    draft_dims = draft_params = None
+    if getattr(args, "draft_model_folder", None):
+        from whisperkit_tpu_torch.models.loader import load_whisper
+
+        draft_dims, draft_params, _ = load_whisper(args.draft_model_folder, device=device)
+    return WhisperPipeline(config, draft_dims=draft_dims, draft_params=draft_params, device=device)
+
+
+def cmd_transcribe(args) -> int:
+    if args.stream or args.stream_simulated:
+        return _not_ported("--stream")
+    if args.diarization:
+        return _not_ported("--diarization")
+    if args.profile_dir:
+        return _not_ported("--profile-dir")
+    paths = [Path(p) for p in args.audio_path]
+    if args.audio_folder:
+        folder = Path(args.audio_folder)
+        paths.extend(
+            sorted(
+                p for p in folder.iterdir()
+                if p.suffix.lower() in {".wav", ".flac", ".mp3", ".m4a", ".ogg"}
+            )
+        )
+    if not paths:
+        print("no audio inputs (use --audio-path / --audio-folder)", file=sys.stderr)
+        return 2
+
+    pipe = _build_pipeline(args)
+    options = _decode_options(args, pipe.tokenizer)
+    return _transcribe_paths(pipe, paths, options, args)
+
+
+def _transcribe_paths(pipe, paths, options, args) -> int:
+    from whisperkit_tpu_torch.text.transcription_utils import format_segments
+    from whisperkit_tpu_torch.text.writers import make_writer
+
+    rc = 0
+    for path in paths:
+        t0 = time.perf_counter()
+        try:
+            result = pipe.transcribe(path, options)
+        except Exception as e:  # one bad file must not abort the batch
+            print(f"{path}: ERROR {e}", file=sys.stderr)
+            rc = 1
+            continue
+        for line in format_segments(result.segments):
+            print(line)
+        dt = time.perf_counter() - t0
+        print(
+            f"-- {path.name}: {result.timings.input_audio_seconds:.1f}s audio in "
+            f"{dt:.2f}s (RTF {result.timings.real_time_factor:.3f})",
+            file=sys.stderr,
+        )
+        if args.verbose:
+            # full stage-timing report (reference: logTimings,
+            # Models.swift:478-539)
+            result.timings.log()
+        if args.report:
+            for fmt in args.report_format:
+                out = make_writer(fmt, args.report_path).write(result, path.stem)
+                print(f"   wrote {out}", file=sys.stderr)
+    return rc
+
+
+def cmd_diarize(args) -> int:
+    return _not_ported("diarize")
+
+
+def cmd_tts(args) -> int:
+    return _not_ported("tts")
+
+
+def cmd_serve(args) -> int:
+    from whisperkit_tpu_torch.server.openai_api import serve
+
+    pipe = _build_pipeline(args)
+    serve(pipe, host=args.host, port=args.port)
+    return 0
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    handlers = {
+        "transcribe": cmd_transcribe,
+        "diarize": cmd_diarize,
+        "tts": cmd_tts,
+        "serve": cmd_serve,
+    }
+    try:
+        return handlers[args.command](args)
+    except DeviceUnavailable as e:
+        print(f"device probe failed: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

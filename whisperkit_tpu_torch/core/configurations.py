@@ -4,10 +4,10 @@ defaults).
 
 Field set mirrors the reference's `WhisperKitConfig` / `DecodingOptions`
 (reference: Sources/WhisperKit/Core/Configurations.swift:7-247), snake_cased.
-Fields of options the port does not run yet (beam search, word timestamps,
-segmented decode, more than one device) are kept so that a configuration
-written for the JAX package reads the same here; the pipeline raises
-NotImplementedError where one of them is set.
+The port runs every option here but more than one device: the mesh
+fields (`dp_size`, `tp_size`, `dcn_size`) are kept so that a configuration
+written for the JAX package reads the same, and the pipeline raises
+NotImplementedError when they ask for more than one device.
 """
 
 from __future__ import annotations

@@ -14,3 +14,7 @@ class ModelsUnavailable(WhisperKitError):
 
 class LoadAudioFailed(WhisperKitError):
     pass
+
+
+class DeviceUnavailable(WhisperKitError):
+    """The CUDA device could not be initialised (core/device_probe.py)."""

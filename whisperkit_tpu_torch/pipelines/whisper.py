@@ -15,12 +15,17 @@ decode with batch compaction (`ComputeOptions.segmented_decode`),
 mid-window cancellation (`early_stop_flag`), batch-1 speculative decoding
 with a draft model (`draft_dims`/`draft_params`), bf16/f32 weights and
 `ComputeOptions`' int8 side: the int8 cross-KV serving mode
-(`ComputeOptions.serving()`), the int8 self-KV cache (`quantize_self_kv`)
-and W8A16/W4A16/W8A8 weights. Params come in already quantized
-(`ops/quant.quantize_whisper_params`, as the JAX pipeline takes them when
-it does not load a checkpoint); `quantization` selects only the W8A8
-encoder's int8 activations here. Checkpoint loading and more than one
-device raise NotImplementedError and name the later work that brings them.
+(`ComputeOptions.serving()`), the int8 self-KV cache (`quantize_self_kv`),
+W8A16/W4A16/W8A8 weights and the int16 audio upload
+(`int16_audio_transfer`).
+
+Weights come from a checkpoint folder (`load_models`: the registry
+resolves `WhisperConfig.model_folder`/`model`, models/loader.load_whisper
+reads and quantizes it, text/tokenizer.load_tokenizer reads its BPE), or
+in memory as `dims`/`params` (already quantized by
+`ops/quant.quantize_whisper_params` where a scheme is wanted). More than
+one device raises NotImplementedError and names the later work that
+brings it.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from whisperkit_tpu_torch.core.configurations import (
 )
 from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
 from whisperkit_tpu_torch.core.errors import ModelsUnavailable
+from whisperkit_tpu_torch.core.logging import logging
 from whisperkit_tpu_torch.core.modelstate import ModelState
 from whisperkit_tpu_torch.core.results import (
     DecodingFallback,
@@ -72,7 +78,7 @@ from whisperkit_tpu_torch.text.segment_seeker import (
     WINDOW_FRAMES,
     find_seek_point_and_segments,
 )
-from whisperkit_tpu_torch.text.tokenizer import FakeTokenizer
+from whisperkit_tpu_torch.text.tokenizer import FakeTokenizer, load_tokenizer
 from whisperkit_tpu_torch.text.utils import compression_ratio_text
 from whisperkit_tpu_torch.text.word_timestamps import add_word_timestamps
 
@@ -150,7 +156,62 @@ class WhisperPipeline:
                 self.tokenizer = FakeTokenizer(dims.n_vocab)
             self.model_state = ModelState.LOADED
         elif self.config.load:
-            raise _not_in_slice("loading a checkpoint (models/loader.load_whisper)")
+            self.load_models()
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def load_models(self) -> None:
+        """Resolve + load checkpoint and tokenizer onto the pipeline's device.
+
+        Reference: WhisperKit.swift:358-442 `loadModels`.
+        """
+        from whisperkit_tpu_torch.core.registry import resolve_model_folder
+        from whisperkit_tpu_torch.models.loader import load_whisper
+
+        t0 = time.perf_counter()
+        self.model_state = ModelState.LOADING
+        model = self.config.model
+        if model is None and self.config.model_folder is None:
+            # pick the platform's recommended variant (reference:
+            # recommendedRemoteModels, WhisperKit.swift:162-217)
+            from whisperkit_tpu_torch.core.model_support import current_device_identifier, recommended_model
+
+            model = recommended_model(current_device_identifier(self.device))
+            logging.info(f"no model specified; using recommended '{model}'")
+        folder = resolve_model_folder(
+            model=model,
+            model_repo=self.config.model_repo,
+            model_folder=self.config.model_folder,
+            download=self.config.download,
+        )
+        # "w8a8" loads the "w8a16" tree; its A8 half is the encoder's
+        # int8-activation dispatch (_act8)
+        self.dims, self.params, heads = load_whisper(
+            folder, quantization=self.config.compute_options.quantization, device=self.device
+        )
+        if self.alignment_heads is None:
+            self.alignment_heads = heads
+        try:
+            self.tokenizer = load_tokenizer(folder, self.dims.n_vocab, self.config.tokenizer_folder)
+        except FileNotFoundError:
+            logging.error("tokenizer files missing; using FakeTokenizer")
+            self.tokenizer = FakeTokenizer(self.dims.n_vocab)
+        self._suppress_cache.clear()
+        self.timings.model_loading = time.perf_counter() - t0
+        self.model_state = ModelState.LOADED
+        if self.config.prewarm:
+            self.prewarm()
+
+    def prewarm(self) -> None:
+        """Run mel + encoder + a 4-token decode on one silent window, so the
+        kernels are built and loaded before the first request (reference:
+        prewarm specialization, WhisperKit.swift:392-427)."""
+        self.model_state = ModelState.PREWARMING
+        t0 = time.perf_counter()
+        silent = np.zeros(WINDOW_SAMPLES, np.float32)
+        self._transcribe_array(silent, DecodingOptions(sample_length=4))
+        self.timings.encoder_specialization_time = time.perf_counter() - t0
+        self.model_state = ModelState.LOADED
 
     def unload_models(self) -> None:
         self.params = None
@@ -226,8 +287,10 @@ class WhisperPipeline:
             torch.cuda.synchronize(self.device)
 
     def _mel(self, window: np.ndarray) -> torch.Tensor:
-        """[n_mels, 3000] for one ≤30 s window."""
-        audio = torch.from_numpy(np.ascontiguousarray(window, np.float32)).to(self.device)
+        """[n_mels, 3000] for one ≤30 s window. It uploads through
+        `_upload_audio` like every other path here; the JAX pipeline's
+        `_mel` uploads float32 even with `int16_audio_transfer` set."""
+        audio = self._upload_audio(np.ascontiguousarray(window, np.float32))
         return log_mel_spectrogram(audio, n_mels=self.dims.n_mels)
 
     def _mel_batch(self, windows: list) -> torch.Tensor:
@@ -238,9 +301,36 @@ class WhisperPipeline:
             stacked = np.stack(
                 [pad_or_trim(np.asarray(w, np.float32)) for w in windows[start : start + MEL_BATCH]]
             )
-            audio = torch.from_numpy(stacked).to(self.device)
-            parts.append(log_mel_spectrogram(audio, n_mels=self.dims.n_mels))
+            parts.append(log_mel_spectrogram(self._upload_audio(stacked), n_mels=self.dims.n_mels))
         return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+
+    def _upload_audio(self, padded: np.ndarray) -> torch.Tensor:
+        """Upload float32 audio, as int16 when that is lossless: PCM-derived
+        audio (16-bit WAV, int16 arrays) lies on the i/32768 grid, so the
+        int16 codes rebuilt on the device as float32 (i / 2^15, exact) are
+        bit-identical at half the bytes. `ComputeOptions.
+        int16_audio_transfer` forces the int16 form for off-grid audio too:
+        each sample rounds to the nearest code (np.rint), clipped to
+        [-32768, 32767], ≤ 2^-16 error; NaN becomes 0. The JAX pipeline's
+        `_upload_audio`, on its NumPy path."""
+        flat = padded.ravel()
+        # cheap prefix reject: float-valued audio falls off the grid in the
+        # first few samples; don't pay a full pass to find that out
+        head = flat[:65536] * np.float32(32768.0)
+        i_head = np.rint(head)
+        forced = self.config.compute_options.int16_audio_transfer
+        lossless = bool((i_head >= -32768.0).all() and (i_head <= 32767.0).all() and (head == i_head).all())
+        if not (lossless or forced):
+            return torch.from_numpy(padded).to(self.device)
+        scaled = flat * np.float32(32768.0)
+        if lossless and len(scaled) > len(head):
+            i_all = np.rint(scaled)
+            lossless = bool((i_all >= -32768.0).all() and (i_all <= 32767.0).all() and (scaled == i_all).all())
+        if not (lossless or forced):
+            return torch.from_numpy(padded).to(self.device)
+        codes = np.clip(np.nan_to_num(np.rint(scaled), nan=0.0), -32768, 32767).astype(np.int16)
+        i16 = torch.from_numpy(codes.reshape(padded.shape)).to(self.device)
+        return i16.to(torch.float32) / 32768.0
 
     def _encode(self, mel_batch: torch.Tensor, options: DecodingOptions):
         """encode_window with the serving-mode int8 cross-KV fused in (not
@@ -754,8 +844,7 @@ class WhisperPipeline:
             padded[: len(audio)] = audio
             t_mel = time.perf_counter()
             full_mel = log_mel_spectrogram(
-                torch.from_numpy(padded).to(self.device), n_mels=self.dims.n_mels,
-                n_frames=total_frames,
+                self._upload_audio(padded), n_mels=self.dims.n_mels, n_frames=total_frames,
             )
             self.timings.log_mels += time.perf_counter() - t_mel
             self.timings.total_log_mel_runs += 1
