@@ -65,8 +65,29 @@ Phases, one line each; any failure exits non-zero:
  15. the CLI: `python -m whisperkit_tpu_torch.cli transcribe` on the folder
      and the 60 s WAV in a child process, exit 0, its JSON report against
      an in-process pipeline with the CLI's options under the same rule
+ 16. diarization with the published speaker models at their published
+     shapes (PyanNet, WeSpeaker ResNet34), random weights written under the
+     published names (tools/checkpoint.write_pyannote_checkpoint) and
+     loaded by DiarizePipeline.from_pretrained in each variant (w32a32,
+     w16a16, w8a16): the first 60 s against the same pipeline on this
+     machine's CPU (segmenter log-probs, fbank, L2-normalised embeddings,
+     RTTM; limits at LOGPROB_LIMIT, each of which the same models run in
+     TF32 must fail), then the 600 s audio timed: stage seconds, chunks,
+     embeddings, speakers, RTTM lines, peak memory. Phases 16-18 run under
+     torch's default TF32 flags, as a user's process does
+ 17. DiarizePipeline() (the random-init conv models) on the 600 s audio,
+     its embedder's mel through K1 at n_mels = 80 (the launch counts' path
+     `diarize_conv`); then `transcribe --diarization` in a child process on
+     phase 15's folder and WAV, its speaker labels against the in-process
+     diarization merged by merge_with_transcript
+ 18. streaming: AudioStreamTranscriber (eager, no VAD) over simulate_stream
+     of 12 s in 1 s slices on the CLI's pipeline and options, each pass
+     equal to pipe.transcribe of its buffer, K1, K2 and K4 launched (the
+     counts' path `streaming`); `--stream-simulated` in a child process
+     prints the same final text; `--stream` exits 2 (no capture backend)
 
-Phase 3 also holds K3's probs form against its plain version (B=4 and
+Phase 3 also holds K1 at n_mels = 80 over 39 windows (the conv embedder's
+launch in phase 17) and K3's probs form against its plain version (B=4 and
 B=32, one and three query rows, peaked and near-flat rows): the
 probabilities within 1e-6, the output bit for bit the plain launch's; it
 times the form by events here and by device time in the timing process.
@@ -83,6 +104,7 @@ with one entry per kernel; the last line is the JSON result
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -98,6 +120,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 AUDIO_SECONDS = 600.0
 GROUP = 32
+# the conv diarization's 30 s chunks at a 15 s stride over AUDIO_SECONDS,
+# the trailing chunk that the one before covers dropped (phases 3 and 17)
+DIARIZE_CONV_CHUNKS = 39
 # the argument that runs phase 3's timing process (`traced_times`)
 TIMES_ARG = "--traced-times"
 # phase 9's alignment heads: ten (layer, head) pairs of large-v3, one in
@@ -257,6 +282,21 @@ def phase_kernels(torch, card: str) -> dict:
     ops = {"tf32": 3 * frames * 2 * 2 * mel.N_FFT * n_freq, "f32": frames * (3 * n_freq + 2 * nnz)}
     record(results, card, "log_mel", err, tol, ms, plain, bound(audio[0].numel() * 4 + frames * 128 * 4, ops),
            extra=f" | B=32 n_mels=128{extra}")
+    del audio, padded
+    # K1 at the conv embedder's shape (phase 17): n_mels 80, the 600 s run's
+    # 39 chunks of 30 s in one launch
+    audio = [torch.randn((DIARIZE_CONV_CHUNKS, 480_000), generator=g, device=dev) * 0.1 for _ in range(2)]
+    err, tol, extra = check_log_mel(torch, audio[0], dev, card, n_mels=80)
+    padded = [mel._padded_rows(a, mel.N_FRAMES) for a in audio]
+    ms = cuda_ms(torch, lambda i: mel.log_mel_frames(audio[i % 2], 80), 20)
+    plain = cuda_ms(torch, lambda i: mel.log_mel_frames_reference(padded[i % 2], 80, mel.N_FRAMES), 20)
+    frames = DIARIZE_CONV_CHUNKS * mel.N_FRAMES
+    spans = mel.mel_spans(mel.mel_filters(80).T)
+    nnz = int((spans[:, 1] - spans[:, 0]).sum())
+    ops = {"tf32": 3 * frames * 2 * 2 * mel.N_FFT * n_freq, "f32": frames * (3 * n_freq + 2 * nnz)}
+    record(results, card, "log_mel_80", err, tol, ms, plain, bound(audio[0].numel() * 4 + frames * 80 * 4, ops),
+           extra=f" | B={DIARIZE_CONV_CHUNKS} n_mels=80{extra}")
+    results["log_mel"]["n_mels_80"] = results.pop("log_mel_80")
     del audio, padded
 
     results["mha_encoder"] = check_mha_encoder(torch, g, dev, card)
@@ -507,9 +547,9 @@ def say_self_times(key: str, times: dict, card: str) -> None:
 K1_ERR_FACTOR = 16
 
 
-def check_log_mel(torch, randn_audio, dev, card):
+def check_log_mel(torch, randn_audio, dev, card, n_mels: int = 128):
     """K1 against its plain version computed in float64, on the timing's
-    random audio (B=32) and on 32 windows of tools.workload's speech-like
+    random audio (B windows) and on B windows of tools.workload's speech-like
     audio (bursts and pauses: quiet frames put mel bins near the 1e-10
     floor, where float32 itself errs by ~1e-3 in log10): the raw log10 mel
     and the model's input (clamped, normalised) each within K1_ERR_FACTOR
@@ -520,18 +560,19 @@ def check_log_mel(torch, randn_audio, dev, card):
     from whisperkit_tpu_torch.ops import mel
     from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
 
-    speech = synth_speechlike_audio(GROUP * mel.WINDOW_SAMPLES / mel.SAMPLE_RATE)
+    b = randn_audio.shape[0]
+    speech = synth_speechlike_audio(b * mel.WINDOW_SAMPLES / mel.SAMPLE_RATE)
     inputs = {"random": randn_audio,
-              "speech-like": torch.from_numpy(speech.reshape(GROUP, mel.WINDOW_SAMPLES)).to(dev)}
+              "speech-like": torch.from_numpy(speech.reshape(b, mel.WINDOW_SAMPLES)).to(dev)}
     notes, result = [], None
     for name, audio in inputs.items():
         padded = mel._padded_rows(audio, mel.N_FRAMES)
-        exact = mel.log_mel_frames_reference(padded, 128, mel.N_FRAMES, torch.float64)
+        exact = mel.log_mel_frames_reference(padded, n_mels, mel.N_FRAMES, torch.float64)
         exact_n = mel.normalize_log_mel(exact)
         forms = {
-            "kernel": mel.log_mel_frames(audio, 128),
-            "float32": mel.log_mel_frames_reference(padded, 128, mel.N_FRAMES),
-            "tf32": mel.log_mel_frames_3xtf32(padded, 128, mel.N_FRAMES, products=1),
+            "kernel": mel.log_mel_frames(audio, n_mels),
+            "float32": mel.log_mel_frames_reference(padded, n_mels, mel.N_FRAMES),
+            "tf32": mel.log_mel_frames_3xtf32(padded, n_mels, mel.N_FRAMES, products=1),
         }
         errs = {k: (max_abs(torch, x, exact), max_abs(torch, mel.normalize_log_mel(x), exact_n))
                 for k, x in forms.items()}
@@ -546,8 +587,8 @@ def check_log_mel(torch, randn_audio, dev, card):
         if not any(t > lim for t, lim in zip(errs["tf32"], limit)):
             fail(f"log_mel {name}: plain TF32 {errs['tf32']} stays within the limit {limit}")
         result = (errs["kernel"][0], limit[0])
-    say(f"phase 3 log_mel check (limit: {K1_ERR_FACTOR}x the float32 plain version's error): {'; '.join(notes)}"
-        f" | {card}")
+    say(f"phase 3 log_mel check at B={b} n_mels={n_mels} (limit: {K1_ERR_FACTOR}x the float32 plain version's "
+        f"error): {'; '.join(notes)} | {card}")
     return (*result, " | checked against float64 on random and speech-like audio")
 
 
@@ -1739,15 +1780,30 @@ def phase_cli(torch, card: str, bf16_pipe, folder: Path, wav: Path, out_dir: Pat
     with WindowRecorder(ref_pipe) as rec:
         result, windows = reference_windows(torch, ref_pipe, rec, load_audio(wav), options)
     by_seek = {seek: (tokens, gaps) for seek, tokens, gaps in windows.values()}
+    same, diverged = hold_report(label, report["segments"], result, by_seek)
+    say(f"{label}: `python -m whisperkit_tpu_torch.cli transcribe` on the 60 s WAV, exit 0 in {wall:.3f} s "
+        f"(process start, device probe, checkpoint load, build reuse and transcribe), CLI's RTF "
+        f"{rtf.group(1) if rtf else 'not printed'} | {len(report['segments'])} segments; {same} of "
+        f"{same + len(diverged)} windows equal to the in-process pipeline's"
+        + (f"; diverging within the rule: {', '.join(diverged)}" if diverged else "") + f" | {card}")
+    return {"wall": wall, "rtf": float(rtf.group(1)) if rtf else None, "same": same, "diverged": len(diverged),
+            "argv": argv, "reference": (result, by_seek)}
 
-    def per_window(segments):
-        out: dict = {}
-        for s in segments:
-            out.setdefault(s["seek"] if isinstance(s, dict) else s.seek, []).extend(
-                s["tokens"] if isinstance(s, dict) else s.tokens)
-        return out
 
-    ours, ref = per_window(report["segments"]), per_window(result.segments)
+def per_window(segments) -> dict:
+    """{seek: the window's tokens} of report (dict) or result segments."""
+    out: dict = {}
+    for s in segments:
+        out.setdefault(s["seek"] if isinstance(s, dict) else s.seek, []).extend(
+            s["tokens"] if isinstance(s, dict) else s.tokens)
+    return out
+
+
+def hold_report(label, report_segments, result, by_seek) -> tuple[int, list]:
+    """A CLI report's windows against the in-process reference `result`
+    (`by_seek`: its tokens and top-2 gaps per window) under the top-2-gap
+    rule: (windows equal, notes on the windows that diverge within it)."""
+    ours, ref = per_window(report_segments), per_window(result.segments)
     same, diverged = 0, []
     for seek in sorted(set(ours) | set(ref)):
         if ours.get(seek) == ref.get(seek):
@@ -1761,12 +1817,453 @@ def phase_cli(torch, card: str, bf16_pipe, folder: Path, wav: Path, out_dir: Pat
         if gap > BF16_GAP_TOL:
             fail(f"{label}: the window at {seek / 100:.2f} s diverges at step {step}, where the reference's top-2 "
                  f"gap is {gap:.4f} > {BF16_GAP_TOL}")
-    say(f"{label}: `python -m whisperkit_tpu_torch.cli transcribe` on the 60 s WAV, exit 0 in {wall:.3f} s "
-        f"(process start, device probe, checkpoint load, build reuse and transcribe), CLI's RTF "
-        f"{rtf.group(1) if rtf else 'not printed'} | {len(report['segments'])} segments; {same} of "
-        f"{len(set(ours) | set(ref))} windows equal to the in-process pipeline's"
-        + (f"; diverging within the rule: {', '.join(diverged)}" if diverged else "") + f" | {card}")
-    return {"wall": wall, "rtf": float(rtf.group(1)) if rtf else None, "same": same, "diverged": len(diverged)}
+    return same, diverged
+
+
+# phase 16: the card against the port on this machine's CPU, on the first
+# DIARIZE_CHECK_SECONDS of the audio, under torch's default TF32 flags (the
+# models set their own precision, core.device.ieee_float32). Every variant
+# computes in float32 (w16a16 and w8a16 round or quantize the weights only,
+# as in the JAX package), so one set of limits holds all three: the
+# segmenter's log-probabilities (cuDNN's LSTM and convolutions against the
+# CPU's, other summation orders) within LOGPROB_LIMIT; the fbank (float32
+# DFT products of int16-range samples; the port and JAX on one CPU differ by
+# ~3e-4 in quiet bins) within FBANK_LIMIT; the L2-normalised embeddings,
+# max-abs, within EMBED_LIMIT, end to end and with the card's embedder fed
+# the CPU's fbank and masks. A frame whose speakers differ must have a CPU
+# top-2 log-prob gap within 2 × LOGPROB_LIMIT (an argmax the errors may
+# turn). Each limit must also fail the same model run with TF32 on (the
+# control, `tf32_on`): a check that passes TF32 cannot hold float32. On an
+# H100 (torch 2.11, cuDNN's defaults) the float32 readings were log-probs
+# 3.6e-7, fbank 1.8e-4, embeddings 1.1e-7-1.3e-7, and their TF32 controls
+# 8.6e-5-1.7e-4, 0.11 and 5.0e-5-7.6e-5: each limit sits about midway (in
+# the logarithm) between the two.
+DIARIZE_CHECK_SECONDS = 60
+LOGPROB_LIMIT = 5e-6
+FBANK_LIMIT = 2e-3
+EMBED_LIMIT = 2e-6
+PYANNET_PUBLISHED = {"sinc": (80, 1, 251), "lstm layers": 4, "hidden": 128, "classes": 7}
+RESNET34_PUBLISHED = {"conv1": (32, 1, 3, 3), "blocks": [3, 4, 6, 3], "seg_1": (5120, 256)}
+
+
+def _shape(leaf) -> tuple:
+    return tuple((leaf["w_q"] if isinstance(leaf, dict) else leaf).shape)
+
+
+def published_shapes(pipe) -> dict:
+    """The loaded trees' shapes, in the terms of PYANNET_PUBLISHED and
+    RESNET34_PUBLISHED."""
+    seg, emb = pipe.segmenter_params, pipe.embedder_params
+    return {
+        "pyannet": {"sinc": _shape(seg["sinc"]["w"]), "lstm layers": seg["lstm"].num_layers,
+                    "hidden": seg["lstm"].hidden_size, "classes": _shape(seg["cls"]["w"])[1]},
+        "resnet34": {"conv1": _shape(emb["conv1"]["w"]),
+                     "blocks": [len(emb[f"layer{i}"]) for i in range(1, 5)], "seg_1": _shape(emb["seg_1"]["w"])},
+    }
+
+
+class DiarizeStages:
+    """Within the `with` block, the diarization pipeline's segmenter, fbank
+    and embedder calls (the names pipelines/diarize.py calls) are recorded:
+    their arguments, and their outputs joined over the calls on the CPU."""
+
+    NAMES = ("pyannet_forward", "kaldi_fbank", "wespeaker_embed_masked")
+
+    def __enter__(self):
+        import contextlib
+
+        from whisperkit_tpu_torch.pipelines import diarize
+
+        self.stack = contextlib.ExitStack()
+        self.spies = {n: self.stack.enter_context(Spy(diarize, n)) for n in self.NAMES}
+        self.args = {n: [] for n in self.NAMES}
+        for n, spy in self.spies.items():
+            spy.before = lambda *args, _name=n, **kwargs: self.args[_name].append((args, kwargs))
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+
+    def outputs(self, name: str):
+        import torch
+
+        return torch.cat([out.float().cpu() for out in self.spies[name].calls])
+
+    def masks(self) -> list:
+        return [args[2].cpu() for args, _ in self.args["wespeaker_embed_masked"]]
+
+    def rerun(self, name: str, pipe, fn=None):
+        """`fn` (the recorded function by default) on each recorded call's
+        arguments moved to `pipe`'s device, with `pipe`'s parameters in
+        place of a model's; the outputs joined on the CPU."""
+        import torch
+
+        from whisperkit_tpu_torch.models import pyannet
+        from whisperkit_tpu_torch.ops import fbank
+
+        fn = fn or getattr(fbank if name == "kaldi_fbank" else pyannet, name)
+        params = {"pyannet_forward": (pipe.segmenter_params,), "wespeaker_embed_masked": (pipe.embedder_params,)}
+        lead = params.get(name, ())
+        return torch.cat([fn(*lead, *(a.to(pipe.device) for a in args[len(lead):]), **kwargs).float().cpu()
+                          for args, kwargs in self.args[name]])
+
+
+@contextlib.contextmanager
+def tf32_on(torch):
+    """cuDNN's and cuBLAS's TF32 on within the block: a model function
+    without its float32 guard (its `__wrapped__`) then computes what the
+    card gives in TF32, the control each phase-16 limit must fail."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def unit(e):
+    return e / e.norm(dim=-1, keepdim=True)
+
+
+def hold_diarize_cpu(torch, label, pipe, card_stages, cpu_stages, card_result, cpu_result) -> dict:
+    """The card's stages and RTTM against the CPU's on the same audio (see
+    LOGPROB_LIMIT and the limits beside it), each limit beside its TF32
+    control."""
+    from whisperkit_tpu_torch.models import pyannet
+    from whisperkit_tpu_torch.ops import fbank
+
+    lp, lp_cpu = card_stages.outputs("pyannet_forward"), cpu_stages.outputs("pyannet_forward")
+    lp_err = max_abs(torch, lp, lp_cpu)
+    with tf32_on(torch):
+        lp_tf32 = max_abs(torch, card_stages.rerun("pyannet_forward", pipe, pyannet.pyannet_forward.__wrapped__),
+                          lp_cpu)
+    if not lp_err <= LOGPROB_LIMIT < lp_tf32:
+        fail(f"{label}: segmenter log-probs {lp_err:.3e} from the CPU's, limit {LOGPROB_LIMIT}, TF32 control "
+             f"{lp_tf32:.3e}")
+    fb_cpu = cpu_stages.outputs("kaldi_fbank")
+    fb_err = max_abs(torch, card_stages.outputs("kaldi_fbank"), fb_cpu)
+    with tf32_on(torch):
+        fb_tf32 = max_abs(torch, card_stages.rerun("kaldi_fbank", pipe, fbank.kaldi_fbank.__wrapped__), fb_cpu)
+    if not fb_err <= FBANK_LIMIT < fb_tf32:
+        fail(f"{label}: fbank {fb_err:.3e} from the CPU's, limit {FBANK_LIMIT}, TF32 control {fb_tf32:.3e}")
+    top2 = lp_cpu.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).numpy()
+    flips = (lp.argmax(-1) != lp_cpu.argmax(-1)).numpy()
+    if flips.any() and gap[flips].max() > 2 * LOGPROB_LIMIT:
+        fail(f"{label}: {int(flips.sum())} frames change class where the CPU's top-2 gap reaches "
+             f"{gap[flips].max():.3e} > {2 * LOGPROB_LIMIT}")
+    emb = {}
+    if not flips.any():
+        if not all(torch.equal(a, b) for a, b in zip(card_stages.masks(), cpu_stages.masks())):
+            fail(f"{label}: the embedder's masks differ though every frame's class is the CPU's")
+        name, fn = "wespeaker_embed_masked", pyannet.wespeaker_embed_masked
+        e_cpu = unit(cpu_stages.outputs(name))
+        with tf32_on(torch):
+            controls = (unit(card_stages.rerun(name, pipe, fn.__wrapped__)),
+                        unit(cpu_stages.rerun(name, pipe, fn.__wrapped__)))
+        for key, e, control in (("end to end", unit(card_stages.outputs(name)), controls[0]),
+                                ("the CPU's inputs", unit(cpu_stages.rerun(name, pipe)), controls[1])):
+            emb[key] = (max_abs(torch, e, e_cpu), max_abs(torch, control, e_cpu))
+            if not emb[key][0] <= EMBED_LIMIT < emb[key][1]:
+                fail(f"{label}: L2-normalised embeddings ({key}) {emb[key][0]:.3e} from the CPU's, limit "
+                     f"{EMBED_LIMIT}, TF32 control {emb[key][1]:.3e}")
+    rttm, rttm_cpu = card_result.to_rttm(), cpu_result.to_rttm()
+    if rttm != rttm_cpu and not flips.any():
+        fail(f"{label}: the RTTM differs from the CPU's though every frame's class and embedding agree")
+    return {"logprob_err": lp_err, "logprob_tf32": lp_tf32, "fbank_err": fb_err, "fbank_tf32": fb_tf32,
+            "embedding_err": emb,
+            "class_flips": int(flips.sum()), "max_flip_gap": float(gap[flips].max()) if flips.any() else None,
+            "rttm_equal": rttm == rttm_cpu, "rttm_lines": len(rttm.splitlines())}
+
+
+def phase_diarize_published(torch, card: str, audio, folder: Path, device: str = "cuda") -> dict:
+    """Phase 16: the published speaker models at their published shapes
+    (PyanNet: SincNet 80 × 251 at stride 10, 2 × Conv1d(60, k=5), a 4-layer
+    BiLSTM(128), 2 × Linear(128), 7 classes; WeSpeaker ResNet34: 32 base
+    channels, blocks (3, 4, 6, 3), 80 mels, 256-d embedding), random
+    weights written under the published names (tools/checkpoint.
+    write_pyannote_checkpoint) and loaded by DiarizePipeline.from_pretrained
+    in each variant. Per variant: a warm diarize of the first 60 s, held
+    against the same pipeline on the CPU (hold_diarize_cpu); then the whole
+    600 s, timed, with its stage split (each stage ends in a device sync),
+    chunk and embedding counts, speakers, RTTM lines and peak memory. No
+    hand-written kernel runs on this path (the JAX package computes these
+    models in XLA)."""
+    import numpy as np
+
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.pipelines.diarize import DiarizePipeline
+    from whisperkit_tpu_torch.tools.checkpoint import write_pyannote_checkpoint
+
+    label = "phase 16 diarization"
+    t0 = time.perf_counter()
+    seg_path, emb_path = write_pyannote_checkpoint(folder, SEED, full=True)
+    t_write = time.perf_counter() - t0
+    head = np.ascontiguousarray(audio[: DIARIZE_CHECK_SECONDS * 16_000])
+    out = {"write_s": t_write, "bytes": seg_path.stat().st_size + emb_path.stat().st_size}
+    for variant in DiarizePipeline.VARIANTS:
+        t0 = time.perf_counter()
+        pipe = DiarizePipeline.from_pretrained(folder, variant=variant)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        shapes = published_shapes(pipe)
+        if shapes != {"pyannet": PYANNET_PUBLISHED, "resnet34": RESNET34_PUBLISHED}:
+            fail(f"{label} {variant}: loaded shapes {shapes} are not the published ones")
+        # no device given: the entry point places the models on the card
+        if pipe.device.type != device or (pipe.segmenter_backend, pipe.embedder_backend) != ("pyannet", "resnet"):
+            fail(f"{label} {variant}: {pipe.device} {pipe.segmenter_backend}/{pipe.embedder_backend}")
+        with DiarizeStages() as card_stages:
+            card_head = pipe.diarize(head)
+        cpu_pipe = DiarizePipeline.from_pretrained(folder, variant=variant, device="cpu")
+        t0 = time.perf_counter()
+        with DiarizeStages() as cpu_stages:
+            cpu_head = cpu_pipe.diarize(head)
+        t_cpu = time.perf_counter() - t0
+        check = hold_diarize_cpu(torch, f"{label} {variant}", pipe, card_stages, cpu_stages, card_head, cpu_head)
+        del cpu_pipe, card_stages, cpu_stages
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = pipe.diarize(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.launches.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        t = result.timings
+        if not result.segments or t["embedding_count"] == 0:
+            fail(f"{label} {variant}: no speaker segments on the {AUDIO_SECONDS:.0f} s audio ({t})")
+        rttm = result.to_rttm("talk").splitlines()
+        if not all(line.startswith("SPEAKER talk 1 ") and line.endswith("<NA> <NA>") for line in rttm):
+            fail(f"{label} {variant}: malformed RTTM line {rttm[:2]}")
+        out[variant] = {"wall": wall, "load_s": t_load, "cpu_check_s": t_cpu, "peak": peak, "speakers":
+                        result.num_speakers, "segments": len(result.segments), **{k: t[k] for k in t},
+                        "launches": launches, **check}
+        say(f"{label} {variant}: {AUDIO_SECONDS:.0f} s in {wall:.3f} s (RTF {wall / AUDIO_SECONDS:.6f}) | segmenter "
+            f"{t['segmenter_seconds']:.3f} s, embedder {t['embedder_seconds']:.3f} s, clustering "
+            f"{t['clustering_seconds']:.3f} s, post-process {t['post_process_seconds']:.3f} s | {t['chunk_count']} "
+            f"chunks, {t['embedding_count']} embeddings, {result.num_speakers} speakers, {len(rttm)} RTTM lines "
+            f"| peak {peak / 2**30:.2f} GiB | load {t_load:.3f} s | kernel launches {launches} | {card}")
+        emb = "; ".join(f"{k} {e:.3e} (TF32 control {c:.3e})" for k, (e, c) in check["embedding_err"].items())
+        say(f"  vs the CPU on the first {DIARIZE_CHECK_SECONDS} s ({t_cpu:.1f} s there), TF32 flags "
+            f"{torch.backends.cudnn.allow_tf32}/{torch.backends.cuda.matmul.allow_tf32} (cuDNN/cuBLAS): log-probs "
+            f"{check['logprob_err']:.3e} (limit {LOGPROB_LIMIT}, TF32 control {check['logprob_tf32']:.3e}), fbank "
+            f"{check['fbank_err']:.3e} (limit {FBANK_LIMIT}, TF32 control {check['fbank_tf32']:.3e}), "
+            f"L2-normalised embeddings max-abs (limit {EMBED_LIMIT}): {emb or 'not held (class flips)'}; class "
+            f"flips {check['class_flips']} (largest CPU top-2 gap {check['max_flip_gap']}), RTTM equal "
+            f"{check['rttm_equal']} ({check['rttm_lines']} lines)")
+        del pipe
+    say(f"{label}: published shapes {json.dumps(shapes)}; checkpoint written in {t_write:.3f} s, "
+        f"{out['bytes']} bytes")
+    return out
+
+
+def phase_diarize_conv(torch, card: str, audio, wav: Path, whisper_folder: Path, out_dir: Path,
+                       cli_phase: dict) -> dict:
+    """Phase 17: DiarizePipeline() (the random-init conv models, the
+    default) on the 600 s audio with its stage times; its embedder's mel
+    is K1 at n_mels = 80 (the launch counts, set to 0 just before and read
+    just after). Then `transcribe --diarization` through the CLI in a child
+    process on phase 15's WAV and folder (a Whisper folder holds no pyannote
+    checkpoints, so the CLI diarizes with the same conv models): every
+    segment's text must carry the label that the in-process
+    DiarizePipeline().diarize of the WAV, merged into phase 15's in-process
+    transcript by merge_with_transcript, gives it, and its windows must hold
+    against that transcript under the top-2-gap rule."""
+    import copy
+    import re
+
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.pipelines.diarize import DiarizePipeline
+
+    label = "phase 17 conv diarization"
+    pipe = DiarizePipeline()
+    pipe.diarize(audio[: 60 * 16_000])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    result = pipe.diarize(audio)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    check_launches(label, counts, ("log_mel",), (), ("mha_encoder", "cross_attend_q8", "self_attend",
+                                                       "self_attend_q8"), 1)
+    t = result.timings
+    if t["chunk_count"] != DIARIZE_CONV_CHUNKS:
+        fail(f"{label}: {t['chunk_count']} chunks, not {DIARIZE_CONV_CHUNKS}")
+    say(f"{label}: DiarizePipeline() on {AUDIO_SECONDS:.0f} s in {wall:.3f} s | segmenter "
+        f"{t['segmenter_seconds']:.3f} s, embedder {t['embedder_seconds']:.3f} s (K1 at n_mels 80 over "
+        f"{t['chunk_count']} chunks), clustering {t['clustering_seconds']:.3f} s, post-process "
+        f"{t['post_process_seconds']:.3f} s | {t['embedding_count']} embeddings, {result.num_speakers} speakers, "
+        f"{len(result.segments)} segments | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"| launches {json.dumps(counts)} | {card}")
+
+    argv = [*cli_phase["argv"], "--diarization"]
+    argv[argv.index("--report-path") + 1] = str(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", *argv], capture_output=True, text=True,
+                          cwd=REPO, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: `transcribe --diarization` exit {proc.returncode}: {proc.stderr[-2000:]}")
+    report = json.loads((out_dir / f"{wav.stem}.json").read_text())
+    ref_result, by_seek = cli_phase["reference"]
+    dia = pipe.diarize(wav)
+    merged = DiarizePipeline.merge_with_transcript(dia, copy.deepcopy(ref_result))
+    label_of = re.compile(r"^\[(SPEAKER_\d\d)\]")
+    for seg in report["segments"]:
+        m = label_of.match(seg["text"])
+        spk = dia.speaker_at(seg["start"], seg["end"])
+        want = f"SPEAKER_{spk:02d}" if spk is not None else None
+        if (m.group(1) if m else None) != want:
+            fail(f"{label}: segment {seg['start']:.2f}-{seg['end']:.2f} s is labelled {seg['text'][:14]!r}, "
+                 f"the in-process diarization gives {want}")
+    same, diverged = hold_report(label, report["segments"], merged, by_seek)
+    texts_equal = sum(1 for a, b in zip(report["segments"], merged.segments)
+                      if a["seek"] == b.seek and a["text"] == (f"[{b.speaker}]{b.text}" if b.speaker else b.text))
+    labels = sorted({label_of.match(s["text"]).group(1) for s in report["segments"] if label_of.match(s["text"])})
+    say(f"{label}: `transcribe --diarization` child on the 60 s WAV exit 0 in {cli_wall:.3f} s | "
+        f"{len(report['segments'])} segments labelled {labels}, each as the in-process diarization's "
+        f"merge_with_transcript; {same} windows equal, {texts_equal} segment texts equal to the merged "
+        f"in-process transcript" + (f"; diverging within the rule: {', '.join(diverged)}" if diverged else "")
+        + f" | {card}")
+    return {"wall": wall, "counts": counts, "chunks": t["chunk_count"], "embeddings": t["embedding_count"],
+            "speakers": result.num_speakers, "cli_wall": cli_wall, "labels": labels, "same": same}
+
+
+# phase 18: the stream's length and slice (seconds)
+STREAM_SECONDS = 12
+STREAM_SLICE = 1.0
+
+
+def run_stream(torch, label, pipe, options, clip) -> dict:
+    """One eager stream of `clip` in STREAM_SLICE slices through
+    AudioStreamTranscriber (no VAD): fail unless the confirmed words are
+    only ever extended and each pass's result equals pipe.transcribe of
+    the same buffer with the same options (its clip_timestamps) called
+    directly. The kernels' launch counts are set to 0 just before the
+    stream and read just after it, before those direct calls."""
+    import numpy as np
+
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.pipelines.streaming import AudioStreamTranscriber, simulate_stream
+
+    def key(result):
+        return [(s.seek, s.start, s.end, s.tokens, s.text, [(w.word, w.start, w.end) for w in s.words or []])
+                for s in result.segments]
+
+    passes = []
+    orig = pipe.transcribe
+
+    def recorded(buffer, opts, callback=None):
+        t0 = time.perf_counter()
+        result = orig(buffer, opts, callback=callback)
+        torch.cuda.synchronize()
+        # keyed now: the streamer shifts the segments' times once it has
+        # trimmed its buffer
+        passes.append((np.array(buffer), opts, key(result), time.perf_counter() - t0))
+        return result
+
+    pipe.transcribe = recorded
+    _build.reset_launches()
+    try:
+        st = AudioStreamTranscriber(pipe, options, eager=True, use_vad=False)
+        confirmed: list = []
+        for state in st.stream(simulate_stream(clip, chunk_seconds=STREAM_SLICE)):
+            words = [(w.word, w.start, w.end) for w in state.confirmed_words]
+            if words[: len(confirmed)] != confirmed:
+                fail(f"{label}: confirmed words rewritten: {confirmed} → {words}")
+            confirmed = words
+    finally:
+        del pipe.transcribe
+    counts = dict(_build.launches)
+
+    for i, (buffer, opts, keyed, _) in enumerate(passes):
+        if key(pipe.transcribe(buffer, opts)) != keyed:
+            fail(f"{label}: pass {i} (clip {opts.clip_timestamps}) differs from pipe.transcribe of its buffer")
+    if len(passes) < len(clip) // int(STREAM_SLICE * 16_000) - 1:
+        fail(f"{label}: {len(passes)} passes over {len(clip) / 16_000:.0f} s in {STREAM_SLICE} s slices")
+    n_words = sum(len(seg[5]) for *_, keyed, _ in passes for seg in keyed)
+    return {"passes": len(passes), "walls": [w for *_, w in passes], "confirmed_words": len(confirmed),
+            "pass_words": n_words, "final": st.confirmed_text or st.state.current_text, "counts": counts}
+
+
+def phase_streaming(torch, card: str, audio, folder: Path, audio_dir: Path, cli_phase: dict) -> dict:
+    """Phase 18: AudioStreamTranscriber(pipe, options, eager=True,
+    use_vad=False) over simulate_stream of the first 12 s in 1 s slices
+    (run_stream), on the pipeline `--stream-simulated` builds from phase
+    13's folder (bf16, the CLI's ComputeOptions) with the CLI's options
+    (phase 15's: the first-token floor on, the fallback ladder off by its
+    flag, word timestamps on). The floor ends every random-weight window at
+    its first token, and the folder's byte-pair vocab seldom decodes a
+    random token into a word, so a second stream runs the same weights
+    with the port's FakeTokenizer (each token a word), no timestamp tokens,
+    no floor and a 16-token budget: words for the confirmation to agree
+    on. Then
+    `--stream-simulated` in a child process must print the first stream's
+    final text, and `--stream` in a child process must exit 2 with the
+    no-capture-backend message (no sounddevice on this machine)."""
+    import dataclasses
+
+    import numpy as np
+
+    from whisperkit_tpu_torch.cli import main as cli
+    from whisperkit_tpu_torch.core.configurations import WhisperConfig
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+    label = "phase 18 streaming"
+    clip = np.ascontiguousarray(audio[: STREAM_SECONDS * 16_000])
+    wav = write_wav(audio_dir / "stream12.wav", clip)
+    argv = cli_phase["argv"]  # phase 15's, without its report flags
+    base = argv[: argv.index("--report")] + argv[argv.index("--device"):]
+    base[base.index("--audio-path") + 1] = str(wav)
+    argv = [*base, "--stream-simulated"]
+    args = cli.build_parser().parse_args([*argv, "--device-probe-timeout", "0"])
+    pipe = cli._build_pipeline(args)
+    options = cli._decode_options(args, pipe.tokenizer)
+    words_pipe = WhisperPipeline(WhisperConfig(compute_options=pipe.config.compute_options, load=False),
+                                 dims=pipe.dims, params=pipe.params, alignment_heads=pipe.alignment_heads,
+                                 device=pipe.device)
+    streams = {"cli": run_stream(torch, f"{label} (the CLI's options)", pipe, options, clip)}
+    counts = streams["cli"]["counts"]
+    # ComputeOptions(): bf16 cross-KV, so no K3, and word timestamps take
+    # the plain softmax, not K3's probs form
+    check_launches(f"{label} (the CLI's options)", counts, ("log_mel", "mha_encoder", "self_attend"), ("self_attend",),
+                   ("cross_attend_q8", "cross_attend_q8_probs", "self_attend_q8"), pipe.dims.n_text_layer)
+    streams |= {
+        "words": run_stream(torch, f"{label} (FakeTokenizer, no timestamps, no floor, 16 tokens)", words_pipe,
+                            dataclasses.replace(options, first_token_log_prob_threshold=None, sample_length=16,
+                                                without_timestamps=True), clip),
+    }
+    if streams["words"]["pass_words"] == 0:
+        fail(f"{label}: the stream without the first-token floor decoded no words")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", *argv], capture_output=True, text=True,
+                          cwd=REPO, timeout=600)
+    sim_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label}: `--stream-simulated` exit {proc.returncode}: {proc.stderr[-2000:]}")
+    # the replay's last line is its final text (which may be empty)
+    printed = proc.stdout[:-1].split("\n")[-1] if proc.stdout.endswith("\n") else None
+    if printed != streams["cli"]["final"]:
+        fail(f"{label}: `--stream-simulated` printed {printed!r}, the in-process stream {streams['cli']['final']!r}")
+    live = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", *base, "--stream"], capture_output=True,
+                          text=True, cwd=REPO, timeout=300)
+    if live.returncode != 2 or "no microphone backend (sounddevice) on this host" not in live.stderr:
+        fail(f"{label}: `--stream` exit {live.returncode}, stderr {live.stderr[-500:]!r}")
+    for name, st in streams.items():
+        say(f"{label}, {name}: {st['passes']} passes over {STREAM_SECONDS} s in {STREAM_SLICE:.0f} s slices, each "
+            f"equal to pipe.transcribe of its buffer; pass walls {', '.join(f'{w:.3f}' for w in st['walls'])} s; "
+            f"{st['pass_words']} words in the passes, {st['confirmed_words']} confirmed, only ever extended; final "
+            f"text {st['final'][:60]!r} | {card}")
+    say(f"{label}: the CLI-options stream's launches {json.dumps(counts)}; `--stream-simulated` child exit 0 in "
+        f"{sim_wall:.3f} s, the same final text {printed!r} (empty when the first-token floor ends every random "
+        f"window) | `--stream` child exit 2 (no capture backend) | {card}")
+    return {**{f"{name}_{k}": v for name, st in streams.items() for k, v in st.items() if k not in ("final", "counts")},
+            "sim_wall": sim_wall, "counts": counts}
 
 
 # (kernel, source, TPU kernel it replaces, the path whose launch count it reports)
@@ -1792,6 +2289,10 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA device")
+    # phases 1-15 hold the Whisper path's plain versions in IEEE float32;
+    # phases 16-18 run under torch's default flags, as a user's process
+    # does (the speaker models set their own precision)
+    default_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == [TIMES_ARG]:
@@ -1819,16 +2320,26 @@ def main() -> None:
     # the CLI's reports; it is deleted when they end
     with tempfile.TemporaryDirectory(prefix="whisperkit-smoke-") as tmp:
         root = Path(tmp)
-        for sub in ("model", "audio", "reports"):
+        for sub in ("model", "audio", "reports", "pyannote", "reports-diarization"):
             (root / sub).mkdir()
         phases["checkpoint"] = phase_checkpoint(torch, card, bf16["pipe"], root / "model")
         phases["server"] = phase_server(torch, card, phases["checkpoint"].pop("pipe"), bf16["audio"], root / "audio")
         wav = phases["server"].pop("paths")[60]
         phases["cli"] = phase_cli(torch, card, bf16["pipe"], root / "model", wav, root / "reports")
+        del bf16["pipe"]
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = default_tf32
+        phases["diarize"] = phase_diarize_published(torch, card, bf16["audio"], root / "pyannote")
+        phases["diarize_conv"] = phase_diarize_conv(torch, card, bf16["audio"], wav, root / "model",
+                                                    root / "reports-diarization", phases["cli"])
+        phases["streaming"] = phase_streaming(torch, card, bf16["audio"], root / "model", root / "audio",
+                                              phases["cli"])
+        for key in ("argv", "reference"):
+            phases["cli"].pop(key)
     say(json.dumps({"phases": {k: {x: y for x, y in v.items() if x != "counts"} for k, v in phases.items()}}))
 
     counts = {"bf16": bf16["counts"], "int8": int8["counts"], "words": words["counts"],
-              "server": phases["server"]["counts"]}
+              "server": phases["server"]["counts"], "diarize_conv": phases["diarize_conv"]["counts"],
+              "streaming": phases["streaming"]["counts"]}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,

@@ -16,9 +16,13 @@ import asyncio
 import dataclasses
 import io
 import json
+import select
+import socket
 import subprocess
 import sys
 import threading
+import time
+import types
 import wave
 from pathlib import Path
 
@@ -235,10 +239,14 @@ def test_server_rate_limit_and_bad_bodies(pipes, monkeypatch):
     entered, release = threading.Event(), threading.Event()
     orig = WhisperPipeline.transcribe
 
-    def slow(self, *a, **kw):
+    def slow(self, audio, options, callback=None):
         entered.set()
         assert release.wait(60)
-        return orig(self, *a, **kw)
+        # the request only has to hold its slot: a short greedy decode, not
+        # the server's 224-token budget and fallback ladder, which take
+        # minutes on a host loaded by the parallel test run
+        return orig(self, audio, dataclasses.replace(options, sample_length=8, temperature_fallback_count=0),
+                    callback)
 
     monkeypatch.setattr(WhisperPipeline, "transcribe", slow)
     app = create_app(pipe, batching=False, max_concurrent_requests=1)
@@ -270,6 +278,71 @@ def test_server_rate_limit_and_bad_bodies(pipes, monkeypatch):
         assert client.get(base + "/nowhere", timeout=60)[0] == 404
     finally:
         release.set()
+        app.close()
+
+
+@pytest.mark.parametrize("status", [429, 404])
+def test_server_answer_reaches_a_client_still_sending(status):
+    """A 429 (too many requests in flight) or a 404 is answered without
+    using the body, but the server reads the body before it answers and
+    closes. A client that writes its several-hundred-KB body only after the
+    server could have answered, and waits before it reads, must get the
+    status and its JSON: a socket closed over unread bytes sends a reset,
+    which fails the client's write or drops the answer."""
+    app = create_app(types.SimpleNamespace(model_state="loaded"), batching=False,
+                     max_concurrent_requests=0 if status == 429 else 1)
+    host, port = app.start()
+    path = "/v1/audio/transcriptions" if status == 429 else "/nowhere"
+    ctype, body = client.encode_multipart([("language", "en")], [("file", "a.wav", bytes(600_000))])
+    head = (f"POST {path} HTTP/1.1\r\nHost: {host}\r\nContent-Type: {ctype}\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n").encode()
+    data = b""
+    try:
+        with socket.create_connection((host, port), timeout=60) as s:
+            s.sendall(head)
+            select.select([s], [], [], 1.0)  # a server that does not wait for the body answers here
+            s.sendall(body)
+            time.sleep(0.2)
+            while chunk := s.recv(1 << 16):
+                data += chunk
+    finally:
+        app.close()
+    status_line, _, rest = data.partition(b"\r\n")
+    assert status_line.split(b" ")[1] == str(status).encode()
+    payload = json.loads(rest.partition(b"\r\n\r\n")[2])
+    if status == 429:
+        assert payload == {"error": {"message": "too many concurrent requests", "type": "rate_limit_exceeded"}}
+    else:
+        assert payload == {"error": {"message": "no route POST /nowhere"}}
+
+
+def test_server_frees_the_slot_before_answering(monkeypatch):
+    """With max_concurrent_requests=1, a client that has its answer (a 400)
+    and at once sends its next request gets that request served (a 404),
+    even when the handler thread that answered is held up right after
+    writing: the server frees the request's slot before the answer goes
+    out, not after."""
+    import urllib.request
+
+    from whisperkit_tpu_torch.server.openai_api import OpenAIApp
+
+    send = OpenAIApp._send
+
+    def held_up_after_writing(h, *args):
+        send(h, *args)
+        time.sleep(0.5)
+
+    monkeypatch.setattr(OpenAIApp, "_send", staticmethod(held_up_after_writing))
+    app = create_app(types.SimpleNamespace(model_state="loaded"), batching=False, max_concurrent_requests=1)
+    host, port = app.start()
+    try:
+        req = urllib.request.Request(f"http://{host}:{port}/v1/audio/transcriptions", data=b"{}", method="POST",
+                                     headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(req, timeout=60)
+        assert e.value.code == 400
+        assert client.get(f"http://{host}:{port}/nowhere", timeout=60)[0] == 404
+    finally:
         app.close()
 
 
@@ -439,21 +512,24 @@ def test_cli_build_pipeline_with_draft_and_probe_skipped_on_cpu(folders, monkeyp
 
 
 @pytest.mark.parametrize(
-    "argv, item",
+    "argv, message",
     [
-        (["diarize", "--audio-path", "x.wav"], "A.7"),
-        (["tts", "--text", "hi"], "A.8"),
-        (["transcribe", "--audio-path", "x.wav", "--stream"], "A.6"),
-        (["transcribe", "--audio-path", "x.wav", "--stream-simulated"], "A.6"),
-        (["transcribe", "--audio-path", "x.wav", "--diarization"], "A.7"),
-        (["transcribe", "--audio-path", "x.wav", "--profile-dir", "p"], "A.12"),
+        (["tts", "--text", "hi"], "(ROADMAP.md A.8)"),
+        (["transcribe", "--audio-path", "x.wav", "--stream"], "no microphone backend (sounddevice) on this host"),
+        (["transcribe", "--audio-path", "x.wav", "--profile-dir", "p"], "(ROADMAP.md A.12)"),
     ],
-    ids=["diarize", "tts", "stream", "stream_simulated", "diarization", "profile_dir"],
+    ids=["tts", "stream", "profile_dir"],
 )
-def test_cli_out_of_slice_exits_2(argv, item, capsys, monkeypatch):
+def test_cli_out_of_slice_exits_2(argv, message, capsys, monkeypatch):
+    """What the port does not run exits 2 before any model loads: `tts`
+    and `--profile-dir` name their ROADMAP items; `--stream` without a
+    capture backend gives the JAX CLI's message."""
+    from whisperkit_tpu_torch.audio import capture
+
+    monkeypatch.setattr(capture, "capture_available", lambda: False)
     monkeypatch.setattr(cli, "_build_pipeline", lambda args: (_ for _ in ()).throw(AssertionError("built")))
     assert cli.main(argv) == 2
-    assert f"ROADMAP.md {item})" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
 
 
 def test_cli_module_entry_point():

@@ -64,6 +64,10 @@ def test_port_modules_load_without_the_jax_package():
         "import whisperkit_tpu_torch.core.concurrency, whisperkit_tpu_torch.text.word_timestamps\n"
         "import whisperkit_tpu_torch.cli.main, whisperkit_tpu_torch.server.openai_api\n"
         "import whisperkit_tpu_torch.pipelines.scheduler, whisperkit_tpu_torch.models.loader\n"
+        "import whisperkit_tpu_torch.pipelines.diarize, whisperkit_tpu_torch.pipelines.streaming\n"
+        "import whisperkit_tpu_torch.audio.capture, whisperkit_tpu_torch.speaker.results\n"
+        "import whisperkit_tpu_torch.speaker.clustering, whisperkit_tpu_torch.models.pyannet\n"
+        "import whisperkit_tpu_torch.models.pyannote, whisperkit_tpu_torch.ops.fbank\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisperkit_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -78,10 +82,16 @@ def test_port_modules_load_without_the_jax_package():
 
 
 # packages the card's machine lacks: the port imports none of them, but for
-# the registry's download step, which imports huggingface_hub when it runs
+# the registry's download step, which imports huggingface_hub when it runs,
+# and the microphone source, which imports sounddevice when it is asked for
 ABSENT_ON_THE_CARD = ("aiohttp", "safetensors", "transformers", "tokenizers", "pydantic", "orbax",
-                      "huggingface_hub")
-LAZY_IMPORTS = {("whisperkit_tpu_torch/core/registry.py", "_download_snapshot", "huggingface_hub")}
+                      "huggingface_hub", "sounddevice")
+LAZY_IMPORTS = {
+    ("whisperkit_tpu_torch/core/registry.py", "_download_snapshot", "huggingface_hub"),
+    ("whisperkit_tpu_torch/audio/capture.py", "capture_available", "sounddevice"),
+    ("whisperkit_tpu_torch/audio/capture.py", "list_capture_devices", "sounddevice"),
+    ("whisperkit_tpu_torch/audio/capture.py", "__init__", "sounddevice"),
+}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -130,6 +140,9 @@ def test_entry_points_import_with_those_packages_blocked():
         "import whisperkit_tpu_torch.core.registry, whisperkit_tpu_torch.core.model_support\n"
         "import whisperkit_tpu_torch.core.device_probe, whisperkit_tpu_torch.tools.checkpoint\n"
         "import whisperkit_tpu_torch.text.writers, whisperkit_tpu_torch.text.transcription_utils\n"
+        "import whisperkit_tpu_torch.pipelines.diarize, whisperkit_tpu_torch.pipelines.streaming\n"
+        "from whisperkit_tpu_torch.audio.capture import capture_available\n"
+        "assert not capture_available()\n"
         "from whisperkit_tpu_torch.cli.main import build_parser\n"
         "build_parser().parse_args(['transcribe', '--audio-path', 'a.wav'])\n"
         "from whisperkit_tpu_torch.core import registry\n"
@@ -320,6 +333,7 @@ def test_find_seek_point_and_segments_matches(tokens):
 def test_compression_ratio_matches():
     for text in ("", "hello world", "ab" * 300, " t1 t2 t3 t4"):
         assert utils.compression_ratio_text(text) == jutils.compression_ratio_text(text)
+    _same_source(utils, jutils, ["compression_ratio_text", "compression_ratio_tokens"])
 
 
 def test_native_decoder_matches(tmp_path):
@@ -402,3 +416,26 @@ def test_writer_and_transcription_utils_copies_match():
                                and v.__module__ == ours.__name__)
         _same_source(ours, ref, names)
     assert sorted(twriters.WRITERS) == sorted(jwriters.WRITERS)
+
+
+@pytest.mark.parametrize("name", ["speaker.results", "speaker.clustering", "audio.capture"])
+def test_speaker_and_capture_copies_match(name):
+    """speaker/results.py, speaker/clustering.py and audio/capture.py are
+    copies: the same functions, classes and constants, the same source but
+    for the imports; the VAD's `is_voice_detected` too (streaming's gate)."""
+    import importlib
+    import inspect
+
+    from whisperkit_tpu.audio import vad as jvad
+    from whisperkit_tpu_torch.audio import vad
+
+    ours = importlib.import_module(f"whisperkit_tpu_torch.{name}")
+    ref = importlib.import_module(f"whisperkit_tpu.{name}")
+    names = sorted(n for n, v in vars(ref).items() if (inspect.isfunction(v) or inspect.isclass(v))
+                   and v.__module__ == ref.__name__)
+    assert names == sorted(n for n, v in vars(ours).items() if (inspect.isfunction(v) or inspect.isclass(v))
+                           and v.__module__ == ours.__name__)
+    _same_source(ours, ref, names)
+    consts = [n for n, v in vars(ref).items() if n.isupper() or n.startswith("_SPEAKER")]
+    assert all(getattr(ours, n) == getattr(ref, n) for n in consts)
+    _same_source(vad, jvad, ["is_voice_detected"])

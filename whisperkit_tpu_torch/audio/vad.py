@@ -1,5 +1,6 @@
 """Voice activity detection on a fixed frame grid (the port's copy of
-whisperkit_tpu/audio/vad.py, trimmed to what the VAD chunker uses).
+whisperkit_tpu/audio/vad.py, trimmed to what the VAD chunker and
+streaming use).
 
 Reference: Sources/WhisperKit/Core/Audio/VoiceActivityDetector.swift (base
 frame-grid ops, :37-162) and EnergyVAD.swift (:7-57) — 0.1 s frames with an
@@ -69,3 +70,19 @@ class EnergyVAD(VoiceActivityDetector):
             return np.zeros(0, dtype=bool)
         energies = energy_per_frame(waveform, self.frame_length_samples)
         return energies > self.energy_threshold
+
+
+def is_voice_detected(
+    waveform: np.ndarray,
+    next_buffer_seconds: float = 1.0,
+    silence_threshold: float = 0.02,
+    sample_rate: int = SAMPLE_RATE,
+) -> bool:
+    """Is there voice in the last `next_buffer_seconds` of the buffer?
+
+    Reference: AudioProcessor.swift:636-655 `isVoiceDetected`.
+    """
+    n = int(next_buffer_seconds * sample_rate)
+    tail = waveform[-n:] if n < waveform.shape[0] else waveform
+    vad = EnergyVAD(sample_rate=sample_rate, energy_threshold=silence_threshold)
+    return bool(vad.voice_activity(tail).any())

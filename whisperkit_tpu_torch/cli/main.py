@@ -1,21 +1,24 @@
-"""The port's command line: transcribe / serve (port of
+"""The port's command line: transcribe / diarize / serve (port of
 whisperkit_tpu/cli/main.py).
 
     python -m whisperkit_tpu_torch.cli transcribe --model-folder FOLDER --audio-path a.wav
+    python -m whisperkit_tpu_torch.cli transcribe --model-folder FOLDER --audio-path a.wav --diarization
+    python -m whisperkit_tpu_torch.cli transcribe --model-folder FOLDER --audio-path a.wav --stream-simulated
+    python -m whisperkit_tpu_torch.cli diarize --model-folder PYANNOTE_FOLDER --audio-path a.wav --rttm-path a.rttm
     python -m whisperkit_tpu_torch.cli serve --model-folder FOLDER --port 50060
 
 Reference: Sources/ArgmaxCLI/ArgmaxCLI.swift:9-26 (subcommand root),
-TranscribeCLI.swift / ServeCLI.swift. The parser is the JAX package's, flag
-for flag (the reference's argument structs, snake-case → --kebab-case,
-TranscribeCLIArguments.swift:6-111), plus `--device {cuda,cpu}` (default
-cuda), which takes the place of JAX_PLATFORMS. With `--device cuda` a
-child process first checks that the card initialises
+TranscribeCLI.swift / DiarizeCLI.swift / ServeCLI.swift. The parser is the
+JAX package's, flag for flag (the reference's argument structs, snake-case
+→ --kebab-case, TranscribeCLIArguments.swift:6-111), plus `--device
+{cuda,cpu}` (default cuda), which takes the place of JAX_PLATFORMS. With
+`--device cuda` a child process first checks that the card initialises
 (core/device_probe.py); a failure exits 1 and never falls back to the CPU.
 
-Subcommands and flags of features the port does not have yet still parse,
-then exit 2 with a message that names the ROADMAP item that brings them:
-`diarize` and `--diarization` (A.7), `tts` (A.8), `--stream` and
-`--stream-simulated` (A.6), `--profile-dir` (A.12).
+`--stream` needs a capture backend (audio/capture.py: sounddevice); without
+one it exits 2, as the JAX CLI does. Subcommands and flags of features the
+port does not have yet still parse, then exit 2 with a message that names
+the ROADMAP item that brings them: `tts` (A.8), `--profile-dir` (A.12).
 """
 
 from __future__ import annotations
@@ -29,10 +32,7 @@ from whisperkit_tpu_torch.core.errors import DeviceUnavailable
 
 # what each feature outside the port waits for (ROADMAP.md §A)
 NOT_PORTED = {
-    "diarize": "speaker diarization is not in the port yet (ROADMAP.md A.7)",
-    "--diarization": "speaker diarization is not in the port yet (ROADMAP.md A.7)",
     "tts": "text-to-speech is not in the port yet (ROADMAP.md A.8)",
-    "--stream": "live and simulated streaming are not in the port yet (ROADMAP.md A.6)",
     "--profile-dir": "device traces of a run (core/signposts.py) are not in the port yet (ROADMAP.md A.12)",
 }
 
@@ -231,10 +231,6 @@ def _build_pipeline(args):
 
 
 def cmd_transcribe(args) -> int:
-    if args.stream or args.stream_simulated:
-        return _not_ported("--stream")
-    if args.diarization:
-        return _not_ported("--diarization")
     if args.profile_dir:
         return _not_ported("--profile-dir")
     paths = [Path(p) for p in args.audio_path]
@@ -246,12 +242,23 @@ def cmd_transcribe(args) -> int:
                 if p.suffix.lower() in {".wav", ".flac", ".mp3", ".m4a", ".ogg"}
             )
         )
+    if args.stream:  # live mic needs no file inputs
+        from whisperkit_tpu_torch.audio.capture import capture_available
+
+        # checked before the model loads (the JAX CLI loads it first)
+        if not capture_available():
+            print("no microphone backend (sounddevice) on this host", file=sys.stderr)
+            return 2
+        pipe = _build_pipeline(args)
+        return _stream_live(pipe, _decode_options(args, pipe.tokenizer))
     if not paths:
         print("no audio inputs (use --audio-path / --audio-folder)", file=sys.stderr)
         return 2
 
     pipe = _build_pipeline(args)
     options = _decode_options(args, pipe.tokenizer)
+    if args.stream_simulated:
+        return _stream_simulated(pipe, paths[0], options)
     return _transcribe_paths(pipe, paths, options, args)
 
 
@@ -268,6 +275,8 @@ def _transcribe_paths(pipe, paths, options, args) -> int:
             print(f"{path}: ERROR {e}", file=sys.stderr)
             rc = 1
             continue
+        if args.diarization:
+            result = _run_diarization(path, result, args)
         for line in format_segments(result.segments):
             print(line)
         dt = time.perf_counter() - t0
@@ -287,8 +296,92 @@ def _transcribe_paths(pipe, paths, options, args) -> int:
     return rc
 
 
+def _run_diarization(path: Path, result, args):
+    """Combined transcribe + diarize (reference: TranscribeCLI.runDiarization,
+    TranscribeCLI.swift:430): each segment is labelled with the speaker of
+    its largest overlap. The speaker models come from `--model-folder` when
+    it holds pyannote checkpoints; a Whisper folder holds none, and then the
+    random-init conv models run, as in the JAX CLI."""
+    from whisperkit_tpu_torch.pipelines.diarize import DiarizePipeline, find_pyannote_checkpoints
+    from whisperkit_tpu_torch.speaker.results import SpeakerMergeStrategy
+
+    folder = args.model_folder
+    if folder and find_pyannote_checkpoints(folder):
+        pipe = DiarizePipeline.from_pretrained(folder, device=args.device)
+    else:
+        print(f"no pyannote checkpoints in {folder}: diarizing with the random-init conv models", file=sys.stderr)
+        pipe = DiarizePipeline(device=args.device)
+    merged = pipe.diarize(path).add_speaker_info(result, SpeakerMergeStrategy.SEGMENT)
+    for seg in merged.segments:
+        if seg.speaker:
+            seg.text = f"[{seg.speaker}]{seg.text}"
+    return merged
+
+
+def _stream_live(pipe, options) -> int:
+    """Live mic transcription (reference: TranscribeCLI --stream)."""
+    from whisperkit_tpu_torch.audio.capture import MicrophoneSource
+    from whisperkit_tpu_torch.pipelines.streaming import AudioStreamTranscriber
+
+    source = MicrophoneSource()
+    st = AudioStreamTranscriber(pipe, options)
+    try:
+        for state in st.stream(source):
+            confirmed = "".join(s.text for s in state.confirmed_segments)
+            pending = "".join(s.text for s in state.unconfirmed_segments)
+            print(f"\r{confirmed}\033[90m{pending}\033[0m", end="", flush=True)
+    except KeyboardInterrupt:
+        source.stop()
+    print()
+    return 0
+
+
+def _stream_simulated(pipe, path: Path, options) -> int:
+    """Eager streaming replay of a file in 1 s slices (reference:
+    TranscribeCLI.swift:322-430); the last line is the confirmed text."""
+    from whisperkit_tpu_torch.audio.io import load_audio
+    from whisperkit_tpu_torch.pipelines.streaming import AudioStreamTranscriber, simulate_stream
+
+    audio = load_audio(path)
+    st = AudioStreamTranscriber(pipe, options, eager=True, use_vad=False)
+    for state in st.stream(simulate_stream(audio, chunk_seconds=1.0)):
+        confirmed = "".join(w.word for w in state.confirmed_words)
+        hypothesis = "".join(w.word for w in state.hypothesis_words)
+        print(f"\r{confirmed}\033[90m{hypothesis}\033[0m", end="", flush=True)
+    print()
+    print(st.confirmed_text or st.state.current_text)
+    return 0
+
+
 def cmd_diarize(args) -> int:
-    return _not_ported("diarize")
+    from whisperkit_tpu_torch.pipelines.diarize import DiarizationOptions, DiarizePipeline
+
+    _probe_device_or_raise(args)
+    # --quantization maps onto the pyannote variant matrix (w8a16 is the
+    # quantized speaker recipe; the reference matrix has no 4-bit speaker
+    # models either, PyannoteConfig.swift:11-41)
+    variant = args.quantization or "w32a32"
+    if variant not in DiarizePipeline.VARIANTS:
+        print(
+            f"--quantization {variant} is not available for diarization "
+            f"(choices: {', '.join(DiarizePipeline.VARIANTS)})",
+            file=sys.stderr,
+        )
+        return 2
+    pipe = DiarizePipeline.from_pretrained(model_folder=args.model_folder, variant=variant, device=args.device)
+    result = pipe.diarize(
+        args.audio_path,
+        DiarizationOptions(
+            number_of_speakers=args.num_speakers,
+            cluster_distance_threshold=args.cluster_distance_threshold,
+        ),
+    )
+    for seg in result.segments:
+        print(f"[{seg.start:8.2f} --> {seg.end:8.2f}] SPEAKER_{seg.speaker_id:02d}")
+    if args.rttm_path:
+        Path(args.rttm_path).write_text(result.to_rttm(), encoding="utf-8")
+        print(f"wrote {args.rttm_path}", file=sys.stderr)
+    return 0
 
 
 def cmd_tts(args) -> int:

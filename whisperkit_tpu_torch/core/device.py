@@ -8,6 +8,8 @@ carries on on the CPU when the caller did not ask for it.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Union
 
 import torch
@@ -35,3 +37,34 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device type {dev.type!r}; use 'cpu' or 'cuda'")
     return dev
+
+
+@contextlib.contextmanager
+def ieee_float32():
+    """Within the block (or the decorated function), float32 convolutions,
+    RNNs and matmuls on the card run in IEEE float32, whatever the
+    process's flags: cuDNN's TF32 (`torch.backends.cudnn.allow_tf32`, on
+    by default) and cuBLAS's (`torch.backends.cuda.matmul.allow_tf32`) are
+    turned off and restored after. The speaker models and the fbank run
+    under it, so every entry point computes them at the float32 their
+    variants state. The flags are the process's: a thread running beside
+    the block sees them off too, and blocks that overlap in several threads
+    restore them when the last one ends."""
+    global _ieee_depth, _ieee_saved
+    with _ieee_lock:
+        if _ieee_depth == 0:
+            _ieee_saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        _ieee_depth += 1
+    try:
+        yield
+    finally:
+        with _ieee_lock:
+            _ieee_depth -= 1
+            if _ieee_depth == 0:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = _ieee_saved
+
+
+_ieee_lock = threading.Lock()
+_ieee_depth = 0  # ieee_float32 blocks open in any thread
+_ieee_saved: tuple = ()

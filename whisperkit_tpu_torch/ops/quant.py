@@ -1,5 +1,5 @@
-"""Weight quantization for Whisper (port of the Whisper part of
-whisperkit_tpu/ops/quant.py).
+"""Weight quantization for Whisper and the speaker models (port of the
+Whisper and speaker parts of whisperkit_tpu/ops/quant.py).
 
 Three schemes, with the JAX package's layouts and rounding points:
 
@@ -17,8 +17,10 @@ matmul), so here they are plain torch: the dequantized weight is formed per
 call and multiplied with `torch.matmul`. A fused-dequant GEMV and an int8
 GEMM are speed work for later (ROADMAP.md A.1).
 
-The TTS, speaker and conv quantizers wait for their models, and
-`QUANT_FORMATS` for the checkpoint loader.
+The speaker models' quantizer (`quantize_speaker_params`, with
+`quantize_conv_weight` for their convolutions) serves the W8A16 pyannote
+variant (pipelines/diarize.py); the TTS quantizers wait for their models,
+and `QUANT_FORMATS` for the on-disk caches.
 """
 
 from __future__ import annotations
@@ -194,3 +196,55 @@ def quantized_size_bytes(params: Params) -> int:
 
     visit(params)
     return sum(seen.values())
+
+
+# --- speaker models (PyanNet, WeSpeaker ResNet34) ---------------------------
+
+
+def quantize_conv_weight(w: torch.Tensor) -> dict:
+    """Conv weight [O, ...] → {"w_q" int8, "scale" bf16 [O, 1, …]}
+    (symmetric, per output channel; the scale keeps the trailing singleton
+    axes so the dequant broadcasts in place)."""
+    w32 = w.float()
+    dims = tuple(range(1, w.ndim))
+    scale = torch.clamp_min(w32.abs().amax(dim=dims, keepdim=True) / 127.0, 1e-8)
+    w_q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return {"w_q": w_q, "scale": scale.to(torch.bfloat16)}
+
+
+# speaker-model weight keys: [in, out] matmuls vs [O, I, K…] convs.
+# _SPEAKER_CONV_PARENTS is the allowlist of learned-conv parents (PyanNet's
+# sincnet convs, ResNet34's block and shortcut convs, models/pyannet.py):
+# the materialized "sinc" filterbank is not in it, since its filters are
+# derived analytically, and a subtree of another name stays float.
+_SPEAKER_MATMUL_KEYS = {"wx", "wh"}
+_SPEAKER_CONV_PARENTS = {"conv1", "conv2", "down"}
+
+
+def quantize_speaker_params(params: Params, min_size: int = 1 << 12) -> Params:
+    """W8A16-quantize a PyanNet / WeSpeaker parameter tree: LSTM input and
+    recurrent kernels, linear and classifier weights, and the BN-folded
+    conv kernels, each leaf of at least `min_size` elements. Norm affines,
+    biases and the materialized sinc filterbank stay float. A quantized
+    leaf becomes the dict {"w_q", "scale"}, which models/pyannet.py
+    dequantizes in the activation dtype. Reference: the W8A16 pyannote
+    variants in PyannoteConfig.swift:11-41."""
+
+    def walk(node, key=None, parent=None):
+        if isinstance(node, dict):
+            if "w_q" in node:
+                return node  # already quantized
+            return {k: walk(v, k, key) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, key, parent) for v in node)
+        if not isinstance(node, torch.Tensor) or node.numel() < min_size:
+            return node
+        if key in _SPEAKER_MATMUL_KEYS and node.ndim == 2:
+            return quantize_weight(node)
+        if key == "w" and node.ndim == 2:  # linears, classifier, seg_1
+            return quantize_weight(node)
+        if key == "w" and node.ndim in (3, 4) and parent in _SPEAKER_CONV_PARENTS:
+            return quantize_conv_weight(node)
+        return node
+
+    return walk(params)

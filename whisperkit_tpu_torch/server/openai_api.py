@@ -88,6 +88,25 @@ def _error(message: str, **extra) -> dict:
     return {"error": {"message": message, **extra}}
 
 
+def _drain_body(h: BaseHTTPRequestHandler) -> None:
+    """Read and drop a request body the server answers without using (429,
+    404), as the JAX server's aiohttp does. The handler closes the
+    connection after its answer; a socket closed with unread bytes in it
+    sends a reset, and a client still writing its body then fails on the
+    write (or loses the answer) instead of reading the status. Bodies
+    beyond MAX_BODY_BYTES are not read."""
+    try:
+        n = int(h.headers.get("Content-Length") or 0)
+    except ValueError:
+        return
+    n = min(n, MAX_BODY_BYTES)
+    while n > 0:
+        chunk = h.rfile.read(min(n, 1 << 16))
+        if not chunk:
+            return
+        n -= len(chunk)
+
+
 class _BadRequest(ValueError):
     """The request body is not the multipart form the endpoint takes."""
 
@@ -203,16 +222,31 @@ class OpenAIApp:
                 busy = False
                 self._in_flight += 1
         if busy:
+            _drain_body(h)
             self._send_json(h, 429, _error("too many concurrent requests", type="rate_limit_exceeded"))
             return
+        released = False
+
+        def release_slot() -> None:
+            nonlocal released
+            with self._count_lock:
+                if not released:
+                    released = True
+                    self._in_flight -= 1
+
+        # `_send` frees the slot before the answer goes out, as the JAX
+        # server's middleware does (its count drops when the handler
+        # returns, before aiohttp writes the response): a client that has
+        # its answer and sends the next request must find the slot free
+        h.release_slot = release_slot
         try:
             if route is None:
+                _drain_body(h)
                 self._send_json(h, 404, _error(f"no route {method} {path}"))
             else:
                 route(h)
         finally:
-            with self._count_lock:
-                self._in_flight -= 1
+            release_slot()
 
     def _health(self, h) -> None:
         payload = {"status": "ok", "model_state": str(self.pipeline.model_state)}
@@ -376,6 +410,9 @@ class OpenAIApp:
     @staticmethod
     def _send(h, status: int, body: str, content_type: str) -> None:
         data = body.encode("utf-8")
+        release_slot = getattr(h, "release_slot", None)  # /health and a 429 hold none
+        if release_slot is not None:
+            release_slot()
         h.send_response(status)
         h.send_header("Content-Type", f"{content_type}; charset=utf-8")
         h.send_header("Content-Length", str(len(data)))

@@ -8,6 +8,7 @@ temperature-fallback rules).
 from __future__ import annotations
 
 import zlib
+from typing import Sequence
 
 
 def compression_ratio_text(text: str) -> float:
@@ -16,3 +17,11 @@ def compression_ratio_text(text: str) -> float:
         return 0.0
     return len(data) / len(zlib.compress(data))
 
+
+def compression_ratio_tokens(tokens: Sequence[int]) -> float:
+    if not tokens:
+        return 0.0
+    import numpy as np
+
+    data = np.asarray(tokens, np.int32).tobytes()
+    return len(data) / len(zlib.compress(data))

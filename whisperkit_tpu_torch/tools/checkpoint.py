@@ -11,6 +11,12 @@ no download.
     write_synthetic_tokenizer(folder, n_vocab)
         vocab.json + merges.txt whose ids fill every regular id below EOT:
         the 256 byte symbols in GPT-2's order, then merges of byte pairs
+    write_pyannote_checkpoint(folder, seed, full=True)
+        segmentation-3.0.ckpt (PyanNet, a Lightning-style
+        {"state_dict": {"model.…": …}} through torch.save) and
+        wespeaker-resnet34.bin (a ResNet34 state dict), random weights
+        under the published parameter names, for
+        pipelines/diarize.DiarizePipeline.from_pretrained
 """
 
 from __future__ import annotations
@@ -186,3 +192,110 @@ def write_synthetic_tokenizer(folder: Union[str, Path], n_vocab: int) -> None:
     with open(folder / "merges.txt", "w", encoding="utf-8") as f:
         f.write("#version: 0.2\n")
         f.writelines(f"{a} {b}\n" for a, b in merges)
+
+
+# the published speaker models' shapes (pyannote/segmentation-3.0 PyanNet,
+# wespeaker-voxceleb-resnet34-LM) and the small ones of the tests
+PYANNET_FULL = {"sinc_filters": 80, "conv_channels": 60, "n_lstm": 4, "hidden": 128, "linear": 128, "classes": 7}
+PYANNET_SMALL = {"sinc_filters": 80, "conv_channels": 60, "n_lstm": 2, "hidden": 32, "linear": 32, "classes": 7}
+RESNET_FULL = {"m_channels": 32, "blocks": (3, 4, 6, 3), "n_mels": 80, "embedding": 256}
+RESNET_SMALL = {"m_channels": 8, "blocks": (2, 2, 2, 2), "n_mels": 80, "embedding": 64}
+
+
+def _uniform(g: torch.Generator, shape, fan_in: int) -> torch.Tensor:
+    """torch's default init for a layer of `fan_in` inputs."""
+    bound = fan_in**-0.5
+    return (torch.rand(shape, generator=g) * 2.0 - 1.0) * bound
+
+
+def pyannet_state_dict(g: torch.Generator, dims: dict = PYANNET_FULL) -> dict[str, torch.Tensor]:
+    """A random pyannote/segmentation-3.0 PyanNet state dict (the names
+    models/pyannet.convert_pyannote_segmentation reads). The LSTM, linear
+    and classifier biases are zero: random biases of torch's default
+    scale outweigh the features and give every frame of any audio the
+    same class, while without them the classes follow the audio."""
+    f, c, h, lin = dims["sinc_filters"], dims["conv_channels"], dims["hidden"], dims["linear"]
+    sd = {
+        "sincnet.wav_norm1d.weight": 1.0 + 0.1 * torch.randn(1, generator=g),
+        "sincnet.wav_norm1d.bias": 0.1 * torch.randn(1, generator=g),
+        "sincnet.conv1d.0.filterbank.low_hz_": torch.rand((f, 1), generator=g) * 3000 + 30,
+        "sincnet.conv1d.0.filterbank.band_hz_": torch.rand((f, 1), generator=g) * 400 + 30,
+    }
+    for i, (c_in, k) in enumerate(((f, 5), (c, 5)), start=1):
+        sd[f"sincnet.conv1d.{i}.weight"] = _uniform(g, (c, c_in, k), c_in * k)
+        sd[f"sincnet.conv1d.{i}.bias"] = _uniform(g, (c,), c_in * k)
+    for i, n in enumerate((f, c, c)):
+        sd[f"sincnet.norm1d.{i}.weight"] = 1.0 + 0.1 * torch.randn(n, generator=g)
+        sd[f"sincnet.norm1d.{i}.bias"] = 0.1 * torch.randn(n, generator=g)
+    for layer in range(dims["n_lstm"]):
+        d_in = c if layer == 0 else 2 * h
+        for sfx in ("", "_reverse"):
+            sd[f"lstm.weight_ih_l{layer}{sfx}"] = _uniform(g, (4 * h, d_in), h)
+            sd[f"lstm.weight_hh_l{layer}{sfx}"] = _uniform(g, (4 * h, h), h)
+            sd[f"lstm.bias_ih_l{layer}{sfx}"] = torch.zeros(4 * h)
+            sd[f"lstm.bias_hh_l{layer}{sfx}"] = torch.zeros(4 * h)
+    for i, d_in in enumerate((2 * h, lin)):
+        sd[f"linear.{i}.weight"] = _uniform(g, (lin, d_in), d_in)
+        sd[f"linear.{i}.bias"] = torch.zeros(lin)
+    sd["classifier.weight"] = _uniform(g, (dims["classes"], lin), lin)
+    sd["classifier.bias"] = torch.zeros(dims["classes"])
+    return sd
+
+
+def _batch_norm(g: torch.Generator, prefix: str, n: int) -> dict[str, torch.Tensor]:
+    """A BatchNorm2d's state with random statistics and affine, so that
+    folding it into its conv is exercised (not an identity)."""
+    return {
+        f"{prefix}.weight": torch.randn(n, generator=g),
+        f"{prefix}.bias": torch.randn(n, generator=g),
+        f"{prefix}.running_mean": torch.randn(n, generator=g),
+        f"{prefix}.running_var": torch.rand(n, generator=g) * 2 + 0.5,
+        f"{prefix}.num_batches_tracked": torch.tensor(0),
+    }
+
+
+def wespeaker_state_dict(g: torch.Generator, dims: dict = RESNET_FULL) -> dict[str, torch.Tensor]:
+    """A random WeSpeaker ResNet34 state dict (wespeaker resnet.py names,
+    the ones models/pyannet.convert_wespeaker_resnet34 reads): conv1/bn1,
+    layer{1..4}.{i}.{conv1,bn1,conv2,bn2,downsample.{0,1}}, seg_1."""
+    m = dims["m_channels"]
+    sd = {"conv1.weight": _uniform(g, (m, 1, 3, 3), 9), **_batch_norm(g, "bn1", m)}
+    in_c = m
+    for li, n_blocks in enumerate(dims["blocks"]):
+        c = m * 2**li
+        for i in range(n_blocks):
+            base = f"layer{li + 1}.{i}"
+            c_in = in_c if i == 0 else c
+            sd[f"{base}.conv1.weight"] = _uniform(g, (c, c_in, 3, 3), c_in * 9)
+            sd.update(_batch_norm(g, f"{base}.bn1", c))
+            sd[f"{base}.conv2.weight"] = _uniform(g, (c, c, 3, 3), c * 9)
+            sd.update(_batch_norm(g, f"{base}.bn2", c))
+            if i == 0 and (li > 0 or in_c != c):
+                sd[f"{base}.downsample.0.weight"] = _uniform(g, (c, c_in, 1, 1), c_in)
+                sd.update(_batch_norm(g, f"{base}.downsample.1", c))
+        in_c = c
+    d_stats = 2 * in_c * (dims["n_mels"] // 8)
+    sd["seg_1.weight"] = _uniform(g, (dims["embedding"], d_stats), d_stats)
+    sd["seg_1.bias"] = _uniform(g, (dims["embedding"],), d_stats)
+    return sd
+
+
+def write_pyannote_checkpoint(folder: Union[str, Path], seed: int, *, full: bool = True) -> tuple[Path, Path]:
+    """Write random speaker models under the published parameter names:
+    `segmentation-3.0.ckpt` (PyanNet as a Lightning checkpoint,
+    {"state_dict": {"model.<name>": tensor}}) and `wespeaker-resnet34.bin`
+    (the ResNet34 state dict), both through `torch.save`. `full` gives
+    the published shapes (SincNet 80 × 251 at stride 10, 2 × Conv1d(60,
+    k=5), a 4-layer BiLSTM(128), 2 × Linear(128), 7 classes; ResNet34
+    with 32 base channels, blocks (3, 4, 6, 3), 80 mels, 256-d
+    embedding); otherwise the small ones (PYANNET_SMALL, RESNET_SMALL).
+    Returns the two paths."""
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    seg = pyannet_state_dict(g, PYANNET_FULL if full else PYANNET_SMALL)
+    emb = wespeaker_state_dict(g, RESNET_FULL if full else RESNET_SMALL)
+    seg_path, emb_path = folder / "segmentation-3.0.ckpt", folder / "wespeaker-resnet34.bin"
+    torch.save({"state_dict": {f"model.{k}": v for k, v in seg.items()}}, seg_path)
+    torch.save(emb, emb_path)
+    return seg_path, emb_path
