@@ -85,6 +85,27 @@ Phases, one line each; any failure exits non-zero:
      equal to pipe.transcribe of its buffer, K1, K2 and K4 launched (the
      counts' path `streaming`); `--stream-simulated` in a child process
      prints the same final text; `--stream` exits 2 (no capture backend)
+ 19. text-to-speech, Qwen3-TTS 0.6b at full width (TTS_VARIANTS["0.6b"],
+     random weights from the port's init with SEED): in float32, 8 frames
+     at temperature 0 on the card (the vocoder guards its own IEEE
+     float32, core.device.ieee_float32) against the same pipeline on this
+     machine's CPU (codes under the top-2-gap rule, logits within
+     TTS_LOGIT_LIMIT, the vocoder within TTS_WAVE_LIMIT, each limit
+     failing the same run in TF32), then
+     stream_blocks against generate and a prompt-cache hit against a miss;
+     generate of a four-sentence paragraph (four chunks, one batch) with
+     the CLI's defaults in bf16, W8A16 and W4A16, one warm pass then one
+     timed: frames, ms_per_step, real-time ratio, stage seconds, peak
+     memory, weight bytes; stream_blocks' first block; the prompt cache;
+     launches and device busy per frame from
+     `python -m whisperkit_tpu_torch.tools.profile_tts` in a child
+     process; the 1.7b variant on one generate with an instruction
+ 20. the TTS entry points: phase 19's bf16 tree written as a Qwen3-TTS
+     folder (tools/checkpoint.write_qwen3_tts_checkpoint), loaded through
+     TTSPipeline.from_pretrained with every leaf equal, and
+     `python -m whisperkit_tpu_torch.cli tts` on it in a child process (a
+     24 kHz WAV of frames x 1920 samples). No kernel of the port runs in
+     phases 19-20: their launch counts (the path `tts`) must all be 0
 
 Phase 3 also holds K1 at n_mels = 80 over 39 windows (the conv embedder's
 launch in phase 17) and K3's probs form against its plain version (B=4 and
@@ -2266,6 +2287,389 @@ def phase_streaming(torch, card: str, audio, folder: Path, audio_dir: Path, cli_
             "sim_wall": sim_wall, "counts": counts}
 
 
+# --- phases 19-20: text-to-speech (pipelines/tts.py) --------------------------------
+
+TTS_CHECK_FRAMES = 8
+# phase 19's float32 card-against-CPU limits, each of which the same run in
+# TF32 must fail: the first frame's code0 logits, and the vocoder's samples
+# on the CPU's codes; TTS_GAP_TOL is the largest top-2 gap of the CPU's
+# logits at which the card may pick the other token
+TTS_LOGIT_LIMIT = 1e-3
+TTS_WAVE_LIMIT = 1e-4
+TTS_GAP_TOL = 1e-3
+# the check's vocoder: its conv kernels scaled by this so that the final
+# clamp hides nothing (random Code2Wav weights at full width saturate 84% of
+# the samples; at 0.85 they peak near 0.35)
+TTS_CHECK_CONV_SCALE = 0.85
+TTS_STREAM_FRAMES = 50  # two blocks of 25 (first and steady context)
+TTS_STREAM_TOL = 1e-4  # float32: streamed blocks against the whole utterance
+TTS_CLI_FRAMES = 8
+TTS_INSTRUCTION = "Speak slowly and warmly, like a storyteller by the fire."
+
+
+class TTSSpy:
+    """Within the block: the codes and waveform of each vocoder call of the
+    TTS pipeline (whole-utterance and streamed), and the logits of every
+    sampling call, code0 then the 15 heads, frame by frame (a clone per
+    call, [B, V] on the device)."""
+
+    def __enter__(self):
+        from whisperkit_tpu_torch.decoding import tts_loop
+        from whisperkit_tpu_torch.models import qwen3_tts
+        from whisperkit_tpu_torch.pipelines import tts
+
+        self.codes, self.waves, self.logits = [], [], []
+
+        def vocoder(fn):
+            def wrapped(params, codes, *args, **kwargs):
+                out = fn(params, codes, *args, **kwargs)
+                self.codes.append(codes.clone())
+                self.waves.append((out[0] if isinstance(out, tuple) else out).float().clone())
+                return out
+            return wrapped
+
+        def sampler(fn):
+            def wrapped(logits, *args, **kwargs):
+                self.logits.append(logits.float().clone())
+                return fn(logits, *args, **kwargs)
+            return wrapped
+
+        self.saved = []
+        for module, name, wrap in ((tts, "speech_decoder_forward", vocoder), (tts, "code2wav_decode_block", vocoder),
+                                   (tts_loop, "sample_topk", sampler), (qwen3_tts, "sample_topk", sampler)):
+            self.saved.append((module, name, getattr(module, name)))
+            setattr(module, name, wrap(getattr(module, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in self.saved:
+            setattr(module, name, orig)
+
+
+def tts_spied(torch, pipe, text, options, device: str = "cuda") -> tuple:
+    """(result, spy) of one `pipe.generate`."""
+    with TTSSpy() as spy:
+        result = pipe.generate(text, options)
+    sync(torch, device)
+    return result, spy
+
+
+def tts_code_divergence(label, ours, ref, ref_logits, tol) -> str:
+    """'equal', or where the first code of `ours` ([1, F, 16]) that is not
+    `ref`'s sits; fails unless `ref`'s logits there (one per sampling
+    call, code0 then the heads) put `ours`'s token within `tol` of its own."""
+    ours, ref = ours[0].cpu(), ref[0].cpu()
+    diff = (ours != ref).nonzero()
+    if not len(diff):
+        return "equal"
+    f, j = (int(x) for x in diff[0])
+    logits = ref_logits[f * 16 + j][0].cpu()
+    gap = float(logits[ref[f, j]] - logits[ours[f, j]])
+    if gap > tol:
+        fail(f"{label}: frame {f} code {j} is {int(ours[f, j])}, the reference's {int(ref[f, j])} at a gap of "
+             f"{gap:.3g} > {tol}")
+    return f"first divergence at frame {f} code {j}, gap {gap:.3g} (within {tol})"
+
+
+def tts_finite_logits_err(torch, a, b) -> float:
+    """max |a - b| over the finite entries of the reference b (the
+    suppressed range is -inf in both)."""
+    a, b = a.cpu(), b.cpu()
+    keep = torch.isfinite(b)
+    if not torch.equal(keep, torch.isfinite(a)):
+        fail("the card's suppressed logits are not the CPU's")
+    return float((a[keep] - b[keep]).abs().max())
+
+
+def phase_tts_card_vs_cpu(torch, card: str, dims) -> dict:
+    """Phase 19a: the 0.6b pipeline in float32 (random weights on the card,
+    the vocoder's conv kernels scaled by TTS_CHECK_CONV_SCALE) generates
+    TTS_CHECK_FRAMES frames at temperature 0 on the card, at the
+    precision its entry points set themselves (the vocoder guards its IEEE
+    float32), and on this machine's CPU: codes equal under the top-2-gap
+    rule (TTS_GAP_TOL), the first frame's code0 logits within
+    TTS_LOGIT_LIMIT, the card's vocoder on the CPU's codes within
+    TTS_WAVE_LIMIT of the CPU's waveform; each limit must fail the same
+    run with TF32 on (the vocoder without its guard, its `__wrapped__`).
+    Then, on the card, stream_blocks (blocks of 25) against generate of
+    the same text, and a prompt-cache hit against a miss, codes equal and
+    audio within TTS_STREAM_TOL."""
+    import dataclasses
+
+    from whisperkit_tpu_torch.core.device import resolve_device
+    from whisperkit_tpu_torch.models.qwen3_tts import (
+        init_tts_params,
+        map_tree,
+        params_to_device,
+        speech_decoder_forward,
+    )
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions, TTSPipeline
+    from whisperkit_tpu_torch.tools.profile_tts import PARAGRAPH
+
+    label = "phase 19 TTS card against CPU (float32)"
+    dev = resolve_device("cuda")
+    params = init_tts_params(torch.Generator(device=dev).manual_seed(SEED), dims, torch.float32, dev)
+    params["c2w"] = map_tree(lambda _, t: t * TTS_CHECK_CONV_SCALE if t.ndim == 3 else t, params["c2w"])
+    card_pipe = TTSPipeline(dims, params=params, device="cuda")
+    cpu_pipe = TTSPipeline(dims, params=params_to_device(params, "cpu"), device="cpu")
+    text = PARAGRAPH.split(". ")[0] + "."
+    options = GenerationOptions(max_new_tokens=TTS_CHECK_FRAMES, temperature=0.0, chunking_strategy="none",
+                                use_prompt_cache=False)
+    t0 = time.perf_counter()
+    cpu, cpu_spy = tts_spied(torch, cpu_pipe, text, options, "cpu")
+    cpu_s = time.perf_counter() - t0
+    ours, spy = tts_spied(torch, card_pipe, text, options)
+    with tf32_on(torch):
+        _, tf32_spy = tts_spied(torch, card_pipe, text, options)
+    ref_codes = cpu_spy.codes[0]
+    agreement = tts_code_divergence(label, spy.codes[0], ref_codes, cpu_spy.logits, TTS_GAP_TOL)
+    logit_err = tts_finite_logits_err(torch, spy.logits[0], cpu_spy.logits[0])
+    logit_tf32 = tts_finite_logits_err(torch, tf32_spy.logits[0], cpu_spy.logits[0])
+    wave = speech_decoder_forward(card_pipe.params, ref_codes.to(dev), dims).float().cpu()
+    with tf32_on(torch):
+        wave_tf32 = speech_decoder_forward.__wrapped__(card_pipe.params, ref_codes.to(dev), dims).float().cpu()
+    ref_wave = cpu_spy.waves[0]
+    wave_err = float((wave - ref_wave).abs().max())
+    wave_tf32_err = float((wave_tf32 - ref_wave).abs().max())
+    for what, err, tf32, limit in (("logits", logit_err, logit_tf32, TTS_LOGIT_LIMIT),
+                                   ("waveform", wave_err, wave_tf32_err, TTS_WAVE_LIMIT)):
+        if not err <= limit < tf32:
+            fail(f"{label}: {what} error {err:.3g}, TF32 control {tf32:.3g}: the limit {limit} must hold the first "
+                 f"and fail the second")
+    if not (np_finite(ours.audio) and len(ours.audio) == TTS_CHECK_FRAMES * 1920):
+        fail(f"{label}: {len(ours.audio)} samples, or not finite")
+    say(f"{label}: 0.6b, {TTS_CHECK_FRAMES} frames at temperature 0, one chunk | codes {agreement} | first-frame "
+        f"code0 logits max err {logit_err:.3g} (limit {TTS_LOGIT_LIMIT}; TF32 control {logit_tf32:.3g}) | vocoder "
+        f"on the CPU's codes max err {wave_err:.3g} (limit {TTS_WAVE_LIMIT}; TF32 control {wave_tf32_err:.3g}; "
+        f"peak |sample| {float(ref_wave.abs().max()):.3f}) | CPU generate {cpu_s:.3f} s | {card}")
+    del cpu_pipe, cpu_spy
+
+    # streamed blocks and the prompt cache, on the card
+    stream_opts = dataclasses.replace(options, max_new_tokens=TTS_STREAM_FRAMES)
+    whole, whole_spy = tts_spied(torch, card_pipe, text, stream_opts)
+    with TTSSpy() as block_spy:
+        blocks = [b for b in card_pipe.stream_blocks(text, stream_opts, block_frames=25)]
+    streamed = np_concat(blocks)
+    stream_err = float(abs(streamed - whole.audio).max()) if len(streamed) == len(whole.audio) else float("inf")
+    same_codes = torch.equal(torch.cat(block_spy.codes, 1).cpu(), whole_spy.codes[0].cpu())
+    hit_opts = dataclasses.replace(options, use_prompt_cache=True, instruction=TTS_INSTRUCTION)
+    miss, miss_spy = tts_spied(torch, card_pipe, text, dataclasses.replace(hit_opts, use_prompt_cache=False))
+    card_pipe.build_prompt_cache(hit_opts)
+    hit, hit_spy = tts_spied(torch, card_pipe, text, hit_opts)
+    if not (same_codes and stream_err <= TTS_STREAM_TOL and [len(b) for b in blocks] == [25 * 1920] * 2):
+        fail(f"{label}: stream_blocks {[len(b) for b in blocks]} samples, codes equal {same_codes}, max err "
+             f"{stream_err:.3g} against generate (limit {TTS_STREAM_TOL})")
+    cache_agreement = tts_code_divergence(label + " prompt cache", hit_spy.codes[0], miss_spy.codes[0],
+                                          miss_spy.logits, TTS_GAP_TOL)
+    cache_err = float(abs(hit.audio - miss.audio).max()) if len(hit.audio) == len(miss.audio) else float("inf")
+    if cache_agreement == "equal" and not cache_err <= TTS_STREAM_TOL:
+        fail(f"{label}: the prompt-cache hit's audio is {cache_err:.3g} from the miss's (limit {TTS_STREAM_TOL})")
+    say(f"{label}: stream_blocks of 25 frames, {len(blocks)} blocks, codes equal to generate's, max err "
+        f"{stream_err:.3g} (limit {TTS_STREAM_TOL}) | prompt cache with an instruction: the hit's codes "
+        f"{cache_agreement} against the miss's, audio max err {cache_err:.3g} | {card}")
+    return {"logit_err": logit_err, "logit_tf32": logit_tf32, "wave_err": wave_err, "wave_tf32": wave_tf32_err,
+            "stream_err": stream_err, "cache_err": cache_err, "cpu_s": cpu_s}
+
+
+def np_finite(x) -> bool:
+    import numpy as np
+
+    return bool(np.isfinite(x).all())
+
+
+def np_concat(blocks):
+    import numpy as np
+
+    return np.concatenate(blocks) if blocks else np.zeros(0, np.float32)
+
+
+def tts_timed(torch, pipe, text, options) -> dict:
+    """One warm generate of 4 frames (every path of the loop and the
+    vocoder), then `options`' generate timed (host clock, the device synced
+    after), peak memory reset before it."""
+    import dataclasses
+
+    pipe.generate(text, dataclasses.replace(options, max_new_tokens=4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = pipe.generate(text, options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t = result.timings
+    if not (np_finite(result.audio) and len(result.audio) and t.frames):
+        fail(f"TTS generate: {t.frames} frames, {len(result.audio)} samples, or not finite")
+    return {"wall": wall, "frames": t.frames, "chunks": t.chunks, "ms_per_step": t.ms_per_step,
+            "rtr": t.real_time_ratio, "tokenize_s": t.tokenize_seconds, "generate_s": t.generate_seconds,
+            "vocode_s": t.vocode_seconds, "audio_s": len(result.audio) / 24_000,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def say_tts_run(label, run, weight_bytes, card) -> None:
+    say(f"{label}: {run['chunks']} chunks (B), {run['frames']} frames, {run['audio_s']:.2f} s of audio | wall "
+        f"{run['wall']:.3f} s | ms_per_step {run['ms_per_step']:.2f} (generate s over the frames of all rows) | "
+        f"real-time ratio {run['rtr']:.3f} | "
+        f"tokenize {run['tokenize_s']:.4f} s, generate {run['generate_s']:.3f} s, vocode {run['vocode_s']:.3f} s | "
+        f"peak {run['peak_gib']:.2f} GiB, weights {weight_bytes} bytes ({weight_bytes / 2**30:.3f} GiB) | {card}")
+
+
+def phase_tts(torch, card: str, dims) -> dict:
+    """Phase 19b: the 0.6b pipeline in bf16 (random weights, the port's init
+    with SEED) and its weights quantized to W8A16 and to W4A16: generate of
+    profile_tts.PARAGRAPH (four sentence chunks, one batch) with the CLI's
+    defaults (temperature 0.9, top-k 50, penalty 1.05, 245 frames at most),
+    one warm pass then one timed; stream_blocks (blocks of 25) timed to its
+    first block; a prompt-cache hit against a miss; then, in a child
+    process, `python -m whisperkit_tpu_torch.tools.profile_tts`: launches
+    and device busy per frame; and the 1.7b pipeline in bf16 on one short
+    generate with an instruction."""
+    import dataclasses
+
+    from whisperkit_tpu_torch.ops.quant import quantized_size_bytes
+    from whisperkit_tpu_torch.pipelines.tts import TTS_VARIANTS, GenerationOptions, TTSPipeline
+    from whisperkit_tpu_torch.tools.profile_tts import PARAGRAPH
+
+    label = "phase 19 TTS"
+    options = GenerationOptions()
+    bf16 = TTSPipeline(dims, seed=SEED, device="cuda")
+    runs = {}
+    for scheme in ("bf16", "w8a16", "w4a16"):
+        pipe = bf16 if scheme == "bf16" else TTSPipeline(dims, params=bf16.params, quantize=scheme, device="cuda")
+        runs[scheme] = tts_timed(torch, pipe, PARAGRAPH, options)
+        runs[scheme]["weight_bytes"] = quantized_size_bytes(pipe.params)
+        say_tts_run(f"{label} 0.6b {scheme}, generate", runs[scheme], runs[scheme]["weight_bytes"], card)
+        del pipe
+
+    # streaming: time to the first block of 25 frames, at temperature 0
+    sentence = PARAGRAPH.split(". ")[0] + "."
+    stream_opts = GenerationOptions(temperature=0.0, chunking_strategy="none", max_new_tokens=50)
+    whole, whole_spy = tts_spied(torch, bf16, sentence, stream_opts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, blocks = None, []
+    with TTSSpy() as block_spy:
+        for block in bf16.stream_blocks(sentence, stream_opts, block_frames=25):
+            blocks.append(block)
+            first = first if first is not None else time.perf_counter() - t0
+    total = time.perf_counter() - t0
+    same = torch.equal(torch.cat(block_spy.codes, 1).cpu(), whole_spy.codes[0].cpu())
+    streamed = np_concat(blocks)
+    if not same or not blocks or len(streamed) != len(whole.audio):
+        fail(f"{label} stream_blocks: {len(blocks)} blocks, {len(streamed)} samples, codes equal to generate's: "
+             f"{same}")
+    diff = abs(streamed - whole.audio)
+    say(f"{label} 0.6b bf16 stream_blocks (25 frames a block, temperature 0): {len(blocks)} blocks, first after "
+        f"{first:.3f} s, all after {total:.3f} s (generate of the same {whole.timings.frames} frames "
+        f"{whole.timings.total_seconds:.3f} s) | codes equal to generate's; bf16 audio against generate's: "
+        f"{float((diff <= 1e-2).mean()):.4f} of samples within 1e-2, max err {float(diff.max()):.3g} (the random "
+        f"bf16 vocoder saturates its clamp: {float((abs(whole.audio) > 0.999).mean()):.3f} of samples) | {card}")
+
+    # the prompt cache: a miss, then a hit, timed
+    cache_opts = GenerationOptions(max_new_tokens=16, instruction=TTS_INSTRUCTION, voice="serena")
+    miss = tts_timed(torch, bf16, PARAGRAPH, dataclasses.replace(cache_opts, use_prompt_cache=False))
+    t0 = time.perf_counter()
+    bf16.build_prompt_cache(cache_opts)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hit = tts_timed(torch, bf16, PARAGRAPH, cache_opts)
+    say(f"{label} 0.6b bf16 prompt cache (instruction, 16 frames): miss {miss['wall']:.3f} s, build "
+        f"{build_s:.3f} s, hit {hit['wall']:.3f} s (tokenize {miss['tokenize_s']:.4f} / {hit['tokenize_s']:.4f} s, "
+        f"generate {miss['generate_s']:.3f} / {hit['generate_s']:.3f} s) | {card}")
+
+    # launches and device busy per frame, traced in a child process
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.tools.profile_tts"], capture_output=True,
+                          text=True, cwd=REPO, timeout=600)
+    if proc.returncode != 0:
+        fail(f"{label} profile: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    profiles = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    for prof in profiles:
+        parts = ", ".join(f"{k} {v['launches']:.0f} launches / {v['device_busy_ms']:.3f} ms busy"
+                          for k, v in prof["parts"].items())
+        say(f"{label} 0.6b {prof['config']} trace (B={prof['batch']}): "
+            f"{prof['launches_per_frame']:.1f} launches and {prof['device_busy_ms']:.3f} ms device busy per frame, "
+            f"frame wall {', '.join(f'{w:.2f}' for w in prof['frame_ms_unprofiled'])} ms, idle "
+            f"{prof['idle_share']:.3f} | {parts} | vocoder wall {prof['vocoder_wall_ms']:.1f} ms | {card}")
+        say(f"  top: {json.dumps(prof['top'][:6])}")
+    if len(profiles) != 3:
+        fail(f"{label} profile: {len(profiles)} lines: {proc.stdout[-2000:]}")
+    say(f"{label} profile child: {time.perf_counter() - t0:.1f} s")
+
+    # 1.7b, bf16: one short generate with an instruction
+    big_dims = TTS_VARIANTS["1.7b"]
+    big = TTSPipeline(big_dims, seed=SEED, device="cuda")
+    big_opts = GenerationOptions(max_new_tokens=16, instruction=TTS_INSTRUCTION)
+    big_run = tts_timed(torch, big, sentence, big_opts)
+    big_run["weight_bytes"] = quantized_size_bytes(big.params)
+    say_tts_run(f"{label} 1.7b bf16, generate with an instruction", big_run, big_run["weight_bytes"], card)
+    del big
+    torch.cuda.empty_cache()
+    return {"pipe": bf16, **{f"{k}_{x}": v for k, r in runs.items() for x, v in r.items()},
+            "stream_first_s": first, "profiles": profiles, "big_ms_per_step": big_run["ms_per_step"]}
+
+
+def phase_tts_entry(torch, card: str, pipe, folder: Path) -> dict:
+    """Phase 20: phase 19's bf16 tree written as a Qwen3-TTS folder
+    (tools/checkpoint.write_qwen3_tts_checkpoint), loaded through
+    TTSPipeline.from_pretrained with every leaf equal (the backbone bf16,
+    Code2Wav in float32, its tokenizer.json read); then `python -m
+    whisperkit_tpu_torch.cli tts` on the folder in a child process, which
+    must exit 0 and write a 24 kHz WAV of the in-process pipeline's
+    frames × 1920 samples, each equal to the in-process pipeline's (the
+    same seed on the same card)."""
+    import wave
+
+    import numpy as np
+
+    from whisperkit_tpu_torch.models.qwen3_tts import map_tree
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions, HFTTSTokenizer, TTSPipeline
+    from whisperkit_tpu_torch.tools.checkpoint import write_qwen3_tts_checkpoint
+    from whisperkit_tpu_torch.tools.profile_tts import PARAGRAPH
+
+    label = "phase 20 TTS entry points"
+    folder.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    write_qwen3_tts_checkpoint(folder, pipe.dims, params=pipe.params)
+    write_s = time.perf_counter() - t0
+    n_bytes = (folder / "model.safetensors").stat().st_size
+    t0 = time.perf_counter()
+    loaded = TTSPipeline.from_pretrained(str(folder), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = dict(pipe.params, c2w=map_tree(lambda _, t: t.float(), pipe.params["c2w"]))
+    bad = tree_mismatches(torch, loaded.params, want)
+    if bad or loaded.dims != pipe.dims or not isinstance(loaded.tokenizer, HFTTSTokenizer):
+        fail(f"{label}: {len(bad)} leaves differ ({bad[:5]}), dims {loaded.dims == pipe.dims}, tokenizer "
+             f"{type(loaded.tokenizer).__name__}")
+    say(f"{label}: 0.6b bf16 as a Qwen3-TTS folder: model.safetensors {n_bytes} bytes, written with config.json and "
+        f"tokenizer.json in {write_s:.3f} s | TTSPipeline.from_pretrained in {load_s:.3f} s, all "
+        f"{n_leaves(loaded.params)} leaves equal (Code2Wav as float32) | {card}")
+
+    sentence = PARAGRAPH.split(". ")[0] + "."
+    out = folder / "speech.wav"
+    argv = ["tts", "--model-folder", str(folder), "--text", sentence, "--output-path", str(out),
+            "--max-new-tokens", str(TTS_CLI_FRAMES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", *argv], capture_output=True, text=True,
+                          cwd=REPO, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label} CLI: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with wave.open(str(out)) as w:
+        rate, n = w.getframerate(), w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), "<i2")
+    ref = loaded.generate(sentence, GenerationOptions(max_new_tokens=TTS_CLI_FRAMES))
+    if rate != 24_000 or n != ref.timings.frames * 1920:
+        fail(f"{label} CLI: {n} samples at {rate} Hz, the pipeline's {ref.timings.frames} frames make "
+             f"{ref.timings.frames * 1920}")
+    if not np.array_equal(pcm, (np.clip(ref.audio, -1, 1) * 32767).astype(np.int16)):
+        fail(f"{label} CLI: the WAV's samples are not the in-process pipeline's (same folder, seed and card)")
+    say(f"{label}: `python -m whisperkit_tpu_torch.cli tts` on the folder, exit 0 in {wall:.3f} s (process start, "
+        f"device probe, load, generate, WAV) | {n} samples at {rate} Hz = {ref.timings.frames} frames x 1920, "
+        f"equal to the in-process pipeline's | {card}")
+    return {"bytes": n_bytes, "write_s": write_s, "load_s": load_s, "cli_wall": wall, "cli_samples": n}
+
+
 # (kernel, source, TPU kernel it replaces, the path whose launch count it reports)
 KERNEL_TABLE = (
     ("log_mel", "whisperkit_tpu_torch/csrc/mel.cu", "whisperkit_tpu/ops/mel.py:227", "int8"),
@@ -2335,11 +2739,22 @@ def main() -> None:
                                               phases["cli"])
         for key in ("argv", "reference"):
             phases["cli"].pop(key)
+        # phases 19-20: none of the Whisper kernels runs on the TTS path
+        from whisperkit_tpu_torch.ops import _build
+        from whisperkit_tpu_torch.pipelines.tts import TTS_VARIANTS
+
+        _build.reset_launches()
+        phases["tts_check"] = phase_tts_card_vs_cpu(torch, card, TTS_VARIANTS["0.6b"])
+        phases["tts"] = phase_tts(torch, card, TTS_VARIANTS["0.6b"])
+        phases["tts_entry"] = phase_tts_entry(torch, card, phases["tts"].pop("pipe"), root / "tts")
+        tts_counts = dict(_build.launches)
+        if any(tts_counts.values()):
+            fail(f"phases 19-20 launched Whisper kernels: {tts_counts}")
     say(json.dumps({"phases": {k: {x: y for x, y in v.items() if x != "counts"} for k, v in phases.items()}}))
 
     counts = {"bf16": bf16["counts"], "int8": int8["counts"], "words": words["counts"],
               "server": phases["server"]["counts"], "diarize_conv": phases["diarize_conv"]["counts"],
-              "streaming": phases["streaming"]["counts"]}
+              "streaming": phases["streaming"]["counts"], "tts": tts_counts}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,

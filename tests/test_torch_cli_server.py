@@ -514,28 +514,32 @@ def test_cli_build_pipeline_with_draft_and_probe_skipped_on_cpu(folders, monkeyp
 @pytest.mark.parametrize(
     "argv, message",
     [
-        (["tts", "--text", "hi"], "(ROADMAP.md A.8)"),
+        (["tts", "--text", "hi", "--quantization", "w8a8", "--device", "cpu"],
+         "--quantization w8a8 is not available for tts (choices: w8a16, w4a16)"),
         (["transcribe", "--audio-path", "x.wav", "--stream"], "no microphone backend (sounddevice) on this host"),
         (["transcribe", "--audio-path", "x.wav", "--profile-dir", "p"], "(ROADMAP.md A.12)"),
     ],
     ids=["tts", "stream", "profile_dir"],
 )
 def test_cli_out_of_slice_exits_2(argv, message, capsys, monkeypatch):
-    """What the port does not run exits 2 before any model loads: `tts`
-    and `--profile-dir` name their ROADMAP items; `--stream` without a
-    capture backend gives the JAX CLI's message."""
+    """What the port does not run exits 2 before any model loads:
+    `--profile-dir` names its ROADMAP item; `--stream` without a capture
+    backend and `tts --quantization w8a8` give the JAX CLI's messages."""
     from whisperkit_tpu_torch.audio import capture
+    from whisperkit_tpu_torch.pipelines import tts
 
     monkeypatch.setattr(capture, "capture_available", lambda: False)
     monkeypatch.setattr(cli, "_build_pipeline", lambda args: (_ for _ in ()).throw(AssertionError("built")))
+    monkeypatch.setattr(tts.TTSPipeline, "from_pretrained", lambda *a, **k: (_ for _ in ()).throw(
+        AssertionError("built")))
     assert cli.main(argv) == 2
     assert message in capsys.readouterr().err
 
 
 def test_cli_module_entry_point():
-    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", "tts", "--text", "hi"],
-                          capture_output=True, text=True, cwd=REPO, timeout=120)
-    assert proc.returncode == 2 and "ROADMAP.md A.8" in proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", "transcribe", "--audio-path", "x.wav",
+                           "--profile-dir", "p"], capture_output=True, text=True, cwd=REPO, timeout=120)
+    assert proc.returncode == 2 and "ROADMAP.md A.12" in proc.stderr
 
 
 def test_cli_device_cuda_without_a_card_fails_through_the_probe(folders, capsys):

@@ -38,8 +38,10 @@ PORT_FILES = sorted((REPO / "whisperkit_tpu_torch").rglob("*.py")) + [REPO / "ch
 
 
 def _forbidden(name: str) -> bool:
+    """The JAX package and JAX, and the packages the card's machine lacks
+    that a TTS or Whisper port would reach for first."""
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "whisperkit_tpu", "bench")
+    return top in ("jax", "jaxlib", "whisperkit_tpu", "bench", "tokenizers", "safetensors", "transformers")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -68,6 +70,8 @@ def test_port_modules_load_without_the_jax_package():
         "import whisperkit_tpu_torch.audio.capture, whisperkit_tpu_torch.speaker.results\n"
         "import whisperkit_tpu_torch.speaker.clustering, whisperkit_tpu_torch.models.pyannet\n"
         "import whisperkit_tpu_torch.models.pyannote, whisperkit_tpu_torch.ops.fbank\n"
+        "import whisperkit_tpu_torch.pipelines.tts, whisperkit_tpu_torch.models.qwen3_loader\n"
+        "import whisperkit_tpu_torch.decoding.tts_loop, whisperkit_tpu_torch.audio.output\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisperkit_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -91,6 +95,8 @@ LAZY_IMPORTS = {
     ("whisperkit_tpu_torch/audio/capture.py", "capture_available", "sounddevice"),
     ("whisperkit_tpu_torch/audio/capture.py", "list_capture_devices", "sounddevice"),
     ("whisperkit_tpu_torch/audio/capture.py", "__init__", "sounddevice"),
+    ("whisperkit_tpu_torch/audio/output.py", "play", "sounddevice"),
+    ("whisperkit_tpu_torch/audio/output.py", "play_blocking", "sounddevice"),
 }
 
 
@@ -141,6 +147,7 @@ def test_entry_points_import_with_those_packages_blocked():
         "import whisperkit_tpu_torch.core.device_probe, whisperkit_tpu_torch.tools.checkpoint\n"
         "import whisperkit_tpu_torch.text.writers, whisperkit_tpu_torch.text.transcription_utils\n"
         "import whisperkit_tpu_torch.pipelines.diarize, whisperkit_tpu_torch.pipelines.streaming\n"
+        "import whisperkit_tpu_torch.pipelines.tts, whisperkit_tpu_torch.models.qwen3_loader\n"
         "from whisperkit_tpu_torch.audio.capture import capture_available\n"
         "assert not capture_available()\n"
         "from whisperkit_tpu_torch.cli.main import build_parser\n"
@@ -418,11 +425,12 @@ def test_writer_and_transcription_utils_copies_match():
     assert sorted(twriters.WRITERS) == sorted(jwriters.WRITERS)
 
 
-@pytest.mark.parametrize("name", ["speaker.results", "speaker.clustering", "audio.capture"])
+@pytest.mark.parametrize("name", ["speaker.results", "speaker.clustering", "audio.capture", "audio.output"])
 def test_speaker_and_capture_copies_match(name):
-    """speaker/results.py, speaker/clustering.py and audio/capture.py are
-    copies: the same functions, classes and constants, the same source but
-    for the imports; the VAD's `is_voice_detected` too (streaming's gate)."""
+    """speaker/results.py, speaker/clustering.py, audio/capture.py and
+    audio/output.py are copies: the same functions, classes and constants,
+    the same source but for the imports; the VAD's `is_voice_detected` too
+    (streaming's gate)."""
     import importlib
     import inspect
 

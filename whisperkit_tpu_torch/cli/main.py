@@ -1,14 +1,15 @@
-"""The port's command line: transcribe / diarize / serve (port of
+"""The port's command line: transcribe / diarize / tts / serve (port of
 whisperkit_tpu/cli/main.py).
 
     python -m whisperkit_tpu_torch.cli transcribe --model-folder FOLDER --audio-path a.wav
     python -m whisperkit_tpu_torch.cli transcribe --model-folder FOLDER --audio-path a.wav --diarization
     python -m whisperkit_tpu_torch.cli transcribe --model-folder FOLDER --audio-path a.wav --stream-simulated
     python -m whisperkit_tpu_torch.cli diarize --model-folder PYANNOTE_FOLDER --audio-path a.wav --rttm-path a.rttm
+    python -m whisperkit_tpu_torch.cli tts --model-folder QWEN3_TTS_FOLDER --text "Hello." --output-path x.wav
     python -m whisperkit_tpu_torch.cli serve --model-folder FOLDER --port 50060
 
 Reference: Sources/ArgmaxCLI/ArgmaxCLI.swift:9-26 (subcommand root),
-TranscribeCLI.swift / DiarizeCLI.swift / ServeCLI.swift. The parser is the
+TranscribeCLI.swift / DiarizeCLI.swift / TTSCLI.swift / ServeCLI.swift. The parser is the
 JAX package's, flag for flag (the reference's argument structs, snake-case
 → --kebab-case, TranscribeCLIArguments.swift:6-111), plus `--device
 {cuda,cpu}` (default cuda), which takes the place of JAX_PLATFORMS. With
@@ -16,9 +17,10 @@ JAX package's, flag for flag (the reference's argument structs, snake-case
 (core/device_probe.py); a failure exits 1 and never falls back to the CPU.
 
 `--stream` needs a capture backend (audio/capture.py: sounddevice); without
-one it exits 2, as the JAX CLI does. Subcommands and flags of features the
-port does not have yet still parse, then exit 2 with a message that names
-the ROADMAP item that brings them: `tts` (A.8), `--profile-dir` (A.12).
+one it exits 2, as the JAX CLI does; so does `tts --quantization w8a8`, a
+Whisper-encoder recipe, with the JAX CLI's message. A flag of a feature the
+port does not have yet still parses, then exits 2 with a message that names
+the ROADMAP item that brings it: `--profile-dir` (A.12).
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from whisperkit_tpu_torch.core.errors import DeviceUnavailable
 
 # what each feature outside the port waits for (ROADMAP.md §A)
 NOT_PORTED = {
-    "tts": "text-to-speech is not in the port yet (ROADMAP.md A.8)",
     "--profile-dir": "device traces of a run (core/signposts.py) are not in the port yet (ROADMAP.md A.12)",
 }
 
@@ -385,7 +386,33 @@ def cmd_diarize(args) -> int:
 
 
 def cmd_tts(args) -> int:
-    return _not_ported("tts")
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions, TTSPipeline
+
+    _probe_device_or_raise(args)
+    # w8a8's int8 activations are a Whisper-encoder recipe; TTS takes
+    # w8a16 and w4a16
+    if args.quantization == "w8a8":
+        print("--quantization w8a8 is not available for tts (choices: w8a16, w4a16)", file=sys.stderr)
+        return 2
+    pipe = TTSPipeline.from_pretrained(
+        model_folder=args.model_folder, quantize=args.quantization or False, device=args.device,
+    )
+    result = pipe.generate(
+        args.text,
+        GenerationOptions(
+            voice=args.voice,
+            language=args.tts_language,
+            instruction=args.instruction,
+            temperature=args.temperature,
+            top_k=args.top_k,
+            repetition_penalty=args.repetition_penalty,
+            max_new_tokens=args.max_new_tokens,
+            seed=args.seed,
+        ),
+    )
+    result.save(args.output_path)
+    print(f"wrote {args.output_path} ({result.duration_seconds:.2f}s audio)", file=sys.stderr)
+    return 0
 
 
 def cmd_serve(args) -> int:

@@ -19,8 +19,9 @@ GEMM are speed work for later (ROADMAP.md A.1).
 
 The speaker models' quantizer (`quantize_speaker_params`, with
 `quantize_conv_weight` for their convolutions) serves the W8A16 pyannote
-variant (pipelines/diarize.py); the TTS quantizers wait for their models,
-and `QUANT_FORMATS` for the on-disk caches.
+variant (pipelines/diarize.py), `quantize_tts_params` the W8A16/W4A16
+Qwen3-TTS trees (pipelines/tts.py); `QUANT_FORMATS` waits for the on-disk
+caches.
 """
 
 from __future__ import annotations
@@ -248,3 +249,46 @@ def quantize_speaker_params(params: Params, min_size: int = 1 << 12) -> Params:
         return node
 
     return walk(params)
+
+
+# --- Qwen3-TTS ---------------------------------------------------------------
+
+# stacked-block linear keys ([L, in, out]); embeddings, norms and the
+# Code2Wav vocoder stay unquantized (reference W8A16 recipe,
+# Qwen3Config.swift:106-112)
+_TTS_BLOCK_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quantize_stack(qfn, w: torch.Tensor) -> dict:
+    """[N, in, out] → the per-slice quantized dicts stacked [N, ...] (JAX's
+    `jax.vmap(qfn)`)."""
+    qs = [qfn(w[i]) for i in range(w.shape[0])]
+    return {k: torch.stack([q[k] for q in qs]) for k in qs[0]}
+
+
+def quantize_tts_params(params: Params, min_size: int = 1 << 16, bits: int = 8) -> Params:
+    """W8A16 (or, with bits=4, W4A16) Qwen3-TTS tree: every transformer
+    linear of the backbone and of the code predictor (per layer of each
+    stack), the code0 head and the 15 RVQ heads, each when its array (the
+    whole stack) has at least `min_size` elements, as in the JAX package.
+    Embeddings, norms and the Code2Wav vocoder stay as they are."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    qfn = quantize_weight if bits == 8 else quantize_weight_w4
+
+    def big(w) -> bool:
+        return isinstance(w, torch.Tensor) and w.numel() >= min_size
+
+    def quantize_stacked(blocks: Params) -> Params:
+        return {k: _quantize_stack(qfn, w) if k in _TTS_BLOCK_KEYS and big(w) else w for k, w in blocks.items()}
+
+    out = dict(params)
+    out["blocks"] = quantize_stacked(params["blocks"])
+    if big(params["code0_head"]):
+        out["code0_head"] = qfn(params["code0_head"])
+    mc = dict(params["mc"])
+    mc["blocks"] = quantize_stacked(mc["blocks"])
+    if big(mc["heads"]):  # [15, D, V]
+        mc["heads"] = _quantize_stack(qfn, mc["heads"])
+    out["mc"] = mc
+    return out

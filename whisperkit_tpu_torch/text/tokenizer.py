@@ -219,12 +219,14 @@ class BPETokenizer:
     def encode(self, text: str) -> list[int]:
         ids: list[int] = []
         for chunk in _GPT2_SPLIT.findall(text):
-            mapped = "".join(self.byte_encoder[b] for b in chunk.encode("utf-8"))
-            for piece in self._bpe(mapped):
-                tid = self.encoder.get(piece)
-                if tid is not None:
-                    ids.append(tid)
+            ids += self.encode_chunk(chunk)
         return ids
+
+    def encode_chunk(self, chunk: str) -> list[int]:
+        """One pre-tokenized piece → its ids (byte-mapped, then merged); a
+        tokenizer with another split pattern calls it per piece."""
+        mapped = "".join(self.byte_encoder[b] for b in chunk.encode("utf-8"))
+        return [tid for piece in self._bpe(mapped) if (tid := self.encoder.get(piece)) is not None]
 
     def decode(self, ids: Sequence[int]) -> str:
         text = "".join(self.decoder.get(i, "") for i in ids)

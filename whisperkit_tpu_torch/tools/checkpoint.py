@@ -17,6 +17,13 @@ no download.
         wespeaker-resnet34.bin (a ResNet34 state dict), random weights
         under the published parameter names, for
         pipelines/diarize.DiarizePipeline.from_pretrained
+    write_qwen3_tts_checkpoint(folder, dims, seed, params=None)
+        a Qwen3-TTS folder for models/qwen3_loader.load_qwen3_tts and
+        pipelines/tts.TTSPipeline.from_pretrained: config.json (flat keys
+        and the nested talker_config / code2wav_config blocks),
+        model.safetensors under the HF names the loader probes, and a small
+        byte-level BPE tokenizer.json with Qwen2's pre-tokenizer and the
+        chat template's added tokens
 """
 
 from __future__ import annotations
@@ -28,7 +35,9 @@ from typing import Optional, Sequence, Union
 import torch
 
 from whisperkit_tpu_torch.models.loader import SAFETENSORS_DTYPES
+from whisperkit_tpu_torch.models.qwen3_tts import TEXT_BOS, TEXT_PAD, Qwen3TTSDims, init_tts_params
 from whisperkit_tpu_torch.models.whisper import WhisperDims
+from whisperkit_tpu_torch.pipelines.tts import QWEN2_SPLIT_PATTERN
 from whisperkit_tpu_torch.text.tokenizer import bytes_to_unicode, special_tokens_for_vocab
 
 _DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
@@ -299,3 +308,179 @@ def write_pyannote_checkpoint(folder: Union[str, Path], seed: int, *, full: bool
     torch.save({"state_dict": {f"model.{k}": v for k, v in seg.items()}}, seg_path)
     torch.save(emb, emb_path)
     return seg_path, emb_path
+
+
+# --- Qwen3-TTS -----------------------------------------------------------------
+
+
+def _qwen3_block_state(out: dict, prefix: str, blocks: dict, n_layer: int) -> None:
+    """A stacked Qwen3 block tree → HF per-layer names, linears [out, in]."""
+    names = {
+        "ln1": "input_layernorm.weight", "wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+        "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight", "qnorm": "self_attn.q_norm.weight",
+        "knorm": "self_attn.k_norm.weight", "ln2": "post_attention_layernorm.weight",
+        "w_gate": "mlp.gate_proj.weight", "w_up": "mlp.up_proj.weight", "w_down": "mlp.down_proj.weight",
+        "attn_scale": "self_attn_layer_scale.scale", "mlp_scale": "mlp_layer_scale.scale",
+    }
+    for key, stack in blocks.items():
+        if not isinstance(stack, torch.Tensor):
+            raise ValueError(f"{prefix} {key} is quantized: write the float tree")
+        if stack.shape[0] != n_layer:
+            raise ValueError(f"{prefix} {key}: {stack.shape[0]} layers, not the dims' {n_layer}")
+        for i in range(n_layer):
+            out[f"{prefix}{i}.{names[key]}"] = stack[i].T if key.startswith("w") else stack[i]
+
+
+def qwen3_tts_state_dict(params: dict, dims: Qwen3TTSDims) -> dict[str, torch.Tensor]:
+    """The port's TTS tree → the HF names models/qwen3_loader.py reads:
+    the inverse of its converters."""
+    out: dict[str, torch.Tensor] = {}
+    _qwen3_block_state(out, "talker.model.layers.", params["blocks"], dims.n_layer)
+    out["talker.model.norm.weight"] = params["ln_f"]
+    out["talker.model.text_embedding.weight"] = params["text_embed"]
+    out["talker.model.codec_embedding.weight"] = params["code_embed"]
+    out["talker.codec_head.weight"] = params["code0_head"].T
+    mc = params["mc"]
+    _qwen3_block_state(out, "talker.code_predictor.model.layers.", mc["blocks"], dims.cp_layer)
+    out["talker.code_predictor.model.norm.weight"] = mc["ln_f"]
+    for j in range(15):
+        out[f"talker.code_predictor.model.codec_embedding.{j}.weight"] = mc["embeds"][j]
+        out[f"talker.code_predictor.lm_head.{j}.weight"] = mc["heads"][j].T
+    c2w, cd = params["c2w"], dims.c2w
+    p = "code2wav."
+    _qwen3_block_state(out, p + "pre_transformer.layers.", c2w["blocks"], cd.n_layer)
+    out[p + "pre_transformer.norm.weight"] = c2w["ln_f"]
+    out[p + "code_embedding.weight"] = c2w["code_embed"]
+    for i, st in enumerate(c2w["upsample"]):
+        u, cnx = f"{p}upsample.{i}.", st["cnx"]
+        out[u + "0.conv.weight"], out[u + "0.conv.bias"] = st["tconv_w"], st["tconv_b"]
+        out[u + "1.dwconv.conv.weight"], out[u + "1.dwconv.conv.bias"] = cnx["dw_w"], cnx["dw_b"]
+        out[u + "1.norm.weight"], out[u + "1.norm.bias"] = cnx["ln_g"], cnx["ln_b"]
+        out[u + "1.pwconv1.weight"], out[u + "1.pwconv1.bias"] = cnx["pw1_w"].T, cnx["pw1_b"]
+        out[u + "1.pwconv2.weight"], out[u + "1.pwconv2.bias"] = cnx["pw2_w"].T, cnx["pw2_b"]
+        out[u + "1.gamma"] = cnx["gamma"]
+    out[p + "decoder.0.conv.weight"], out[p + "decoder.0.conv.bias"] = c2w["dec_in_w"], c2w["dec_in_b"]
+    for i, blk in enumerate(c2w["dec_blocks"]):
+        d = f"{p}decoder.{1 + i}.block."
+        out[d + "0.alpha"], out[d + "0.beta"] = blk["snake_a"], blk["snake_b"]
+        out[d + "1.conv.weight"], out[d + "1.conv.bias"] = blk["tconv_w"], blk["tconv_b"]
+        for j, unit in enumerate(blk["units"]):
+            r = f"{d}{2 + j}."
+            out[r + "act1.alpha"], out[r + "act1.beta"] = unit["a1"], unit["b1"]
+            out[r + "conv1.conv.weight"], out[r + "conv1.conv.bias"] = unit["c1_w"], unit["c1_b"]
+            out[r + "act2.alpha"], out[r + "act2.beta"] = unit["a2"], unit["b2"]
+            out[r + "conv2.conv.weight"], out[r + "conv2.conv.bias"] = unit["c2_w"], unit["c2_b"]
+    n_dec = 1 + len(cd.upsample_rates)
+    out[f"{p}decoder.{n_dec}.alpha"], out[f"{p}decoder.{n_dec}.beta"] = c2w["out_snake_a"], c2w["out_snake_b"]
+    out[f"{p}decoder.{n_dec + 1}.conv.weight"] = c2w["out_w"]
+    out[f"{p}decoder.{n_dec + 1}.conv.bias"] = c2w["out_b"]
+    return out
+
+
+def qwen3_tts_config(dims: Qwen3TTSDims, dtype: torch.dtype) -> dict:
+    """config.json for `dims`: the backbone's keys flat and under
+    talker_config.text_config, the code predictor's under
+    talker_config.code_predictor_config, Code2Wav's under code2wav_config."""
+    backbone = {
+        "hidden_size": dims.d_model, "num_hidden_layers": dims.n_layer,
+        "num_attention_heads": dims.n_head, "num_key_value_heads": dims.n_kv_head,
+        "head_dim": dims.head_dim, "intermediate_size": dims.d_ff, "rope_theta": dims.rope_theta,
+        "max_position_embeddings": dims.max_seq,
+    }
+    cd = dims.c2w
+    return {
+        "architectures": ["Qwen3TTSForConditionalGeneration"],
+        "model_type": "qwen3_tts",
+        "vocab_size": dims.text_vocab,
+        **backbone,
+        "talker_config": {
+            "text_config": {"vocab_size": dims.text_vocab, **backbone},
+            "code_predictor_config": {
+                "num_hidden_layers": dims.cp_layer, "num_attention_heads": dims.cp_head,
+                "num_key_value_heads": dims.cp_kv_head, "head_dim": dims.cp_head_dim,
+                "intermediate_size": dims.cp_ff, "rope_theta": dims.cp_rope_theta,
+            },
+        },
+        "code2wav_config": {
+            "hidden_size": cd.d_model, "num_hidden_layers": cd.n_layer, "num_attention_heads": cd.n_head,
+            "num_key_value_heads": cd.n_kv_head, "intermediate_size": cd.d_ff,
+            "sliding_window": cd.sliding_window, "rope_theta": cd.rope_theta, "rms_norm_eps": cd.rms_eps,
+            "layer_scale_initial_scale": cd.layer_scale_init, "codebook_size": cd.codebook,
+            "num_quantizers": cd.n_quantizers, "upsampling_ratios": list(cd.upsampling_ratios),
+            "upsample_rates": list(cd.upsample_rates), "decoder_dim": cd.decoder_dim,
+        },
+        "torch_dtype": str(dtype).removeprefix("torch."),
+    }
+
+
+# the chat template's added tokens, numbered after the BPE vocabulary as
+# in Qwen's file (the `tokenizers` library numbers them so)
+QWEN_ADDED_TOKENS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+# words whose merges the small vocabulary holds ("Ġ" is GPT-2's mapped space)
+_TTS_TOKENIZER_WORDS = ("Ġthe", "Ġand", "Ġof", "Ġto", "Ġa", "Ġis", "ing", "er", "th", "he", "in", "an",
+                        "re", "on", "assistant", "user", "Ċ")
+
+
+def write_qwen3_tts_tokenizer(folder: Union[str, Path]) -> Path:
+    """tokenizer.json of a small byte-level BPE in the layout of Qwen's (the
+    `tokenizers` library reads it): the 256 byte symbols in GPT-2's order
+    as ids 0-255, merges that build _TTS_TOKENIZER_WORDS, NFC, Qwen2's
+    split, and QWEN_ADDED_TOKENS."""
+    symbols = list(bytes_to_unicode().values())
+    vocab = {sym: i for i, sym in enumerate(symbols)}
+    merges = []
+    for word in _TTS_TOKENIZER_WORDS:
+        for k in range(2, len(word) + 1):
+            if word[:k] not in vocab:
+                merges.append([word[:k - 1], word[k - 1]])
+                vocab[word[:k]] = len(vocab)
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": False}
+    data = {
+        "version": "1.0",
+        "truncation": None,
+        "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+             "normalized": False, "special": True}
+            for i, t in enumerate(QWEN_ADDED_TOKENS, start=len(vocab))
+        ],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT_PATTERN}, "behavior": "Isolated", "invert": False},
+            byte_level,
+        ]},
+        "post_processor": byte_level,
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    path = Path(folder) / "tokenizer.json"
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(data, f, ensure_ascii=False)
+    return path
+
+
+def write_qwen3_tts_checkpoint(
+    folder: Union[str, Path], dims: Qwen3TTSDims, seed: int = 0, params: Optional[dict] = None,
+) -> dict:
+    """Write a Qwen3-TTS folder: config.json, model.safetensors (each tensor
+    in its dtype in the tree) and tokenizer.json. The tree is `params` (a
+    float tree) or, without it, random bf16 weights drawn on the CPU from
+    `seed`. Returns the tree written.
+
+    The config format has no key that the loaders read for the text-track
+    pad and BOS ids (they take TEXT_PAD and TEXT_BOS), so `dims` must use
+    those and hold them in its text vocabulary."""
+    if (dims.text_pad, dims.text_bos) != (TEXT_PAD, TEXT_BOS) or dims.text_vocab <= TEXT_BOS:
+        raise ValueError("a Qwen3-TTS folder needs text_pad TEXT_PAD and text_bos TEXT_BOS inside text_vocab")
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    if params is None:
+        params = init_tts_params(torch.Generator().manual_seed(seed), dims, torch.bfloat16, "cpu")
+    tensors = qwen3_tts_state_dict(params, dims)
+    with open(folder / "config.json", "w") as f:
+        json.dump(qwen3_tts_config(dims, params["text_embed"].dtype), f, indent=2)
+    write_safetensors(folder / "model.safetensors", tensors)
+    write_qwen3_tts_tokenizer(folder)
+    return params
