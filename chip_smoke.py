@@ -106,6 +106,27 @@ Phases, one line each; any failure exits non-zero:
      `python -m whisperkit_tpu_torch.cli tts` on it in a child process (a
      24 kHz WAV of frames x 1920 samples). No kernel of the port runs in
      phases 19-20: their launch counts (the path `tts`) must all be 0
+ 21. quantization divergence (eval/quant_delta.py) at large-v3 on phase
+     4's tree: teacher_forced_divergence on the first 30 s window, 96
+     tokens, every scheme of DEFAULT_SCHEMES (agreement, flips, bf16
+     margins, mean |logit delta|), then quant_divergence on the 600 s
+     audio for every scheme and a bf16 control that must not diverge
+     (WER and token divergence against bf16); the counts' path `eval`
+ 22. the load generator (eval/loadgen.run_load) over a BatchScheduler on
+     phase 13's W8A16 pipeline: a burst of 16 x 30 s clips, then Poisson
+     arrivals of 12 clips of 30/60/90 s at 1x the burst's audio-seconds per
+     second: latency percentiles, tokens/s, serving RTF, batches, batch
+     fill, queue depth; the burst must batch; the counts' path `loadgen`
+ 23. operations on phase 13's folder: `python -m
+     whisperkit_tpu_torch.eval.regression` in a child process on three WAVs
+     with transcripts; the loader's caches written, hit (every leaf equal
+     to the quantized phase-4 tree) and rebuilt after os.utime, each load
+     timed; `cli transcribe --profile-dir` in a child process, its trace
+     read back and its kernels counted (the path `profile`); a
+     ModelManager asked from four threads loads once
+Phases 21-23 run after phase 15, while phase 4's tree and phase 13's
+pipeline are on the card (and TF32 is off, as in phases 1-15), then phases
+16-20 run.
 
 Phase 3 also holds K1 at n_mels = 80 over 39 windows (the conv embedder's
 launch in phase 17) and K3's probs form against its plain version (B=4 and
@@ -2670,6 +2691,301 @@ def phase_tts_entry(torch, card: str, pipe, folder: Path) -> dict:
     return {"bytes": n_bytes, "write_s": write_s, "load_s": load_s, "cli_wall": wall, "cli_samples": n}
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-23: evaluation, load and operations (run after phase 15)
+# ---------------------------------------------------------------------------
+
+# phase 21: the teacher trajectory's length (the JAX harness's default)
+TF_TOKENS = 96
+# phase 22: the burst (16 x 30 s) and the Poisson mix (12 clips of 30, 60
+# and 90 s at 1x the burst's audio-seconds per second, tools/perf_serve.py's
+# rule), the depth sampler's interval
+LOAD_BURST = 16
+LOAD_MIX = (30, 60, 90) * 4
+LOAD_SEED = 10
+# phase 23: the regression dataset's clips (s), the profiled CLI run's
+# token budget (a trace of the full 224-token budget runs to hundreds of
+# MB of JSON; 16 tokens keep every kernel of the run in it)
+REGRESSION_SECONDS = (30, 60, 90)
+PROFILE_SAMPLE_LENGTH = 16
+# CUPTI's names of the kernels (csrc/*.cu) → their counters' keys
+TRACE_KERNELS = (
+    ("log_mel_kernel", "log_mel"), ("mha_encoder_", "mha_encoder"),
+    ("cross_attend_q8_kernel<true>", "cross_attend_q8_probs"), ("cross_attend_q8_kernel<false>", "cross_attend_q8"),
+    ("self_attend_q8_kernel", "self_attend_q8"), ("self_attend_kernel", "self_attend"),
+)
+
+
+def finite(*xs) -> bool:
+    import math
+
+    return all(x is None or math.isfinite(x) for x in xs)
+
+
+def phase_quant_divergence(torch, card: str, pipe, audio) -> dict:
+    """Phase 21: eval/quant_delta at large-v3 on phase 4's random tree.
+    teacher_forced_divergence on the first 30 s window (TF_TOKENS tokens of
+    the bf16 greedy teacher, T == 1 steps through K4; each scheme's
+    full-sequence pass through K2 and, over an int8 cross-KV, K3) for every
+    scheme of DEFAULT_SCHEMES; then quant_divergence on the 600 s audio
+    with pipeline_options(GROUP), the pipeline once per scheme and a
+    control that repeats the bf16 run, which must not diverge at all. The
+    launch counts of the whole phase are the path `eval`."""
+    from whisperkit_tpu_torch.eval.quant_delta import (
+        DEFAULT_SCHEMES,
+        quant_divergence,
+        teacher_forced_divergence,
+    )
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.pipelines.whisper import WINDOW_SAMPLES
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    import dataclasses
+
+    label = "phase 21 quantization divergence"
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tf = teacher_forced_divergence(pipe.dims, pipe.params, audio[:WINDOW_SAMPLES], max_tokens=TF_TOKENS)
+    torch.cuda.synchronize()
+    tf_s = time.perf_counter() - t0
+    if [r.scheme for r in tf] != list(DEFAULT_SCHEMES) or len({r.n_steps for r in tf}) != 1:
+        fail(f"{label}: teacher-forced reports {[(r.scheme, r.n_steps) for r in tf]}")
+    for r in tf:
+        if not finite(r.tf_agreement, r.margin_bf16_median, r.flip_margin_median, r.mean_abs_logit_delta):
+            fail(f"{label}: {r.scheme} teacher-forced figures are not finite: {r}")
+        say(f"{label}, teacher-forced {r.scheme}: tf_agreement {r.tf_agreement} ({r.n_flips} flips in {r.n_steps} "
+            f"steps) | margin_bf16_median {r.margin_bf16_median} | flip_margin_median {r.flip_margin_median} | "
+            f"mean_abs_logit_delta {r.mean_abs_logit_delta} | {card}")
+    schemes = {**DEFAULT_SCHEMES, "bf16_control": (None, {})}
+    t0 = time.perf_counter()
+    free = quant_divergence(pipe.dims, pipe.params, [audio], pipeline_options(GROUP), schemes)
+    torch.cuda.synchronize()
+    free_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    for r in free:
+        say(f"{label}, free-running {r.scheme} on {AUDIO_SECONDS:.0f} s: wer_vs_bf16 {r.wer_vs_bf16} | "
+            f"token_divergence {r.token_divergence} ({r.n_diverged_tokens} of {r.n_ref_tokens} tokens) | "
+            f"identical_text {r.identical_text} | {card}")
+    control = free[-1]
+    if control.scheme != "bf16_control" or control.n_diverged_tokens or not control.identical_text:
+        fail(f"{label}: the bf16 control diverged from the bf16 run: {control}")
+    if not all(r.n_ref_tokens == control.n_ref_tokens > 0 and finite(r.wer_vs_bf16) for r in free):
+        fail(f"{label}: free-running reports {free}")
+    check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend", "self_attend_q8"),
+                   ("cross_attend_q8", "self_attend", "self_attend_q8"), ("cross_attend_q8_probs",),
+                   pipe.dims.n_text_layer)
+    say(f"{label}: teacher-forced {tf_s:.3f} s, free-running {len(free)} runs of {AUDIO_SECONDS:.0f} s in "
+        f"{free_s:.3f} s | launches {json.dumps(counts)} | {card}")
+    return {"counts": counts, "teacher_forced_s": tf_s, "free_running_s": free_s,
+            "teacher_forced": [dataclasses.asdict(r) for r in tf], "free_running": [dataclasses.asdict(r) for r in free]}
+
+
+def phase_loadgen(torch, card: str, pipe, audio) -> dict:
+    """Phase 22: eval/loadgen.run_load over a BatchScheduler (max_batch 16)
+    on phase 13's pipeline (W8A16, int8 cross-KV, bf16 self-KV: the
+    headline configuration) with pipeline_options(GROUP): a burst of
+    LOAD_BURST 30 s clips cut from phase 4's audio, then Poisson arrivals
+    of LOAD_MIX at 1x the burst's audio-seconds per second, the queue depth
+    sampled. Every request must return, and the burst must batch (mean
+    fill above 1). Its launch counts are the path `loadgen`."""
+    import numpy as np
+
+    from whisperkit_tpu_torch.eval.loadgen import poisson_gaps, run_load
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.pipelines.scheduler import BatchScheduler
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    label = "phase 22 load generator"
+    sr = 16_000
+    options = pipeline_options(GROUP)
+    burst = [audio[i * 30 * sr:(i + 1) * 30 * sr] for i in range(LOAD_BURST)]
+    mix = [audio[i * 10 * sr:(i * 10 + s) * sr] for i, s in enumerate(LOAD_MIX)]
+    sched = BatchScheduler(pipe, max_batch=16)
+    runs = {}
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        runs["burst"] = run_load(sched, pipe, burst, options, timeout=600)
+        capacity = runs["burst"]["audio_seconds"] / runs["burst"]["wall_s"]
+        rate = capacity / (sum(LOAD_MIX) / len(LOAD_MIX))
+        gaps = poisson_gaps(np.random.default_rng(LOAD_SEED), rate, len(mix))
+        runs["poisson"] = run_load(sched, pipe, mix, options, arrival_gaps=gaps, sample_queue_depth=True,
+                                   timeout=600)
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+    finally:
+        sched.shutdown()
+    runs["poisson"].update(arrival_rps=round(rate, 4), capacity_audio_s_per_s=round(capacity, 2))
+    runs["poisson"].pop("queue_depth_trace", None)
+    for name, out in runs.items():
+        say(f"{label}, {name}: {out['requests']} requests, {out['audio_seconds']} s audio | wall {out['wall_s']} s | "
+            f"p50/p90/p99 {out['p50_s']}/{out['p90_s']}/{out['p99_s']} s | agg_tokens_per_s "
+            f"{out['agg_tokens_per_s']} | serving_rtf {out['serving_rtf']} | batches {out['batches']}, "
+            f"mean_batch_fill {out['mean_batch_fill']}"
+            + (f" | queue_depth_max {out['queue_depth_max']}, arrivals {out['arrival_rps']}/s at capacity "
+               f"{out['capacity_audio_s_per_s']} audio-s/s" if name == "poisson" else "") + f" | {card}")
+    if runs["burst"]["mean_batch_fill"] <= 1:
+        fail(f"{label}: the burst did not batch (mean fill {runs['burst']['mean_batch_fill']})")
+    if "queue_depth_max" not in runs["poisson"]:
+        fail(f"{label}: no queue depth was sampled")
+    check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"),
+                   ("cross_attend_q8", "self_attend"), ("self_attend_q8", "cross_attend_q8_probs"),
+                   pipe.dims.n_text_layer)
+    say(f"{label}: launches {json.dumps(counts)} | {card}")
+    return {"counts": counts, **runs}
+
+
+def trace_kernel_counts(trace: dict) -> dict:
+    """Device kernel events of a Chrome trace, counted per kernel of
+    csrc/*.cu (TRACE_KERNELS) by CUPTI's names."""
+    counts = {key: 0 for _, key in TRACE_KERNELS}
+    for e in trace.get("traceEvents", []):
+        if e.get("cat") != "kernel":
+            continue
+        key = next((k for part, k in TRACE_KERNELS if part in e.get("name", "")), None)
+        if key is not None:
+            counts[key] += 1
+    return counts
+
+
+def phase_operations(torch, card: str, bf16_pipe, audio, folder: Path, root: Path, wav: Path,
+                     load_13: float) -> dict:
+    """Phase 23 on phase 13's folder. (a) `python -m
+    whisperkit_tpu_torch.eval.regression` in a child process on a dataset
+    of three WAVs (REGRESSION_SECONDS of phase 4's audio, each with a .txt
+    transcript): exit 0, a record per file, WER not null, every figure
+    finite. (b) The loader's caches: the folder loaded as W8A16 serving
+    three times, the port's caches deleted first: the first load writes
+    them, the second reads them (every leaf torch.equal to
+    quantize_whisper_params of phase 4's tree), the third, after
+    os.utime on the safetensors, rebuilds them. (c) `python -m
+    whisperkit_tpu_torch.cli transcribe --profile-dir D` on the 60 s WAV in
+    a child process (PROFILE_SAMPLE_LENGTH tokens): exit 0, one trace under
+    D that json.load reads, in which K1, K2 and K4 ran (the path `profile`:
+    the trace's kernel events). (d) A ModelManager over the folder's load,
+    asked from four threads at once, loads once."""
+    import os
+    import threading
+
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.core.model_manager import ModelManager
+    from whisperkit_tpu_torch.core.modelstate import ModelState
+    from whisperkit_tpu_torch.models.loader import cache_paths
+    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+
+    label = "phase 23"
+    # (a) the regression harness
+    data = root / "dataset"
+    data.mkdir()
+    for s in REGRESSION_SECONDS:
+        write_wav(data / f"clip_{s}s.wav", audio[: s * 16_000])
+        (data / f"clip_{s}s.txt").write_text("the quick brown fox jumps over the lazy dog")
+    stats_path = root / "stats.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.eval.regression", str(folder), str(data),
+                           "--out", str(stats_path)], capture_output=True, text=True, cwd=REPO, timeout=600)
+    regression_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label} regression: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    records = [json.loads(x) for x in stats_path.read_text().splitlines()]
+    numeric = [v for r in records for v in r.values() if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    if len(records) != len(REGRESSION_SECONDS) or any(r["wer"] is None for r in records) or not finite(*numeric):
+        fail(f"{label} regression: records {records}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"{label} regression: `python -m whisperkit_tpu_torch.eval.regression` on {len(records)} WAVs "
+        f"({'/'.join(map(str, REGRESSION_SECONDS))} s), exit 0 in {regression_s:.3f} s | per file (wer, tok/s, RTF, "
+        f"windows, fallbacks): "
+        + "; ".join(f"{r['file']} ({r['wer']:.3f}, {r['tokens_per_second']:.1f}, {r['real_time_factor']:.4f}, "
+                    f"{r['windows']}, {r['fallbacks']})" for r in records)
+        + f" | summary {json.dumps(summary)} | {card}")
+
+    # (b) the caches
+    config = WhisperConfig(model_folder=str(folder), download=False,
+                           compute_options=ComputeOptions.serving(quantization="w8a16"))
+    want = quantize_whisper_params(bf16_pipe.params)
+    files = [p for scheme in (None, "w8a16") for p in cache_paths(folder, scheme)]
+    for p in files:
+        p.unlink(missing_ok=True)
+    loads = []
+    for step in ("write", "hit", "rebuild"):
+        if step == "rebuild":
+            st = folder / "model.safetensors"
+            os.utime(st, ns=(st.stat().st_atime_ns, st.stat().st_mtime_ns + 10**9))
+        before = {p: p.stat().st_mtime_ns if p.exists() else None for p in files}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = WhisperPipeline(config)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        bad = tree_mismatches(torch, pipe.params, want)
+        if bad:
+            fail(f"{label} caches, {step}: {len(bad)} leaves differ from quantize_whisper_params of phase 4's tree: "
+                 f"{bad[:5]}")
+        rewritten = [p.name for p in files if p.exists() and p.stat().st_mtime_ns != before[p]]
+        if (step == "hit") == bool(rewritten) or not all(p.exists() for p in files):
+            fail(f"{label} caches, {step}: rewrote {rewritten} of {[p.name for p in files]}")
+        del pipe
+    sizes = {p.name: p.stat().st_size for p in files if p.suffix == ".pt"}
+    say(f"{label} caches: W8A16 serving loads of the folder: writing the caches {loads[0]:.3f} s, from the caches "
+        f"{loads[1]:.3f} s (every leaf equal to quantize_whisper_params of phase 4's tree), after os.utime on the "
+        f"safetensors (rebuilt) {loads[2]:.3f} s; phase 13's load (parse, quantize and write) {load_13:.3f} s | "
+        f"cache bytes {json.dumps(sizes)} | {card}")
+
+    # (c) --profile-dir
+    trace_dir = root / "profile"
+    argv = ["transcribe", "--model-folder", str(folder), "--audio-path", str(wav), "--chunking-strategy", "vad",
+            "--no-download", "--temperature-fallback-count", "0", "--sample-length", str(PROFILE_SAMPLE_LENGTH),
+            "--profile-dir", str(trace_dir)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", *argv], capture_output=True, text=True,
+                          cwd=REPO, timeout=600)
+    profile_s = time.perf_counter() - t0
+    traces = sorted(trace_dir.glob("*.json"))
+    if proc.returncode != 0 or len(traces) != 1 or f"profiler trace written to {traces[0]}" not in proc.stderr:
+        fail(f"{label} --profile-dir: exit {proc.returncode}, traces {traces}: {proc.stderr[-2000:]}")
+    t0 = time.perf_counter()
+    with open(traces[0]) as f:
+        trace = json.load(f)
+    read_s = time.perf_counter() - t0
+    counts = trace_kernel_counts(trace)
+    n_events = len(trace.get("traceEvents", []))
+    del trace
+    check_launches(f"{label} --profile-dir trace", counts, ("log_mel", "mha_encoder", "self_attend"),
+                   ("self_attend",), ("cross_attend_q8", "cross_attend_q8_probs", "self_attend_q8"),
+                   bf16_pipe.dims.n_text_layer)
+    say(f"{label} --profile-dir: `cli transcribe --profile-dir` on the 60 s WAV ({PROFILE_SAMPLE_LENGTH} tokens), exit 0 "
+        f"in {profile_s:.3f} s | {traces[0].name}: {traces[0].stat().st_size} bytes, {n_events} events, json.load "
+        f"{read_s:.3f} s | kernels in the trace {json.dumps(counts)} | {card}")
+
+    # (d) the model manager
+    built = []
+
+    def load():
+        built.append(threading.get_ident())
+        return WhisperPipeline(config)
+
+    manager = ModelManager(load)
+    got = [None] * 4
+    threads = [threading.Thread(target=lambda i=i: got.__setitem__(i, manager.ensure_loaded())) for i in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    manager_s = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or len(built) != 1 or not all(p is got[0] for p in got) \
+            or manager.state is not ModelState.LOADED:
+        fail(f"{label} model manager: {len(built)} loads for 4 threads, state {manager.state}")
+    manager.unload()
+    del got
+    say(f"{label} model manager: 4 threads, 1 load in {manager_s:.3f} s (load_time {manager.load_time:.3f} s) | {card}")
+    return {"counts": counts, "regression_s": regression_s, "regression_summary": summary, "load_s": loads,
+            "cache_bytes": sizes, "profile_s": profile_s, "trace_bytes": traces[0].stat().st_size,
+            "trace_events": n_events, "manager_s": manager_s, "regression_wer": [r["wer"] for r in records]}
+
+
 # (kernel, source, TPU kernel it replaces, the path whose launch count it reports)
 KERNEL_TABLE = (
     ("log_mel", "whisperkit_tpu_torch/csrc/mel.cu", "whisperkit_tpu/ops/mel.py:227", "int8"),
@@ -2727,9 +3043,16 @@ def main() -> None:
         for sub in ("model", "audio", "reports", "pyannote", "reports-diarization"):
             (root / sub).mkdir()
         phases["checkpoint"] = phase_checkpoint(torch, card, bf16["pipe"], root / "model")
-        phases["server"] = phase_server(torch, card, phases["checkpoint"].pop("pipe"), bf16["audio"], root / "audio")
+        served = phases["checkpoint"].pop("pipe")
+        phases["server"] = phase_server(torch, card, served, bf16["audio"], root / "audio")
         wav = phases["server"].pop("paths")[60]
         phases["cli"] = phase_cli(torch, card, bf16["pipe"], root / "model", wav, root / "reports")
+        # phases 21-23 run here, on phase 4's tree and phase 13's pipeline
+        phases["eval"] = phase_quant_divergence(torch, card, bf16["pipe"], bf16["audio"])
+        phases["loadgen"] = phase_loadgen(torch, card, served, bf16["audio"])
+        del served
+        phases["operations"] = phase_operations(torch, card, bf16["pipe"], bf16["audio"], root / "model", root, wav,
+                                                phases["checkpoint"]["load_s"])
         del bf16["pipe"]
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = default_tf32
         phases["diarize"] = phase_diarize_published(torch, card, bf16["audio"], root / "pyannote")
@@ -2754,7 +3077,8 @@ def main() -> None:
 
     counts = {"bf16": bf16["counts"], "int8": int8["counts"], "words": words["counts"],
               "server": phases["server"]["counts"], "diarize_conv": phases["diarize_conv"]["counts"],
-              "streaming": phases["streaming"]["counts"], "tts": tts_counts}
+              "streaming": phases["streaming"]["counts"], "tts": tts_counts, "eval": phases["eval"]["counts"],
+              "loadgen": phases["loadgen"]["counts"], "profile": phases["operations"]["counts"]}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,

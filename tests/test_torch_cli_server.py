@@ -517,14 +517,16 @@ def test_cli_build_pipeline_with_draft_and_probe_skipped_on_cpu(folders, monkeyp
         (["tts", "--text", "hi", "--quantization", "w8a8", "--device", "cpu"],
          "--quantization w8a8 is not available for tts (choices: w8a16, w4a16)"),
         (["transcribe", "--audio-path", "x.wav", "--stream"], "no microphone backend (sounddevice) on this host"),
-        (["transcribe", "--audio-path", "x.wav", "--profile-dir", "p"], "(ROADMAP.md A.12)"),
+        (["transcribe", "--audio-path", "x.wav", "--profile-dir", "p", "--stream-simulated"],
+         "--profile-dir is not supported with --stream/--stream-simulated"),
     ],
     ids=["tts", "stream", "profile_dir"],
 )
 def test_cli_out_of_slice_exits_2(argv, message, capsys, monkeypatch):
-    """What the port does not run exits 2 before any model loads:
-    `--profile-dir` names its ROADMAP item; `--stream` without a capture
-    backend and `tts --quantization w8a8` give the JAX CLI's messages."""
+    """What the port does not run exits 2 before any model loads, with the
+    JAX CLI's messages: `--stream` without a capture backend, `tts
+    --quantization w8a8`, and `--profile-dir` with a stream (an open-ended
+    run has no whole batch to trace)."""
     from whisperkit_tpu_torch.audio import capture
     from whisperkit_tpu_torch.pipelines import tts
 
@@ -538,8 +540,9 @@ def test_cli_out_of_slice_exits_2(argv, message, capsys, monkeypatch):
 
 def test_cli_module_entry_point():
     proc = subprocess.run([sys.executable, "-m", "whisperkit_tpu_torch.cli", "transcribe", "--audio-path", "x.wav",
-                           "--profile-dir", "p"], capture_output=True, text=True, cwd=REPO, timeout=120)
-    assert proc.returncode == 2 and "ROADMAP.md A.12" in proc.stderr
+                           "--profile-dir", "p", "--stream-simulated"], capture_output=True, text=True, cwd=REPO,
+                          timeout=120)
+    assert proc.returncode == 2 and "--profile-dir is not supported with --stream" in proc.stderr
 
 
 def test_cli_device_cuda_without_a_card_fails_through_the_probe(folders, capsys):

@@ -72,6 +72,10 @@ def test_port_modules_load_without_the_jax_package():
         "import whisperkit_tpu_torch.models.pyannote, whisperkit_tpu_torch.ops.fbank\n"
         "import whisperkit_tpu_torch.pipelines.tts, whisperkit_tpu_torch.models.qwen3_loader\n"
         "import whisperkit_tpu_torch.decoding.tts_loop, whisperkit_tpu_torch.audio.output\n"
+        "import whisperkit_tpu_torch.eval.wer, whisperkit_tpu_torch.eval.normalize, whisperkit_tpu_torch.eval.loadgen\n"
+        "import whisperkit_tpu_torch.eval.quant_delta, whisperkit_tpu_torch.eval.regression\n"
+        "import whisperkit_tpu_torch.tools.eval_quant_wer, whisperkit_tpu_torch.core.signposts\n"
+        "import whisperkit_tpu_torch.core.model_manager, whisperkit_tpu_torch.models.params_npz\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'whisperkit_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -86,12 +90,14 @@ def test_port_modules_load_without_the_jax_package():
 
 
 # packages the card's machine lacks: the port imports none of them, but for
-# the registry's download step, which imports huggingface_hub when it runs,
-# and the microphone source, which imports sounddevice when it is asked for
+# the registry's download step and the regression harness's dataset
+# resolution, which import huggingface_hub when they run, and the
+# microphone source, which imports sounddevice when it is asked for
 ABSENT_ON_THE_CARD = ("aiohttp", "safetensors", "transformers", "tokenizers", "pydantic", "orbax",
                       "huggingface_hub", "sounddevice")
 LAZY_IMPORTS = {
     ("whisperkit_tpu_torch/core/registry.py", "_download_snapshot", "huggingface_hub"),
+    ("whisperkit_tpu_torch/eval/regression.py", "resolve_dataset", "huggingface_hub"),
     ("whisperkit_tpu_torch/audio/capture.py", "capture_available", "sounddevice"),
     ("whisperkit_tpu_torch/audio/capture.py", "list_capture_devices", "sounddevice"),
     ("whisperkit_tpu_torch/audio/capture.py", "__init__", "sounddevice"),
@@ -148,6 +154,15 @@ def test_entry_points_import_with_those_packages_blocked():
         "import whisperkit_tpu_torch.text.writers, whisperkit_tpu_torch.text.transcription_utils\n"
         "import whisperkit_tpu_torch.pipelines.diarize, whisperkit_tpu_torch.pipelines.streaming\n"
         "import whisperkit_tpu_torch.pipelines.tts, whisperkit_tpu_torch.models.qwen3_loader\n"
+        "import whisperkit_tpu_torch.eval.regression, whisperkit_tpu_torch.eval.quant_delta\n"
+        "import whisperkit_tpu_torch.tools.eval_quant_wer, whisperkit_tpu_torch.core.signposts\n"
+        "from whisperkit_tpu_torch.eval.regression import resolve_dataset\n"
+        "try:\n"
+        "    resolve_dataset('librispeech-10mins')\n"
+        "except FileNotFoundError as e:\n"
+        "    assert 'librispeech-10mins' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('resolved a dataset without huggingface_hub')\n"
         "from whisperkit_tpu_torch.audio.capture import capture_available\n"
         "assert not capture_available()\n"
         "from whisperkit_tpu_torch.cli.main import build_parser\n"
@@ -447,3 +462,53 @@ def test_speaker_and_capture_copies_match(name):
     consts = [n for n, v in vars(ref).items() if n.isupper() or n.startswith("_SPEAKER")]
     assert all(getattr(ours, n) == getattr(ref, n) for n in consts)
     _same_source(vad, jvad, ["is_voice_detected"])
+
+
+def _same_source_but_the_package(ours, ref, names):
+    """Each named function's or class's source is the original's, with the
+    JAX package's name replaced by the port's."""
+    import inspect
+
+    for name in names:
+        assert inspect.getsource(getattr(ours, name)) == inspect.getsource(getattr(ref, name)).replace(
+            "whisperkit_tpu.", "whisperkit_tpu_torch."), name
+
+
+@pytest.mark.parametrize("name", ["eval.spelling_en", "eval.normalize", "eval.wer", "eval.loadgen"])
+def test_eval_copies_match(name):
+    """eval/spelling_en.py, normalize.py, wer.py and loadgen.py are copies:
+    the same functions, classes and constants, the same source but for the
+    package's name."""
+    import importlib
+    import inspect
+
+    ours = importlib.import_module(f"whisperkit_tpu_torch.{name}")
+    ref = importlib.import_module(f"whisperkit_tpu.{name}")
+
+    def defined(mod):
+        return sorted(n for n, v in vars(mod).items() if (inspect.isfunction(v) or inspect.isclass(v))
+                      and v.__module__ == mod.__name__)
+
+    assert defined(ours) == defined(ref)
+    _same_source_but_the_package(ours, ref, defined(ref))
+    consts = [n for n, v in vars(ref).items() if n.lstrip("_").isupper()]
+    assert all(getattr(ours, n) == getattr(ref, n) for n in consts)
+
+
+def test_concurrency_and_model_manager_copies_match():
+    """PropertyLock and CoalescingLoader are the originals' source; the
+    ModelManager's methods too (its docstring names the port's prewarm)."""
+    import inspect
+
+    from whisperkit_tpu.core import model_manager as jmodel_manager
+    from whisperkit_tpu_torch.core import model_manager
+
+    _same_source_but_the_package(concurrency, jconcurrency, ["PropertyLock", "CoalescingLoader"])
+    methods = [n for n, v in vars(jmodel_manager.ModelManager).items() if inspect.isfunction(v)
+               or isinstance(v, property)]
+    assert methods == [n for n, v in vars(model_manager.ModelManager).items() if inspect.isfunction(v)
+                       or isinstance(v, property)]
+    for n in methods:
+        a, b = vars(model_manager.ModelManager)[n], vars(jmodel_manager.ModelManager)[n]
+        a, b = (a.fget, b.fget) if isinstance(a, property) else (a, b)
+        assert inspect.getsource(a) == inspect.getsource(b), n

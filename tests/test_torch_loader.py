@@ -13,6 +13,7 @@ import shutil
 import sys
 import time
 import types
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -155,8 +156,10 @@ def test_load_whisper_float32_matches_jax(hf_folder):
 
 def test_loading_ignores_the_jax_caches(hf_folder, tmp_path):
     """A folder where the JAX loader left its converted and quantized caches
-    loads the same tensors in the port, which writes nothing there: the
-    caches are made unreadable first, so reading them would fail."""
+    (beside the port's own) loads the same tensors in the port, which
+    touches none of JAX's files: the JAX caches are made unreadable and the
+    port's own caches deleted first, so the port must parse the
+    safetensors, and it writes only its own `torch_*` caches."""
     folder = _copy(hf_folder, tmp_path / "cached")
     clean = loader.load_whisper(folder, quantization="w8a16", device="cpu")
     jloader.load_whisper(folder)
@@ -166,9 +169,14 @@ def test_loading_ignores_the_jax_caches(hf_folder, tmp_path):
     for name in caches:
         if name.endswith(".json"):
             (folder / name).write_text("{not json")
-    before = {p.name: p.stat().st_mtime_ns for p in folder.rglob("*")}
+    for p in folder.glob("torch_*"):
+        p.unlink()
+    before = {str(p): p.stat().st_mtime_ns for p in folder.rglob("*")}
     again = loader.load_whisper(folder, quantization="w8a16", device="cpu")
-    assert {p.name: p.stat().st_mtime_ns for p in folder.rglob("*")} == before
+    after = {str(p): p.stat().st_mtime_ns for p in folder.rglob("*")}
+    assert {k: v for k, v in after.items() if not Path(k).name.startswith("torch_")} == before
+    assert sorted(Path(k).name for k in set(after) - set(before)) == [
+        "torch_converted.json", "torch_converted.pt", "torch_quantized_w8a16.json", "torch_quantized_w8a16.pt"]
     assert again[0] == clean[0]
     a, b = _flat(model.params_to_numpy(again[1])), _flat(model.params_to_numpy(clean[1]))
     for k in a:

@@ -18,9 +18,10 @@ JAX package's, flag for flag (the reference's argument structs, snake-case
 
 `--stream` needs a capture backend (audio/capture.py: sounddevice); without
 one it exits 2, as the JAX CLI does; so does `tts --quantization w8a8`, a
-Whisper-encoder recipe, with the JAX CLI's message. A flag of a feature the
-port does not have yet still parses, then exits 2 with a message that names
-the ROADMAP item that brings it: `--profile-dir` (A.12).
+Whisper-encoder recipe, with the JAX CLI's message. `transcribe
+--profile-dir D` writes a `torch.profiler` trace of the whole batch, host
+and card, under D (core/signposts.py); with `--stream` or
+`--stream-simulated` it exits 2, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -31,11 +32,6 @@ import time
 from pathlib import Path
 
 from whisperkit_tpu_torch.core.errors import DeviceUnavailable
-
-# what each feature outside the port waits for (ROADMAP.md §A)
-NOT_PORTED = {
-    "--profile-dir": "device traces of a run (core/signposts.py) are not in the port yet (ROADMAP.md A.12)",
-}
 
 
 def _add_model_args(p: argparse.ArgumentParser) -> None:
@@ -118,8 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--report-path", default=".", help="report output dir")
     t.add_argument(
         "--profile-dir", default=None,
-        help="write a device trace for the whole run to this directory "
-        "(not in the port yet: exits 2)",
+        help="write a torch.profiler trace (host and card) of the whole "
+        "run to this directory",
     )
     t.add_argument("--report-format", nargs="*", default=["json"],
                    choices=["json", "srt", "vtt", "txt"])
@@ -190,11 +186,6 @@ def _decode_options(args, tokenizer=None):
     )
 
 
-def _not_ported(feature: str) -> int:
-    print(f"{feature}: {NOT_PORTED[feature]}", file=sys.stderr)
-    return 2
-
-
 def _probe_device_or_raise(args) -> None:
     """With --device cuda, check in a child process that the card
     initialises and runs one op (core/device_probe.py); raises
@@ -232,8 +223,11 @@ def _build_pipeline(args):
 
 
 def cmd_transcribe(args) -> int:
-    if args.profile_dir:
-        return _not_ported("--profile-dir")
+    if args.profile_dir and (args.stream or args.stream_simulated):
+        # streaming runs are open-ended; a "trace the whole run" flag would
+        # silently produce nothing (the stream paths return early)
+        print("--profile-dir is not supported with --stream/--stream-simulated", file=sys.stderr)
+        return 2
     paths = [Path(p) for p in args.audio_path]
     if args.audio_folder:
         folder = Path(args.audio_folder)
@@ -260,6 +254,16 @@ def cmd_transcribe(args) -> int:
     options = _decode_options(args, pipe.tokenizer)
     if args.stream_simulated:
         return _stream_simulated(pipe, paths[0], options)
+    if args.profile_dir:
+        # a trace around the whole batch (core/signposts.py); the process
+        # ends after it, so the profiler's dearer launches cost nothing
+        from whisperkit_tpu_torch.core.signposts import start_trace, stop_trace
+
+        start_trace(args.profile_dir)
+        try:
+            return _transcribe_paths(pipe, paths, options, args)
+        finally:
+            print(f"-- profiler trace written to {stop_trace()}", file=sys.stderr)
     return _transcribe_paths(pipe, paths, options, args)
 
 

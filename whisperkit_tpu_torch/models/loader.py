@@ -12,16 +12,26 @@ an 8-byte little-endian header length, a JSON header, then each tensor's
 bytes at its `data_offsets`, taken from a memory map with
 `torch.frombuffer` (BF16 included, which numpy cannot hold).
 
-The JAX package's on-disk converted and quantized caches (Orbax) are not
-ported: this loader neither reads nor writes `converted.orbax`,
-`converted_dims.json` or `quantized_<scheme>.orbax`, so a folder that
-holds them loads from its safetensors here.
+A bf16 load keeps two on-disk caches in the folder, in the port's own
+format (`torch.save` of the tree, read back with `torch.load(weights_only=
+True)`, and a JSON sidecar): `torch_converted.pt` (the converted tree,
+which skips the safetensors parse and transposes) and
+`torch_quantized_<scheme>.pt` (which skips the quantize pass too). A
+sidecar records the dims, the sources' (name, size, mtime_ns) and, for a
+quantized cache, `ops/quant.quant_format(scheme)`; a cache whose record
+differs from the folder now is rebuilt. Writing is best effort: a folder
+that cannot be written still loads and keeps no cache. The JAX package's
+Orbax caches (`converted.orbax`, `quantized_<scheme>.orbax`) are neither
+read nor written, nor does it read the port's. Delete the
+`torch_converted.*` and `torch_quantized_*` files to drop the caches.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import mmap
+import os
 import struct
 from pathlib import Path
 from typing import Optional, Union
@@ -127,21 +137,37 @@ def load_whisper(
     quantization ("w8a16"/"w4a16"; "w8a8" loads the "w8a16" tree, whose A8
     half is the encoder's int8-activation dispatch) returns the tree
     quantized by ops/quant.quantize_whisper_params.
-    """
-    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
 
+    A bf16 load reads the quantized cache, else the converted cache, else
+    the safetensors, and writes the caches it missed (best effort; see the
+    module docstring). Another `dtype` neither reads nor writes them: they
+    hold bf16 trees.
+    """
     if quantization == "w8a8":
         quantization = "w8a16"
     if quantization not in (None, "w8a16", "w4a16"):
         raise ValueError(f"unknown quantization scheme: {quantization!r}")
     folder = Path(folder)
     dev = resolve_device(device)
-    with open(folder / "config.json") as f:
-        cfg = json.load(f)
-    dims = dims_from_hf_config(cfg)
-    params = convert_hf_state_dict(_read_safetensors(folder), dims, dtype, dev)
-    if quantization is not None:
-        params = quantize_whisper_params(params, bits=4 if quantization == "w4a16" else 8)
+    use_cache = dtype == torch.bfloat16
+    cached = None
+    if use_cache and quantization is not None:
+        cached = _load_cache(folder, quantization, dev)
+    if cached is None and use_cache:
+        cached = _load_cache(folder, None, dev)
+        if cached is not None and quantization is not None:
+            cached = cached[0], _quantize(folder, cached[0], cached[1], quantization, use_cache)
+    if cached is not None:
+        dims, params = cached
+    else:
+        with open(folder / "config.json") as f:
+            cfg = json.load(f)
+        dims = dims_from_hf_config(cfg)
+        params = convert_hf_state_dict(_read_safetensors(folder), dims, dtype, dev)
+        if use_cache:
+            _save_cache(folder, dims, params, None)
+        if quantization is not None:
+            params = _quantize(folder, dims, params, quantization, use_cache)
 
     alignment_heads = None
     gen_cfg_path = folder / "generation_config.json"
@@ -246,3 +272,90 @@ def convert_hf_state_dict(
         "ln": ln("model.decoder.layer_norm"),
     }
     return _with_logits_weight({"encoder": encoder, "decoder": decoder})
+
+
+# ---------------------------------------------------------------------------
+# The on-disk caches (the port's own format)
+# ---------------------------------------------------------------------------
+
+
+def _quantize(folder: Path, dims: WhisperDims, params: dict, scheme: str, use_cache: bool) -> dict:
+    """Quantize a tree for `scheme`; with `use_cache`, keep it on disk too."""
+    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
+
+    qparams = quantize_whisper_params(params, bits=4 if scheme == "w4a16" else 8)
+    if use_cache:
+        _save_cache(folder, dims, qparams, scheme)
+    return qparams
+
+
+def _source_fingerprint(folder: Path) -> list:
+    """Cheap staleness key for the on-disk caches: (name, size, mtime_ns)
+    of every source artifact the converted tree derives from, so a
+    checkpoint updated in place (a re-export, a new revision into the same
+    folder) is never served from a cache of the old one. Content hashing
+    would read multi-GB files; size+mtime is the make-style check."""
+    out = []
+    for p in sorted(folder.glob("*.safetensors")) + [folder / "config.json"]:
+        if p.exists():
+            st = p.stat()
+            out.append([p.name, st.st_size, st.st_mtime_ns])
+    return out
+
+
+def cache_paths(folder: Union[str, Path], scheme: Optional[str] = None) -> tuple[Path, Path]:
+    """(tree file, JSON sidecar) of the converted cache (`scheme` None) or
+    of the quantized cache of `scheme` ("w8a16"/"w4a16")."""
+    stem = "torch_converted" if scheme is None else f"torch_quantized_{scheme}"
+    folder = Path(folder)
+    return folder / f"{stem}.pt", folder / f"{stem}.json"
+
+
+def _cache_record(folder: Path, dims: WhisperDims, scheme: Optional[str]) -> dict:
+    from whisperkit_tpu_torch.ops.quant import quant_format
+
+    record = {**dataclasses.asdict(dims), "_source": _source_fingerprint(folder)}
+    if scheme is not None:
+        record["_quant_format"] = quant_format(scheme)
+    return record
+
+
+def _save_cache(folder: Path, dims: WhisperDims, params: dict, scheme: Optional[str]) -> None:
+    """Write a cache, best effort: the sidecar goes first out of the way and
+    last into place, each file through a temporary name, so no reader ever
+    takes a half-written cache for a whole one. `token_embed_f32` is left
+    out (the loader derives it again)."""
+    tree_path, meta_path = cache_paths(folder, scheme)
+    dec = {k: v for k, v in params["decoder"].items() if k != "token_embed_f32"}
+    tree = {"encoder": params["encoder"], "decoder": dec}
+    tmp = [tree_path.with_name(tree_path.name + ".tmp"), meta_path.with_name(meta_path.name + ".tmp")]
+    try:
+        meta_path.unlink(missing_ok=True)
+        torch.save(tree, tmp[0])
+        os.replace(tmp[0], tree_path)
+        tmp[1].write_text(json.dumps(_cache_record(folder, dims, scheme)))
+        os.replace(tmp[1], meta_path)
+    except (OSError, RuntimeError) as e:  # a read-only folder, a full disk
+        logging.debug(f"{tree_path.name}: cache not written ({e})")
+        for t in tmp:
+            t.unlink(missing_ok=True)
+
+
+def _load_cache(folder: Path, scheme: Optional[str], device: torch.device) -> Optional[tuple[WhisperDims, dict]]:
+    """A cache's (dims, tree) on `device`, or None when it is missing, was
+    built from other sources or in another quantized format, or cannot be
+    read (then the caller rebuilds it from the sources)."""
+    tree_path, meta_path = cache_paths(folder, scheme)
+    if not (tree_path.exists() and meta_path.exists()):
+        return None
+    try:
+        record = json.loads(meta_path.read_text())
+        dims = WhisperDims(**{f.name: record[f.name] for f in dataclasses.fields(WhisperDims)})
+        if record != _cache_record(folder, dims, scheme):
+            logging.debug(f"{tree_path.name} predates the folder's sources or format; rebuilding")
+            return None
+        tree = torch.load(tree_path, map_location=device, weights_only=True, mmap=True)
+    except Exception as e:  # the cache only saves time: any fault of it falls back to the sources
+        logging.debug(f"{tree_path.name}: cache unreadable ({e}); rebuilding")
+        return None
+    return dims, _with_logits_weight(tree)

@@ -157,6 +157,21 @@ def tree_to(params: Params, device=None, dtype_fn=None) -> Params:
     return params
 
 
+def params_from_numpy(tree) -> Params:
+    """A JAX speaker tree as numpy arrays (`jax.tree.map(np.asarray,
+    params)`, or a `segmenter.npz`/`embedder.npz` file's) → the port's
+    tree of CPU tensors, the same structure: float32 leaves stay float32,
+    bf16 leaves bf16, integer leaves (W8A16 codes) keep their dtype."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v) for v in tree)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 # ---------------------------------------------------------------------------
 # PyanNet forward
 # ---------------------------------------------------------------------------

@@ -20,8 +20,8 @@ GEMM are speed work for later (ROADMAP.md A.1).
 The speaker models' quantizer (`quantize_speaker_params`, with
 `quantize_conv_weight` for their convolutions) serves the W8A16 pyannote
 variant (pipelines/diarize.py), `quantize_tts_params` the W8A16/W4A16
-Qwen3-TTS trees (pipelines/tts.py); `QUANT_FORMATS` waits for the on-disk
-caches.
+Qwen3-TTS trees (pipelines/tts.py). `QUANT_FORMATS` numbers each scheme's
+stored layout for the loader's on-disk quantized cache (models/loader.py).
 """
 
 from __future__ import annotations
@@ -38,6 +38,20 @@ W4_GROUP = 64  # rows per scale group; divides every Whisper linear's d_model
 
 # leaves that hold weight scales: bf16 whatever the tree's float dtype
 SCALE_KEYS = ("scale", "scale4")
+
+# The packed layout of each scheme's tree, as the loader's quantized cache
+# (models/loader.py) records it: a cache whose recorded format differs
+# from its scheme's entry here is rebuilt, since a changed layout can read
+# back with the same dtypes and shapes and wrong values. Bump a scheme's
+# entry whenever ITS stored representation changes. These are the port's
+# own numbers (its cache files are its own): format 1 is the layout above,
+# W8A16 int8 codes with bf16 per-column scales, W4A16 half-plane nibbles
+# with bf16 per-group scales.
+QUANT_FORMATS = {"w8a16": 1, "w4a16": 1}
+
+
+def quant_format(scheme: str) -> int:
+    return QUANT_FORMATS[scheme]
 
 
 def quantize_weight(w: torch.Tensor) -> dict:

@@ -34,12 +34,14 @@ from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
 from whisperkit_tpu_torch.models.pyannet import (
     load_pyannote_segmentation,
     load_wespeaker_resnet34,
+    params_from_numpy,
     powerset_to_activity,
     prepare_params,
     pyannet_forward,
     tree_to,
     wespeaker_embed_masked,
 )
+from whisperkit_tpu_torch.models.params_npz import read_params_npz
 from whisperkit_tpu_torch.models.pyannote import (
     CHUNK_SAMPLES,
     EmbedderDims,
@@ -203,24 +205,29 @@ class DiarizePipeline:
         safetensors}` (pyannote/segmentation-3.0 PyanNet) and
         `*wespeaker*` / `embedder*.{bin,safetensors,ckpt}` (ResNet34),
         converted by models/pyannet.py (`tools/checkpoint.
-        write_pyannote_checkpoint` writes such a folder). A folder without
-        both raises FileNotFoundError. `variant` selects the precision
-        recipe (VARIANTS), as the reference resolves its variants per
-        platform."""
+        write_pyannote_checkpoint` writes such a folder); or the JAX
+        package's pre-converted pair `segmenter.npz` + `embedder.npz`
+        (models/params_npz.py: numpy leaves only). A folder with neither
+        raises FileNotFoundError. `variant` selects the precision recipe
+        (VARIANTS), as the reference resolves its variants per platform."""
         if variant not in cls.VARIANTS:
             raise ValueError(f"unknown pyannote variant {variant!r}; one of {cls.VARIANTS}")
         if model_folder is None:
             return cls(**kwargs)
         found = find_pyannote_checkpoints(model_folder)
-        if found is None:
+        if found is not None:
+            seg, emb = load_pyannote_segmentation(found[0]), load_wespeaker_resnet34(found[1])
+        elif all((Path(model_folder) / f"{n}.npz").exists() for n in ("segmenter", "embedder")):
+            seg, emb = (params_from_numpy(read_params_npz(Path(model_folder) / f"{n}.npz"))
+                        for n in ("segmenter", "embedder"))
+        else:
             raise FileNotFoundError(
                 f"no pyannote checkpoints in {model_folder} (need one of {SEGMENTER_GLOBS} and one of "
-                f"{EMBEDDER_GLOBS})"
+                f"{EMBEDDER_GLOBS}, or segmenter.npz and embedder.npz)"
             )
-        seg, emb = found
         return cls(
-            segmenter_params=cls.apply_variant(load_pyannote_segmentation(seg), variant),
-            embedder_params=cls.apply_variant(load_wespeaker_resnet34(emb), variant),
+            segmenter_params=cls.apply_variant(seg, variant),
+            embedder_params=cls.apply_variant(emb, variant),
             **kwargs,
         )
 

@@ -59,6 +59,7 @@ from whisperkit_tpu_torch.models.qwen3_tts import (
     code2wav_decode_block,
     init_code2wav_cache,
     init_tts_params,
+    params_from_numpy,
     params_to_device,
     speech_decoder_forward,
 )
@@ -355,16 +356,24 @@ class TTSPipeline:
     @classmethod
     def from_pretrained(cls, model_folder: Optional[str] = None, **kwargs) -> "TTSPipeline":
         """A Qwen3-TTS HF folder (config.json + *.safetensors, and a
-        tokenizer.json when it has one) through models/qwen3_loader.py;
-        without a folder, the random-init tiny pipeline, as in the JAX
-        package. A folder without config.json and *.safetensors raises
+        tokenizer.json when it has one) through models/qwen3_loader.py, or
+        a folder with the JAX package's pre-converted `qwen3_tts.npz`
+        (models/params_npz.py: numpy leaves only; its dims are the `dims`
+        argument, as in the JAX package); without a folder, the random-init
+        tiny pipeline, as in the JAX package. A folder with neither raises
         FileNotFoundError, as the port's diarization does (the JAX package
-        falls back to its pickled `qwen3_tts.npz`, or to random weights)."""
+        falls back to random weights)."""
         if model_folder is None:
             return cls(**kwargs)
         folder = Path(model_folder)
         if not ((folder / "config.json").exists() and any(folder.glob("*.safetensors"))):
-            raise FileNotFoundError(f"no TTS checkpoint (config.json + *.safetensors) in {model_folder}")
+            if (folder / "qwen3_tts.npz").exists():
+                from whisperkit_tpu_torch.models.params_npz import read_params_npz
+
+                tree = read_params_npz(folder / "qwen3_tts.npz")
+                return cls(params=params_from_numpy(tree, resolve_device(kwargs.get("device", "cuda"))), **kwargs)
+            raise FileNotFoundError(
+                f"no TTS checkpoint (config.json + *.safetensors, or qwen3_tts.npz) in {model_folder}")
         from whisperkit_tpu_torch.models.qwen3_loader import load_qwen3_tts
 
         dims, params = load_qwen3_tts(folder, device=resolve_device(kwargs.get("device", "cuda")))
