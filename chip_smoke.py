@@ -124,11 +124,30 @@ Phases, one line each; any failure exits non-zero:
      timed; `cli transcribe --profile-dir` in a child process, its trace
      read back and its kernels counted (the path `profile`); a
      ModelManager asked from four threads loads once
+ 24. the mesh (whisperkit_tpu_torch/parallel/) over every visible card from
+     two on, else over two replicas of cuda:0 (correctness and overhead,
+     not scaling), each run against the same tree on one device in this
+     process: (a) dp 2, serving(quantization="w8a16") on the 600 s audio
+     (from four cards also dp 2 x tp 2), every chunk's tokens under the
+     top-2-gap rule, wall, peak and launches per device; (b) tp 2, bf16
+     serving with ALIGNMENT_HEADS and word timestamps on 60 s: tokens under
+     the gap rule, the one-device tokens' word timings teacher-forced
+     through both within MESH_WORD_TOL, one decoder step's logits within
+     phase 5's limit; (c) the W8A8 encoder at tp 2 against the unsharded
+     one; (d) the sequence-parallel encoder at tp 2 (K2 with 750 queries
+     over 1500 keys) against the replicated one; (e) diarization with
+     phase 16's published models and TTS 0.6b (MESH_TTS_FRAMES frames, T 0
+     and 0.9) at dp 2: the RTTM and embeddings, the codes under a gap
+     rule. The mesh runs' launches are the path `mesh`, per device too.
+     `python3 chip_smoke.py --mesh-only` runs phases 1, 2 and 24 alone
 Phases 21-23 run after phase 15, while phase 4's tree and phase 13's
 pipeline are on the card (and TF32 is off, as in phases 1-15), then phases
-16-20 run.
+16-20 run; phase 24's Whisper part runs after phase 12, on phase 4's and
+phase 6's trees, its part (e) after phase 20.
 
-Phase 3 also holds K1 at n_mels = 80 over 39 windows (the conv embedder's
+Phase 3 also holds K2's split form (B=1, the second 750 query rows over
+all 1500 keys: the sequence-parallel encoder's launch) against its plain
+version on the same row kinds and limit, and K1 at n_mels = 80 over 39 windows (the conv embedder's
 launch in phase 17) and K3's probs form against its plain version (B=4 and
 B=32, one and three query rows, peaked and near-flat rows): the
 probabilities within 1e-6, the output bit for bit the plain launch's; it
@@ -167,6 +186,8 @@ GROUP = 32
 DIARIZE_CONV_CHUNKS = 39
 # the argument that runs phase 3's timing process (`traced_times`)
 TIMES_ARG = "--traced-times"
+# the argument that runs phases 1, 2 and 24 alone (`mesh_only`)
+MESH_ARG = "--mesh-only"
 # phase 9's alignment heads: ten (layer, head) pairs of large-v3, one in
 # each of ten layers from 7 to 25 (on random weights any list serves)
 ALIGNMENT_HEADS = ((7, 0), (10, 17), (12, 18), (13, 12), (16, 1), (17, 14), (19, 11), (21, 4), (24, 1), (25, 6))
@@ -687,6 +708,34 @@ def check_mha_encoder(torch, g, dev, card) -> dict:
             **bound(4 * b * h * s * 64 * 2, 4 * b * h * s * s * 64, "bf16"),
         }
         del x, views
+    # the split form (the sequence-parallel encoder at tp = 2): B=1, the
+    # second half of the query rows over all 1500 keys, the same row kinds
+    # and limit; its own plain version over the same rows
+    q, k, v = k2_check.check_inputs(1, h, s, g, dev)
+    sq = s // 2
+    q_half = q[:, :, s - sq :]
+    out = attention.mha_encoder(q_half, k, v)
+    ref = attention.mha_encoder_reference(q_half, k, v)
+    ratio = k2_check.excess(out, ref)
+    half_kinds = kinds[s - sq :]
+    worst_split = [float(ratio[..., half_kinds == i].max()) for i in range(3)]
+    if not max(worst_split) <= 1.0 or not bool(torch.isfinite(out.float()).all()):
+        fail(f"mha_encoder split form (queries {sq}, keys {s}): worst row at {worst_split} of its limit")
+    if not torch.equal(out, attention.mha_encoder(q, k, v)[:, :, s - sq :]):
+        say("  (the split form's rows are not bit-equal to the same rows of the full launch)")
+    split = {
+        "max_abs_err": max_abs(torch, out, ref), "worst_row": max(worst_split), "queries": sq, "keys": s,
+        "ms": cuda_ms(torch, lambda i: attention.mha_encoder(q_half, k, v), 10),
+        "plain_ms": cuda_ms(torch, lambda i: attention.mha_encoder_reference(q_half, k, v), 3),
+        "library_ms": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(q_half, k, v), 10),
+        **bound((2 * sq + 2 * s) * h * 64 * 2, 4 * h * sq * s * 64, "bf16"),
+    }
+    say(f"phase 3 mha_encoder bf16 split form B=1 queries {sq} keys {s}: worst row {max(worst_split):.3f} of its "
+        f"limit (per kind {[round(w, 3) for w in worst_split]}), max_abs_err {split['max_abs_err']:.3e} | kernel "
+        f"{split['ms']:.4f} ms | plain {split['plain_ms']:.4f} ms | library (SDPA) {split['library_ms']:.4f} ms | "
+        f"bound {split['bound_ms']:.4f} ms ({split['bound_by']}, {100 * split['bound_ms'] / split['ms']:.1f}% of it)"
+        f" | {card}")
+    del q, k, v, q_half, out, ref
     qkv = [torch.randn((2, h, s, 64), generator=g, device=dev) for _ in range(3)]
     err32 = max_abs(torch, attention.mha_encoder(*qkv), attention.mha_encoder_reference(*qkv))
     ms32 = cuda_ms(torch, lambda i: attention.mha_encoder(*qkv), 10)
@@ -704,7 +753,7 @@ def check_mha_encoder(torch, g, dev, card) -> dict:
             f" | bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)"
             f" | {card}")
     say(f"phase 3 mha_encoder faults at B=2 (worst row / limit per kind): {json.dumps(faults)}")
-    return {"max_abs_err": err, **times[GROUP]}
+    return {"max_abs_err": err, **times[GROUP], "split": split}
 
 
 def check_self_attend(torch, g, dev, card) -> tuple[float, str]:
@@ -1352,8 +1401,8 @@ def phase_segmented(torch, card: str, pipe, audio) -> dict:
         )
         plain_bias = p._suppress_bias
 
-        def with_eot_bias(o):
-            b = plain_bias(o).clone()
+        def with_eot_bias(o, *device):
+            b = plain_bias(o, *device).clone()
             b[sp.eot] += bias
             return b
 
@@ -1566,8 +1615,8 @@ class WindowRecorder:
             self.mels.append([np.asarray(w) for w in windows])
             return mel_batch(windows)
 
-        def greedy_decode(ck, cv, options, language, window_index):
-            out = decode(ck, cv, dataclasses.replace(options, **self.held), language, window_index)
+        def greedy_decode(ck, cv, options, language, window_index, shard=None):
+            out = decode(ck, cv, dataclasses.replace(options, **self.held), language, window_index, shard)
             self.decodes.append((options.word_timestamps, out))
             return out
 
@@ -2349,8 +2398,11 @@ class TTSSpy:
                 return out
             return wrapped
 
+        self.dtypes = []  # each sampling call's logits dtype (its top-k and /T run in it)
+
         def sampler(fn):
             def wrapped(logits, *args, **kwargs):
+                self.dtypes.append(logits.dtype)
                 self.logits.append(logits.float().clone())
                 return fn(logits, *args, **kwargs)
             return wrapped
@@ -2986,6 +3038,576 @@ def phase_operations(torch, card: str, bf16_pipe, audio, folder: Path, root: Pat
             "trace_events": n_events, "manager_s": manager_s, "regression_wer": [r["wer"] for r in records]}
 
 
+# phase 24: the frames TTS generates per chunk in its mesh checks (the
+# paragraph's four chunks; 245 at the CLI's defaults take ~20 s a run)
+MESH_TTS_FRAMES = 64
+# phase 24 (b): a word's start or end may move by one alignment frame
+# (20 ms) where the ranks' bf16 sums shift a probability at a DTW tie
+MESH_WORD_TOL = 0.02
+
+
+def mesh_devices(torch) -> tuple[list, str]:
+    """Every visible card from two on; else two replicas of cuda:0 (a
+    rehearsal: correctness and overhead, not scaling)."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(n)], f"{n} cards"
+    return ["cuda:0", "cuda:0"], "two replicas of cuda:0 (one card)"
+
+
+class DecodeCalls(Spy):
+    """Spy on the pipeline's decode_loop: each call's sample_begin and output."""
+
+    def __init__(self):
+        from whisperkit_tpu_torch.pipelines import whisper as pipeline_module
+
+        super().__init__(pipeline_module, "decode_loop")
+        self.begins = []
+
+    def before(self, *args, **kwargs) -> None:
+        self.begins.append(kwargs["sample_begin"])
+
+
+def windows_of(pipe, audio, options) -> list:
+    """The VAD chunks in the pipeline's group order (length-sorted), as
+    (chunk index, group, row) on one device."""
+    chunks = pipe._vad_chunks(audio, options)
+    order = sorted(range(len(chunks)), key=lambda i: len(chunks[i].audio_samples))
+    group = min(options.concurrent_worker_count, 1 << max(0, (len(chunks) - 1).bit_length()))
+    return [(i, k // group, k % group) for k, i in enumerate(order)]
+
+
+def one_device_reference(torch, pipe, audio, options) -> tuple:
+    """pipe.transcribe on one device, recorded: (result, {chunk: tokens},
+    {chunk: the filtered logits' top-2 gap of each step}, each group's
+    (decode_loop output, sample_begin))."""
+    windows = {}
+    with StepLogits(pipe.tokenizer.special.eot) as steps, DecodeCalls() as calls:
+        result = pipe.transcribe(audio, options, callback=lambda p: windows.__setitem__(p.window_id, list(p.tokens)))
+    torch.cuda.synchronize()
+    per_group, at = [], 0
+    for out, begin in zip(calls.calls, calls.begins):
+        n = int(out.length) - begin
+        per_group.append(torch.stack(steps.gaps[at : at + n]).float().cpu())  # [steps, rows]
+        at += n
+    gaps = {i: per_group[g][:, r].tolist() for i, g, r in windows_of(pipe, audio, options)}
+    return result, windows, gaps, list(zip(calls.calls, calls.begins))
+
+
+def mesh_words_teacher_forced(torch, label, one, pipe, clip, options, ref, teacher) -> dict:
+    """Word timings of the same tokens on one device and on the tp mesh:
+    the one-device run's tokens of its group (its mel and decode, recorded
+    in `teacher`) pass teacher-forced (alignment_forward) through the whole
+    tree and through the tp ranks' shards of it, both cast to float32,
+    over the raw cross-KV (each rank writes its heads' float32 softmax);
+    each chunk's reference segments then take their words from either
+    alignment (the pipeline's word-timing rules), which must agree within
+    MESH_WORD_TOL. On random weights the alignment heads' rows are near
+    flat and the DTW path under them is ill-conditioned: the bf16 rounding
+    that the ranks' sums move shifted words by 8 s, and in float32 the int8
+    cross-KV's requantized query (a code flipped by the other summation
+    order moves a probability by ~1%) still by 0.06 s (PERF.md §6).
+    K3's probs form under tp is held on the pipeline's own path by
+    mesh_alignment. The alignments' largest difference is reported."""
+    import copy
+
+    from whisperkit_tpu_torch.decoding.loop import alignment_forward, encode_window
+    from whisperkit_tpu_torch.models.whisper import _map, _with_logits_weight
+    from whisperkit_tpu_torch.parallel.sharding import shard_whisper_params
+    from whisperkit_tpu_torch.text.word_timestamps import add_word_timestamps
+
+    dims, heads = one.dims, ALIGNMENT_HEADS
+    (out, begin), mel = teacher.decodes[0], teacher.mels[0]
+    tokens = out.tokens[:, : out.length + 1]
+    tree = _with_logits_weight(_map(lambda _, t: t.float() if t.is_floating_point() else t,
+                                    {k: v for k, v in one.params.items()}))
+    plan = pipe._mesh()
+    trees = shard_whisper_params(plan, tree)[0]
+
+    def align(params, dev):
+        _, ck, cv = encode_window(params, mel.float().to(dev), dims)
+        return alignment_forward(params, ck, cv, tokens.to(dev), dims=dims, alignment_heads=heads)
+
+    single = align(tree, one.device).cpu().numpy()
+    ranks = [a.cpu().numpy() for a in plan.run(lambda g, r: align(trees[r], plan.cells()[g][r]))[0]]
+    del tree, trees
+    align_err = max(float(abs(a - single).max()) for a in ranks)
+    chunks = one._vad_chunks(clip, options)
+    n_words, exact, worst = 0, 0, 0.0
+    for i, g, row in windows_of(one, clip, options):
+        if g:
+            continue  # the 60 s clip is one group
+        seek = chunks[i].seek_offset_index // 160
+        segs = [s for s in ref.segments if s.seek == seek]
+        sampled = [t for s in segs for t in s.tokens]
+        frames = min(3000, -(-len(chunks[i].audio_samples) // 160))
+        timed = []
+        for a in (single, ranks[0]):
+            timed.append([(w.word, w.start, w.end) for seg in add_word_timestamps(
+                segments=copy.deepcopy(segs), alignment=a[:, row], sample_begin=begin, tokens=sampled,
+                tokenizer=one.tokenizer, language="en", time_offset=seek / 100.0, window_frames=frames,
+            ) for w in seg.words or []])
+        if [w for w, _, _ in timed[0]] != [w for w, _, _ in timed[1]]:
+            fail(f"{label}: the teacher-forced words of chunk {i} differ")
+        for (_, s0, e0), (_, s1, e1) in zip(*timed):
+            d = max(abs(s0 - s1), abs(e0 - e1))
+            worst, exact, n_words = max(worst, d), exact + (d == 0), n_words + 1
+    say(f"{label}: teacher-forced on the one-device run's tokens ({tokens.shape[0]} rows x {tokens.shape[1]}): "
+        f"alignment max abs {align_err:.3e}; {n_words} words, {exact} timed exactly, largest difference "
+        f"{worst:.3f} s (limit {MESH_WORD_TOL})")
+    if not n_words or worst > MESH_WORD_TOL + 1e-9:
+        fail(f"{label}: {n_words} teacher-forced words; the largest timing difference {worst:.3f} s > "
+             f"{MESH_WORD_TOL} s")
+    return {"words": n_words, "exact": exact, "worst_s": worst, "align_err": align_err}
+
+
+def mesh_alignment(torch, label, ref_decodes: list, mesh_decodes: list, tp: int) -> dict:
+    """K3's probs form under tp against one device on the pipeline's own
+    path: the alignment buffer that the mesh's first decode gathered from
+    its ranks' heads (each rank's first decode_loop call, bit-equal across
+    ranks) against the one-device run's first decode, row by row over the
+    positions before the row's first differing token (their inputs are
+    equal), within 2^-4 of the largest probability compared: phase 5's
+    bf16 rule applied to the probabilities, since the ranks' bf16 sums move
+    the queries. → the worst difference and its limit."""
+    if len(mesh_decodes) < tp or not ref_decodes:
+        fail(f"{label}: {len(mesh_decodes)} mesh decodes for {tp} ranks, {len(ref_decodes)} on one device")
+    ref = ref_decodes[0][0]
+    ranks = [out for out, _ in mesh_decodes[:tp]]
+    if any(not torch.equal(out.alignment, ranks[0].alignment) for out in ranks[1:]):
+        fail(f"{label}: the ranks' gathered alignment buffers differ")
+    ours = ranks[0]
+    n = min(int(ref.length), int(ours.length)) + 1
+    ref_tok, our_tok = ref.tokens[:, :n].cpu(), ours.tokens[:, :n].cpu()
+    worst = top = 0.0
+    positions = 0
+    for r in range(ref_tok.shape[0]):
+        differ = (ref_tok[r] != our_tok[r]).nonzero()
+        p = int(differ[0]) if len(differ) else n
+        a = ref.alignment[:p, r].float()
+        b = ours.alignment[:p, r].to(a.device).float()
+        if p:
+            worst = max(worst, float((a - b).abs().max()))
+            top = max(top, float(a.abs().max()))
+        positions += p
+    tol = 2.0 ** -4 * top
+    say(f"{label}: K3p's gathered alignment against one device's over {positions} positions of "
+        f"{ref_tok.shape[0]} rows before their first differing token: max abs {worst:.3e} (limit {tol:.3e}, "
+        f"2^-4 of the largest probability {top:.3e})")
+    if not positions or not worst <= tol:
+        fail(f"{label}: the gathered alignment is {worst:.3e} from one device's (limit {tol:.3e}) over "
+             f"{positions} positions")
+    return {"align_err": worst, "align_tol": tol, "align_positions": positions}
+
+
+def hold_windows(label, ours: dict, ref: dict, gaps: dict) -> int:
+    """Every chunk's tokens against the reference's under the top-2-gap
+    rule (first_divergence); → the chunks equal token for token."""
+    if sorted(ours) != sorted(ref):
+        fail(f"{label}: decoded chunks {sorted(ours)} are not the reference's {sorted(ref)}")
+    same, report = 0, []
+    for i in sorted(ref):
+        div = first_divergence(ours[i], ref[i], gaps[i])
+        if div is None:
+            same += 1
+            continue
+        step, gap = div
+        report.append(f"chunk {i} at step {step} (gap {gap:.4f})")
+        if gap > BF16_GAP_TOL:
+            fail(f"{label}: chunk {i} diverges at step {step}, where the reference's top-2 gap is {gap:.4f} > "
+                 f"{BF16_GAP_TOL}")
+    say(f"{label}: {same} of {len(ref)} chunks equal token for token" +
+        (f"; diverging within the gap rule: {', '.join(report)}" if report else ""))
+    return same
+
+
+def mesh_run(torch, pipe, audio, options, counts: dict) -> tuple:
+    """One timed transcribe on a mesh pipeline, its launches added to
+    `counts` (total and per device) → (result, {chunk: tokens}, wall,
+    peak bytes per distinct device, this run's launches by device)."""
+    from whisperkit_tpu_torch.ops import _build
+
+    devices = sorted({str(d) for d in pipe.devices})
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    windows = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    result = pipe.transcribe(audio, options, callback=lambda p: windows.__setitem__(p.window_id, list(p.tokens)))
+    for d in devices:
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    by_device = {d: dict(c) for d, c in _build.launches_by_device.items()}
+    for k, v in _build.launches.items():
+        counts["total"][k] = counts["total"].get(k, 0) + v
+    for d, c in by_device.items():
+        for k, v in c.items():
+            counts["by_device"].setdefault(d, dict.fromkeys(_build.KERNELS, 0))[k] += v
+    return result, windows, wall, {d: torch.cuda.max_memory_allocated(d) for d in devices}, by_device
+
+
+def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
+    """Phase 24, Whisper over the dcn x dp x tp mesh (parallel/), each run
+    against the same tree on one device in this process:
+    (a) dp = 2, serving(quantization="w8a16") on the 600 s audio: every
+        chunk's tokens under the top-2-gap rule, wall, peak per device,
+        launches per device; with four cards or more also dp = 2 x tp = 2;
+    (b) tp = 2, bf16 serving, ALIGNMENT_HEADS, word timestamps on the first
+        60 s (K3's probs form on each rank's heads): tokens under the gap
+        rule; the gathered alignment buffer against one device's before
+        each row's first differing token (mesh_alignment); the word timings of the one-device run's tokens, teacher-
+        forced through both in float32 (mesh_words_teacher_forced), within
+        MESH_WORD_TOL; one teacher-forced decoder step's logits within
+        phase 5's bf16 limit (2^-4 of the largest logit), the ranks'
+        bit-equal;
+    (c) W8A8 at tp = 2: the encoder of 4 windows against the unsharded one,
+        within JAX's test limit (rtol 3e-2, atol 6e-2; the ranks sum exact
+        integer accumulators, so it is expected bit-equal);
+    (d) the sequence-parallel encoder at tp = 2 (K2 with 750 queries over
+        1500 keys), batch 1 at large-v3, against the replicated one within
+        2^-4 of the largest output.
+    The mesh runs' launches make the path `mesh`: K1-K4 and K3's probs form
+    must all launch, and K2, K3 and K4 on every mesh device."""
+    import dataclasses
+
+    import numpy as np
+
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.decoding.loop import encode_window, prefill_window
+    from whisperkit_tpu_torch.models import whisper as model
+    from whisperkit_tpu_torch.parallel.mesh import make_mesh, shard_params_replicated
+    from whisperkit_tpu_torch.parallel.sharding import encoder_seq_sharding, shard_whisper_params
+    from whisperkit_tpu_torch.pipelines import whisper as pipeline_module
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    devices, layout = mesh_devices(torch)
+    say(f"phase 24 mesh: devices {layout}: {devices} | {card}")
+    dims = bf16_pipe.dims
+    counts = {"total": {}, "by_device": {}}
+    out = {"layout": layout}
+    options = pipeline_options(GROUP)
+
+    def config(**co):
+        return WhisperConfig(compute_options=ComputeOptions.serving(**co), load=False)
+
+    # (a) dp = 2 (and dp 2 x tp 2 on four cards), W8A16 serving, 600 s
+    shapes = [("a", {"dp_size": 2}, devices[:2])]
+    if len(devices) >= 4:
+        shapes.append(("a4", {"dp_size": 2, "tp_size": 2}, devices[:4]))
+    one = WhisperPipeline(config(quantization="w8a16", dp_size=1), dims=dims, params=w8_params, device=devices[0])
+    t0 = time.perf_counter()
+    ref, ref_windows, gaps, _ = one_device_reference(torch, one, audio, options)
+    ref_wall = time.perf_counter() - t0
+    for key, co, devs in shapes:
+        label = f"phase 24 ({key}) {co}, W8A16 serving, {AUDIO_SECONDS:.0f} s"
+        pipe = WhisperPipeline(config(quantization="w8a16", **co), dims=dims, params=w8_params, device=devs)
+        pipe.transcribe(audio[: 60 * 16_000], options)  # warm: the workers' first launches
+        result, windows, wall, peaks, by_device = mesh_run(torch, pipe, audio, options, counts)
+        check_segments(label, result.segments)
+        same = hold_windows(label, windows, ref_windows, gaps)
+        plan = pipe._mesh()
+        say(f"{label}: mesh dcn {plan.dcn} x dp {plan.dp} x tp {plan.tp} | wall {wall:.3f} s (one device "
+            f"{ref_wall:.3f} s, with the step recorder) | {len(result.segments)} segments, {same} of "
+            f"{len(ref_windows)} chunks equal | peak per device "
+            f"{json.dumps({d: round(b / 2**30, 2) for d, b in peaks.items()})} GiB | launches per device "
+            f"{json.dumps(by_device)} | {card}")
+        out[key] = {"wall": wall, "one_device_wall": ref_wall, "same": same, "chunks": len(ref_windows),
+                    "peak_gib": {d: b / 2**30 for d, b in peaks.items()}, "launches_by_device": by_device}
+        del pipe
+    del one
+
+    # (b) tp = 2, bf16 serving, word timestamps, 60 s
+    label = "phase 24 (b) tp 2, bf16 serving, word timestamps, 60 s"
+    clip = audio[: 60 * 16_000]
+    words_options = dataclasses.replace(options, word_timestamps=True)
+    one = WhisperPipeline(config(dp_size=1), dims=dims, params=bf16_pipe.params, device=devices[0],
+                          alignment_heads=ALIGNMENT_HEADS)
+    with Spy(pipeline_module, "encode_window") as teacher:
+        teacher.mels = []
+        teacher.before = lambda params, mel, *a, **kw: teacher.mels.append(mel)
+        ref, ref_windows, gaps, teacher.decodes = one_device_reference(torch, one, clip, words_options)
+    pipe = WhisperPipeline(config(tp_size=2, dp_size=1), dims=dims, params=bf16_pipe.params, device=devices[:2],
+                           alignment_heads=ALIGNMENT_HEADS)
+    with DecodeCalls() as mesh_calls:
+        result, windows, wall, peaks, by_device = mesh_run(torch, pipe, clip, words_options, counts)
+    check_segments(label, result.segments)
+    same = hold_windows(label, windows, ref_windows, gaps)
+    gathered = mesh_alignment(torch, label, teacher.decodes, list(zip(mesh_calls.calls, mesh_calls.begins)),
+                              pipe._mesh().tp)
+    del mesh_calls
+    words = mesh_words_teacher_forced(torch, label, one, pipe, clip, words_options, ref, teacher)
+    n_words, exact, worst = words["words"], words["exact"], words["worst_s"]
+    require_mesh_launches(label, by_device, ("cross_attend_q8_probs",), ("cross_attend_q8_probs",))
+    # one teacher-forced step: the rank trees against the whole tree
+    plan = pipe._mesh()
+    trees = pipe._mesh_trees[0]
+    sp = one.tokenizer.special
+    mel = one._mel_batch([clip[i * 480_000 : (i + 1) * 480_000] for i in range(2)])
+    prompt = torch.tensor([[sp.sot, sp.language_token("en"), sp.transcribe]] * 2, device=devices[0])
+    token = torch.full((2, 1), sp.timestamp_begin, device=devices[0])
+
+    def step(tree, dev):
+        _, ck, cv = encode_window(tree, mel.to(dev), dims, quantize_kv=True)
+        pre = prefill_window(tree, ck, cv, prompt.to(dev), dims=dims, special=sp, sample_begin=3,
+                             max_new_tokens=224, sot_index=0)
+        with torch.inference_mode():
+            return model.decoder_forward(tree, token.to(dev), 3, pre.kv_k, pre.kv_v, ck, cv, dims)[:, -1]
+
+    single = step(bf16_pipe.params, torch.device(devices[0]))
+    ranks = plan.run(lambda g, r: step(trees[r], plan.cells()[g][r]))[0]
+    err = max(max_abs(torch, x.to(devices[0]), single) for x in ranks)
+    tol = 2.0 ** -4 * float(single.abs().max())
+    ranks_equal = all(torch.equal(ranks[0].cpu(), x.cpu()) for x in ranks)
+    say(f"{label}: wall {wall:.3f} s | {same} of {len(ref_windows)} chunks equal; teacher-forced {n_words} words, "
+        f"{exact} timed exactly, largest difference {worst:.3f} s (limit {MESH_WORD_TOL}) | teacher-forced step max "
+        f"|Δlogit| {err:.3e} (limit {tol:.3e}), the ranks' logits bit-equal {ranks_equal} | peak per device "
+        f"{json.dumps({d: round(b / 2**30, 2) for d, b in peaks.items()})} GiB | launches per device "
+        f"{json.dumps(by_device)} | {card}")
+    if not err <= tol or not ranks_equal:
+        fail(f"{label}: teacher-forced logits {err:.3e} from one device's (limit {tol:.3e}), ranks equal {ranks_equal}")
+    out["b"] = {"wall": wall, "same": same, "words": n_words, "words_exact": exact, "word_worst_s": worst,
+                "teacher_align_err": words["align_err"], **gathered,
+                "step_err": err, "step_tol": tol, "launches_by_device": by_device}
+    del pipe, one, trees
+
+    # (c) W8A8 at tp = 2: the encoder of 4 windows
+    from whisperkit_tpu_torch.ops import _build
+
+    plan = make_mesh(dp=1, tp=2, devices=devices[:2])
+    trees = shard_whisper_params(plan, w8_params)[0]
+    mel4 = bf16_pipe._mel_batch([audio[i * 480_000 : (i + 1) * 480_000] for i in range(4)])
+    with torch.inference_mode():
+        ref_enc = model.encoder_forward(w8_params, mel4, dims, act8=True)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        encs = plan.run(lambda g, r: model.encoder_forward(trees[r], mel4.to(plan.cells()[g][r]), dims, act8=True))[0]
+        torch.cuda.synchronize()
+        wall_c = time.perf_counter() - t0
+    add_counts(counts, _build)
+    enc = encs[0].to(devices[0]).float()
+    bit_equal = all(torch.equal(e.to(devices[0]), ref_enc) for e in encs)
+    excess = float(((enc - ref_enc.float()).abs() - (6e-2 + 3e-2 * ref_enc.float().abs())).max())
+    say(f"phase 24 (c) W8A8 encoder at tp 2, 4 windows: max abs {max_abs(torch, enc, ref_enc):.3e}, bit-equal to "
+        f"the unsharded encoder {bit_equal} (limit rtol 3e-2 atol 6e-2) | wall {wall_c:.3f} s (first call) | {card}")
+    if excess > 0:
+        fail(f"phase 24 (c): the tp W8A8 encoder exceeds rtol 3e-2 / atol 6e-2 of the unsharded one")
+    out["c"] = {"max_abs": max_abs(torch, enc, ref_enc), "bit_equal": bit_equal}
+    del trees, encs, enc, ref_enc
+
+    # (d) the sequence-parallel encoder, tp = 2, batch 1
+    seq = encoder_seq_sharding(plan)
+    replicas = shard_params_replicated(plan, bf16_pipe.params)
+    mel1 = mel4[:1]
+    with torch.inference_mode():
+        ref_enc = model.encoder_forward(bf16_pipe.params, mel1, dims)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        encs = plan.run(lambda g, r: model.encoder_forward(
+            replicas[plan.cells()[g][r]], mel1.to(plan.cells()[g][r]), dims, seq_group=seq[g][r]))[0]
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t0
+    add_counts(counts, _build)
+    err_d = max(max_abs(torch, e.to(devices[0]), ref_enc) for e in encs)
+    tol_d = 2.0 ** -4 * float(ref_enc.float().abs().max())
+    say(f"phase 24 (d) sequence-parallel encoder at tp 2, batch 1 (K2: 750 queries over 1500 keys): max abs "
+        f"{err_d:.3e} (limit {tol_d:.3e}) | wall {wall_d:.3f} s (first call) | {card}")
+    if not err_d <= tol_d:
+        fail(f"phase 24 (d): the sequence-parallel encoder is {err_d:.3e} off the replicated one (limit {tol_d:.3e})")
+    out["d"] = {"max_abs": err_d, "tol": tol_d}
+    del replicas, encs, ref_enc, mel4
+
+    total = counts["total"]
+    require_mesh_launches("phase 24", counts["by_device"],
+                          ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend"),
+                          ("mha_encoder", "cross_attend_q8", "self_attend"))
+    say(f"phase 24 mesh launches (the path `mesh`): {json.dumps(total)} | per device {json.dumps(counts['by_device'])}")
+    out["counts"] = dict(total)
+    out["counts_by_device"] = counts["by_device"]
+    return out
+
+
+def require_mesh_launches(label, by_device: dict, launched, on_every) -> None:
+    """Fail unless each kernel of `launched` launched on some device and
+    each of `on_every` on every device of `by_device`."""
+    missing = [k for k in launched if not any(c.get(k) for c in by_device.values())]
+    idle = [d for d, c in by_device.items() if not all(c.get(k) for k in on_every)]
+    if missing or idle or not by_device:
+        fail(f"{label}: kernels {missing} never launched, devices {idle} missed {on_every}: {json.dumps(by_device)}")
+
+
+def add_counts(counts: dict, build) -> None:
+    for k, v in build.launches.items():
+        counts["total"][k] = counts["total"].get(k, 0) + v
+    for d, c in build.launches_by_device.items():
+        for k, v in c.items():
+            counts["by_device"].setdefault(d, dict.fromkeys(build.KERNELS, 0))[k] += v
+
+
+def tts_mesh_divergence(torch, label, ours, ref, ref_logits, dtypes, row, top_ks, temperature, noise) -> str:
+    """'equal', or where the first code of `ours` ([F, 16]) that is not
+    `ref`'s (row `row` of the reference run) sits. `ref_logits` holds the
+    reference's logits of each sampling call ([B, V] float32, code0 then
+    the 15 heads, frame by frame), `dtypes` the dtype each call sampled in
+    (the float32 copy casts back exactly). At temperature 0 it fails unless `ours`'s
+    token lies within BF16_GAP_TOL of `ref`'s in those logits. Sampled, it
+    scores both tokens as the sampler did, logit / T + g, with `noise` the
+    reference's uniform draws of each frame ([F, top_k + 15 · head top-k],
+    made Gumbel noise as the sampler makes it, dealt to the top-k by rank): the recorded noise must give back `ref`'s
+    token, and it fails unless `ours`'s token scores within
+    BF16_GAP_TOL / T of it. `ours`'s token may take the noise of any rank
+    whose logit lies within BF16_GAP_TOL of its own (bf16 sums reorder
+    near-equal logits, and the noise goes by rank); a token outside that
+    reach, or a shard sampling with other rows' noise, fails."""
+    diff = (ours.cpu() != ref.cpu()).nonzero()
+    if not len(diff):
+        return "equal"
+    f, j = (int(x) for x in diff[0])
+    call = ref_logits[f * 16 + j]
+    logits = call[row].float().cpu()
+    a, b = int(ref[f, j]), int(ours[f, j])
+    gap = abs(float(logits[a] - logits[b]))
+    if temperature <= 0:
+        if gap > BF16_GAP_TOL:
+            fail(f"{label}: frame {f} code {j} is {b}, the reference's {a}, at a gap of {gap:.3g} > {BF16_GAP_TOL}")
+        return f"first divergence at frame {f} code {j}, gap {gap:.3g}"
+    k = top_ks[0] if j == 0 else top_ks[1]
+    lo = 0 if j == 0 else top_ks[0] + (j - 1) * top_ks[1]
+    # the sampler's own arithmetic: the top-k of the same [B, V] input in
+    # its dtype (which fixes the ranks of ties), / T in that dtype, + g
+    dtype, inv = dtypes[f * 16 + j], max(temperature, 1e-4)
+    vals, idx = call.to(dtype).topk(k, dim=-1)
+    u = noise[f, lo : lo + k].float().to(call.device)  # the uniform draws; Gumbel as parallel/mesh.gumbel
+    g = -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(torch.float32).tiny)))
+    scores = (vals[row] / inv + g).cpu()
+    vals, idx, g = vals[row].float().cpu(), idx[row].cpu(), g.cpu()
+    if int(idx[int(scores.argmax())]) != a:
+        fail(f"{label}: the recorded noise of frame {f} code {j} does not give back the reference's code {a}")
+    near = (vals - logits[b]).abs() <= BF16_GAP_TOL
+    if not bool(near.any()):
+        fail(f"{label}: frame {f} code {j} is {b}, whose logit is not within {BF16_GAP_TOL} of the reference's top-{k}")
+    b_scaled = float((call[row, b : b + 1].to(dtype) / inv).float())
+    noisy_gap = float(scores.max() - (b_scaled + g[near]).max())
+    limit = BF16_GAP_TOL / temperature
+    if noisy_gap > limit:
+        fail(f"{label}: frame {f} code {j} is {b}, the reference's {a}: their noisy scores are {noisy_gap:.3g} apart "
+             f"> {limit:.3g} (logit gap {gap:.3g})")
+    return f"first divergence at frame {f} code {j}, logit gap {gap:.3g}, noisy-score gap {noisy_gap:.3g}"
+
+
+def phase_mesh_speech(torch, card: str, audio, pyannote_folder: Path, tts_params, tts_dims) -> dict:
+    """Phase 24 (e), diarization and TTS with dp = 2 against one device:
+    the published speaker models (phase 16's folder, w32a32) on the 600 s
+    audio, the RTTM equal and the L2-normalised embeddings within
+    EMBED_LIMIT; Qwen3-TTS 0.6b bf16 (phase 19's weights), the paragraph's
+    four chunks, MESH_TTS_FRAMES frames: at temperature 0 and at the CLI's
+    0.9 with one seed, the codes under the gap rules of tts_mesh_divergence
+    (BF16_GAP_TOL: bf16 logits at two batch sizes; sampled, the two codes'
+    scores under the one-device run's recorded noise; exact equality
+    reported)."""
+    import dataclasses
+
+    import numpy as np
+
+    from whisperkit_tpu_torch.decoding.tts_loop import HEAD_TOP_K
+    from whisperkit_tpu_torch.pipelines import diarize
+    from whisperkit_tpu_torch.pipelines import tts as tts_module
+    from whisperkit_tpu_torch.pipelines.diarize import DiarizePipeline
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions, TTSPipeline
+    from whisperkit_tpu_torch.tools.profile_tts import PARAGRAPH
+
+    devices, _ = mesh_devices(torch)
+    devs = devices[:2]
+    runs = {}
+    for key, dev in (("one", devices[0]), ("mesh", devs)):
+        pipe = DiarizePipeline.from_pretrained(pyannote_folder, device=dev)
+        pipe.diarize(audio[: 60 * 16_000])  # warm
+        with Spy(diarize.VBxClusterer, "add") as added:
+            embs = []
+            added.before = lambda self, emb, ratio: embs.append(emb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = pipe.diarize(audio)
+            torch.cuda.synchronize()
+            runs[key] = (result, time.perf_counter() - t0, np.stack(embs) if embs else None)
+        del pipe
+    (one, wall_one, e_one), (mesh, wall_mesh, e_mesh) = runs["one"], runs["mesh"]
+    emb_err = float(np.abs(e_one - e_mesh).max()) if e_one is not None and e_mesh is not None and \
+        e_one.shape == e_mesh.shape else float("inf")
+    rttm_equal = one.to_rttm("talk") == mesh.to_rttm("talk")
+    say(f"phase 24 (e) diarization, dp 2 on {devs}: {AUDIO_SECONDS:.0f} s in {wall_mesh:.3f} s (one device "
+        f"{wall_one:.3f} s) | RTTM equal {rttm_equal} ({len(one.to_rttm('talk').splitlines())} lines) | "
+        f"embeddings max abs {emb_err:.3e} (limit {EMBED_LIMIT}) | {card}")
+    if not rttm_equal or not emb_err <= EMBED_LIMIT:
+        fail(f"phase 24 (e): diarization on the mesh: RTTM equal {rttm_equal}, embeddings {emb_err:.3e}")
+
+    tts = {}
+    base = GenerationOptions(max_new_tokens=MESH_TTS_FRAMES)
+    one_pipe = TTSPipeline(tts_dims, params=tts_params, device=devices[0])
+    mesh_pipe_ = TTSPipeline(tts_dims, params=tts_params, device=devs)
+    mesh_pipe_.generate(PARAGRAPH, dataclasses.replace(base, temperature=0.0, max_new_tokens=4))  # warm
+    made = []  # the SharedDraws of the one-device runs: their noise, frame by frame
+
+    class RecordedDraws(tts_module.SharedDraws):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    for temperature in (0.0, 0.9):
+        options = dataclasses.replace(base, temperature=temperature)
+        shared_draws = tts_module.SharedDraws
+        tts_module.SharedDraws = RecordedDraws
+        try:
+            t0 = time.perf_counter()
+            ref, spy = tts_spied(torch, one_pipe, PARAGRAPH, options)
+            t_one = time.perf_counter() - t0
+        finally:
+            tts_module.SharedDraws = shared_draws
+        noise = made[-1]._draws
+        # each mesh cell's loop, known by its rows' trailing text (the cells
+        # run in threads: their calls start and end in any order)
+        loop_calls, loop = [], tts_module.tts_generate_loop
+
+        def recorded(*args, **kwargs):
+            out = loop(*args, **kwargs)
+            loop_calls.append((kwargs["trailing_text"].cpu(), out))
+            return out
+
+        tts_module.tts_generate_loop = recorded
+        try:
+            t0 = time.perf_counter()
+            ours = mesh_pipe_.generate(PARAGRAPH, options)
+            for d in sorted(set(devs)):
+                torch.cuda.synchronize(d)
+            t_mesh = time.perf_counter() - t0
+        finally:
+            tts_module.tts_generate_loop = loop
+        ref_codes = spy.codes[0]
+        ref_trailing = [tuple(row) for row in mesh_pipe_._trailing_array(
+            [tr for _, _, tr, _ in (mesh_pipe_._chunk_tracks(c, options) for c in mesh_pipe_.chunker.chunk(
+                PARAGRAPH, options.target_chunk_size, options.min_chunk_size))]).tolist()]
+        by_row = {}
+        for trailing, out in loop_calls:
+            for row, codes in zip(trailing.tolist(), out.codes):
+                by_row.setdefault(tuple(row), codes.to(devices[0]))
+        if len(ref_trailing) != ref_codes.shape[0] or any(t not in by_row for t in ref_trailing):
+            fail(f"phase 24 (e) TTS: the mesh's rows do not cover the {ref_codes.shape[0]} chunks")
+        ours_codes = torch.stack([by_row[t] for t in ref_trailing])
+        rows = [tts_mesh_divergence(torch, f"phase 24 (e) TTS T={temperature} chunk {r}", ours_codes[r], ref_codes[r],
+                                    spy.logits, spy.dtypes, r, (options.top_k, HEAD_TOP_K), temperature,
+                                    torch.stack([d[r] for d in noise]) if noise else None)
+                for r in range(ref_codes.shape[0])]
+        equal = sum(r == "equal" for r in rows)
+        say(f"phase 24 (e) TTS 0.6b bf16, dp 2, T={temperature}, {ours.timings.chunks} chunks x "
+            f"{MESH_TTS_FRAMES} frames: {equal} of {len(rows)} chunks' codes equal, the others {rows} | generate "
+            f"{ours.timings.generate_seconds:.3f} s (one device {ref.timings.generate_seconds:.3f} s), whole "
+            f"{t_mesh:.3f} s (one device {t_one:.3f} s) | {card}")
+        tts[str(temperature)] = {"equal_chunks": equal, "generate_s": ours.timings.generate_seconds,
+                                 "one_device_generate_s": ref.timings.generate_seconds}
+    return {"diarize_wall": wall_mesh, "diarize_one_device_wall": wall_one, "embedding_err": emb_err, "tts": tts}
+
+
 # (kernel, source, TPU kernel it replaces, the path whose launch count it reports)
 KERNEL_TABLE = (
     ("log_mel", "whisperkit_tpu_torch/csrc/mel.cu", "whisperkit_tpu/ops/mel.py:227", "int8"),
@@ -2999,6 +3621,36 @@ KERNEL_TABLE = (
     ("self_attend_q8", "whisperkit_tpu_torch/csrc/attention_decode.cu",
      "whisperkit_tpu/ops/attention_decode.py:216", "int8"),
 )
+
+
+def mesh_only(torch, name: str, card: str) -> None:
+    """MESH_ARG: phases 1, 2 and 24 alone, for a machine with several
+    cards: large-v3's bf16 tree (init_params(SEED)) and its W8A16
+    quantization, the 600 s audio, the published speaker models and the
+    0.6b TTS weights made here as the full run makes them."""
+    from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
+    from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
+    from whisperkit_tpu_torch.pipelines.tts import TTS_VARIANTS, TTSPipeline
+    from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+    from whisperkit_tpu_torch.tools.checkpoint import write_pyannote_checkpoint
+    from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
+
+    dims = VARIANT_DIMS["large-v3"]
+    params = init_params(SEED, dims, torch.bfloat16, "cuda:0")
+    pipe = WhisperPipeline(WhisperConfig(compute_options=ComputeOptions.serving(dp_size=1), load=False), dims=dims,
+                           params=params, device="cuda:0")
+    audio = synth_speechlike_audio(AUDIO_SECONDS)
+    mesh = phase_mesh(torch, card, pipe, quantize_whisper_params(params), audio)
+    with tempfile.TemporaryDirectory(prefix="whisperkit-smoke-") as tmp:
+        write_pyannote_checkpoint(Path(tmp), SEED, full=True)
+        tts = TTSPipeline(TTS_VARIANTS["0.6b"], seed=SEED, device="cuda:0")
+        speech = phase_mesh_speech(torch, card, audio, Path(tmp), tts.params, TTS_VARIANTS["0.6b"])
+    say(json.dumps({"phases": {"mesh": {k: v for k, v in mesh.items() if k != "counts"}, "mesh_speech": speech}}))
+    say(f"card: {card}")
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}))
 
 
 def main() -> None:
@@ -3021,6 +3673,9 @@ def main() -> None:
 
     name, card = phase_card(torch)
     phase_build()
+    if sys.argv[1:] == [MESH_ARG]:
+        mesh_only(torch, name, card)
+        return
     kernel_results = phase_kernels(torch, card)
     bf16 = phase_main_path(torch, card)
     phase_step_parity(torch, "phase 5 decoder step, bf16 cache", bf16["pipe"], bf16["audio"], card)
@@ -3028,7 +3683,7 @@ def main() -> None:
     phase_step_parity(torch, "phase 7 decoder step, W8A16 + int8 self-KV cache", int8["pipe"], bf16["audio"],
                       card)
     phase_w4_w8a8(torch, card, bf16["pipe"], int8["pipe"], bf16["audio"])
-    del int8["pipe"]
+    w8_params = int8.pop("pipe").params
     words = phase_word_timestamps(torch, card, bf16["pipe"], bf16["audio"])
     phases = {
         "word_timestamps": words,
@@ -3036,6 +3691,9 @@ def main() -> None:
         "segmented": phase_segmented(torch, card, bf16["pipe"], bf16["audio"]),
         "speculative": phase_speculative(torch, card, bf16["pipe"], bf16["audio"]),
     }
+    # phase 24's Whisper part runs here, on phase 4's and phase 6's trees
+    phases["mesh"] = phase_mesh(torch, card, bf16["pipe"], w8_params, bf16["audio"])
+    del w8_params
     # phases 13-15 share one temporary folder: the checkpoint, the WAVs and
     # the CLI's reports; it is deleted when they end
     with tempfile.TemporaryDirectory(prefix="whisperkit-smoke-") as tmp:
@@ -3069,21 +3727,29 @@ def main() -> None:
         _build.reset_launches()
         phases["tts_check"] = phase_tts_card_vs_cpu(torch, card, TTS_VARIANTS["0.6b"])
         phases["tts"] = phase_tts(torch, card, TTS_VARIANTS["0.6b"])
-        phases["tts_entry"] = phase_tts_entry(torch, card, phases["tts"].pop("pipe"), root / "tts")
+        tts_pipe = phases["tts"].pop("pipe")
+        phases["tts_entry"] = phase_tts_entry(torch, card, tts_pipe, root / "tts")
         tts_counts = dict(_build.launches)
         if any(tts_counts.values()):
             fail(f"phases 19-20 launched Whisper kernels: {tts_counts}")
+        # phase 24 (e): diarization on phase 16's folder, TTS on phase 19's tree
+        phases["mesh_speech"] = phase_mesh_speech(torch, card, bf16["audio"], root / "pyannote", tts_pipe.params,
+                                                  TTS_VARIANTS["0.6b"])
+        del tts_pipe
     say(json.dumps({"phases": {k: {x: y for x, y in v.items() if x != "counts"} for k, v in phases.items()}}))
 
     counts = {"bf16": bf16["counts"], "int8": int8["counts"], "words": words["counts"],
               "server": phases["server"]["counts"], "diarize_conv": phases["diarize_conv"]["counts"],
               "streaming": phases["streaming"]["counts"], "tts": tts_counts, "eval": phases["eval"]["counts"],
-              "loadgen": phases["loadgen"]["counts"], "profile": phases["operations"]["counts"]}
+              "loadgen": phases["loadgen"]["counts"], "profile": phases["operations"]["counts"],
+              "mesh": phases["mesh"]["counts"]}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[path][key], "path": path,
-            "launches_by_path": {p: c[key] for p, c in counts.items()}, **kernel_results[key],
+            "launches_by_path": {p: c.get(key, 0) for p, c in counts.items()},
+            "mesh_launches_by_device": {d: c[key] for d, c in phases["mesh"]["counts_by_device"].items()},
+            **kernel_results[key],
         }
         for key, source, replaces, path in KERNEL_TABLE
     ]

@@ -292,6 +292,6 @@ def test_from_pretrained_refusals(tmp_path, folder):
         td.DiarizePipeline.from_pretrained(folder, variant="w4a4", device="cpu")
     with pytest.raises(FileNotFoundError, match="no pyannote checkpoints"):
         td.DiarizePipeline.from_pretrained(tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        td.DiarizePipeline(device=["cpu", "cpu"])
+    two = td.DiarizePipeline(device=["cpu", "cpu"])  # once refused; now a data-parallel mesh
+    assert (two._plan.dcn, two._plan.dp, two._plan.tp) == (1, 2, 1) and len(two._replicas) == 2
     assert td.DiarizePipeline(device=["cpu"]).segmenter_backend == "conv"

@@ -217,21 +217,43 @@ def test_language_detection_matches_jax(pipes):
 
 @pytest.mark.parametrize(
     "kwargs, decode",
-    [  # every decoding option is ported; more than one device is not
+    [  # these once raised NotImplementedError; every one now runs on a mesh
         ({"compute_options": ComputeOptions(dp_size=2)}, {"beam_size": 2}),
         ({"compute_options": ComputeOptions(tp_size=2)}, {"word_timestamps": True}),
         ({"compute_options": ComputeOptions(dcn_size=2, segmented_decode=True)}, {}),
         ({"compute_options": ComputeOptions(dp_size=2)}, {}),
         ({"compute_options": ComputeOptions(dp_size=4), "draft_dims": DIMS}, {}),
+        # sampled: each cell's rows draw the noise one device draws for them
+        ({"compute_options": ComputeOptions(dp_size=2, segmented_decode=True)}, {"temperature": 0.8}),
     ],
 )
 def test_options_outside_the_slice_raise(jparams, kwargs, decode):
+    """More than one device, and each decoding option with it (the name is
+    the test's from when these configurations raised): the pipeline on
+    four CPU replicas equals the same pipeline on one device, on the VAD
+    path (which runs over the mesh) and on a short clip (which runs on the
+    first device: with a draft model, speculatively)."""
     tparams = model.init_params(0, DIMS, torch.float32, "cpu")
     compute = kwargs.pop("compute_options", ComputeOptions())
-    config = WhisperConfig(compute_options=compute, load=False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pipe = WhisperPipeline(config, dims=DIMS, params=tparams, device="cpu", **kwargs)
-        pipe.transcribe(_audio(1.0, 0), DecodingOptions(**GREEDY, **decode))
+    single = dataclasses.replace(compute, dp_size=1, tp_size=1, dcn_size=1)
+    if "draft_dims" in kwargs:
+        kwargs["draft_params"] = model.init_params(1, DIMS, torch.float32, "cpu")
+    heads = np.array([[0, 1], [1, 3]])
+    options = DecodingOptions(**GREEDY, **decode, chunking_strategy="vad", concurrent_worker_count=4)
+    runs = []
+    for co, devices in ((compute, ["cpu"] * 4), (single, "cpu")):
+        pipe = WhisperPipeline(WhisperConfig(compute_options=co, load=False), dims=DIMS, params=tparams,
+                               device=devices, alignment_heads=heads, **kwargs)
+        runs.append([pipe.transcribe(a, options) for a in (_speechlike(65.0), _audio(1.0, 0))])
+        plan = pipe._mesh()
+        assert (plan.n_cells * plan.tp > 1) == (devices != "cpu")
+    for ours, ref in zip(*runs):
+        # a cell decodes its rows at another batch size: float32 sums differ in the last bits
+        _assert_same_result(ours, ref)
+        if decode.get("word_timestamps"):
+            words = [[(w.word, w.start, w.end) for w in s.words] for s in ours.segments]
+            assert words == [[(w.word, w.start, w.end) for w in s.words] for s in ref.segments]
+            assert any(words)
 
 
 def test_early_stop_flag_and_checkpoint_loading_raise():

@@ -22,6 +22,7 @@ from whisperkit_tpu_torch.core.concurrency import EarlyStopFlag
 from whisperkit_tpu_torch.core.configurations import ComputeOptions, DecodingOptions, WhisperConfig
 from whisperkit_tpu_torch.decoding import loop
 from whisperkit_tpu_torch.models import whisper as model
+from whisperkit_tpu_torch.parallel.mesh import SharedDraws
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 from whisperkit_tpu_torch.text.tokenizer import special_tokens_for_vocab
 from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
@@ -158,6 +159,36 @@ def test_compaction_keeps_each_rows_alignment(tparams, cross8, compactions):
     for r, n in enumerate(finish):
         torch.testing.assert_close(comp.alignment[: 2 + n + 1, r], base.alignment[: 2 + n + 1, r], rtol=0,
                                    atol=1e-6)
+
+
+def test_sampled_compaction_keeps_each_rows_draws(tparams, cross8, compactions):
+    """At temperature 0.7 the rows draw from one group's shared draws
+    (parallel/mesh.SharedDraws, as a mesh's VAD group does): the compacting
+    decode of all eight rows, and of two halves of them as two mesh cells
+    decode them, give every row the uncompacted loop's tokens, so a row
+    compacted to another index goes on with its own noise."""
+    _, tc = cross8
+
+    def run(fn, halves, **kw):
+        shared = SharedDraws(torch.Generator().manual_seed(7), 8)
+        outs = []
+        for rows in halves:
+            outs.append(fn(
+                tparams, tc[0][:, rows], tc[1][:, rows], torch.tensor(PROMPTS[rows]), torch.from_numpy(EOT_BIAS),
+                loop.DecodeScalars(0.7, 1500, float("-inf"), shared.rows(rows)), dims=DIMS, special=SP,
+                **{**KW, **kw},
+            ).tokens.numpy())
+        return np.concatenate(outs)
+
+    base = run(loop.decode_loop, [slice(0, 8)])
+    whole = run(loop.decode_loop_segmented, [slice(0, 8)], segment_tokens=8, compact=True)
+    n_whole = len(compactions)
+    halves = run(loop.decode_loop_segmented, [slice(0, 4), slice(4, 8)], segment_tokens=8, compact=True)
+    finish = (base[:, 2:] != SP.eot).sum(1)
+    assert len(set(finish.tolist())) > 2, finish
+    assert n_whole and len(compactions) > n_whole, compactions
+    np.testing.assert_array_equal(whole, base)
+    np.testing.assert_array_equal(halves, base)
 
 
 def test_compaction_gathers_the_int8_cross_kv(tparams, cross8, compactions):

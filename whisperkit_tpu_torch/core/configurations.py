@@ -4,10 +4,10 @@ defaults).
 
 Field set mirrors the reference's `WhisperKitConfig` / `DecodingOptions`
 (reference: Sources/WhisperKit/Core/Configurations.swift:7-247), snake_cased.
-The port runs every option here but more than one device: the mesh
-fields (`dp_size`, `tp_size`, `dcn_size`) are kept so that a configuration
-written for the JAX package reads the same, and the pipeline raises
-NotImplementedError when they ask for more than one device.
+The port runs every option here. The mesh fields (`dp_size`, `tp_size`,
+`dcn_size`) lay the pipeline's devices out as the JAX package's
+dcn x dp x tp mesh (whisperkit_tpu_torch/parallel/); dp_size None infers
+dp from the devices, as in the JAX package.
 """
 
 from __future__ import annotations

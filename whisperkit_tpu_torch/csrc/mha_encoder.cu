@@ -5,10 +5,13 @@
 // by dh^-0.5 and rounded to q's type before the score dot; scores and the
 // softmax are float32; the (unnormalised) probability is rounded to v's
 // type before the PV product; the output is rounded to q's type. Head dim
-// 64. q/k/v are [B, H, S, 64] with a contiguous last dimension and any
-// strides for B, H and S (the head-split views of the q/k/v projections);
-// the output is written in the [B, S, H, 64] layout, so that merging the
-// heads back is a view.
+// 64. q is [B, H, SQ, 64] and k/v [B, H, SK, 64], each with a contiguous
+// last dimension and any strides for B, H and the rows (the head-split
+// views of the q/k/v projections); SQ = SK = 1500 in the encoder, SQ < SK
+// in its sequence-parallel mode (each rank's own query rows over all the
+// keys). The grid covers the query rows, the key loop and its masking the
+// key rows. The output is written in the [B, SQ, H, 64] layout, so that
+// merging the heads back is a view.
 //
 // What bounds it: arithmetic. At the encoder's shape (S = 1500, Dh = 64)
 // one (batch, head) is 4 x 1500^2 x 64 = 0.58 GFLOP against 0.77 MB of
@@ -22,7 +25,7 @@
 // query rows, 16 per warp. Q is staged once per block (cp.async) and held
 // in registers as A fragments. K and V walk the keys in tiles of 64 through
 // a ring of STAGES buffers in shared memory, filled with cp.async (16-byte
-// copies, zero fill past S) one tile ahead of the tile being computed; rows
+// copies, zero fill past SK) one tile ahead of the tile being computed; rows
 // of 128 bytes are stored with their 16-byte chunks XOR-swizzled by the row
 // index, so that ldmatrix reads are free of bank conflicts. Per tile and
 // warp: S = Q K^T as 4 x 8 mma (K read as the col-major B operand), the
@@ -39,8 +42,8 @@
 // exponent's argument (relative error ~2^-24 of |m| log2 e, below 1e-5 of p
 // for |m| < 100) plus exp2f's 2 ulp, both far below the 2^-9 of the bf16
 // rounding of p that follows, so the result stays within the bf16
-// tolerance of the plain version. Keys past S score -inf in the last tile
-// (the zero fill is not the mask); query rows past S are computed on zero
+// tolerance of the plain version. Keys past SK score -inf in the last tile
+// (the zero fill is not the mask); query rows past SQ are computed on zero
 // rows and never stored; nothing is padded in device memory.
 //
 // Overlap of exp with the products: no explicit ping-pong; the overlap
@@ -75,7 +78,8 @@ constexpr int KT = 32;   // keys per shared-memory tile
 __global__ void __launch_bounds__(BQ)
 mha_encoder_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ out,
-                       Strides qs, Strides ks, Strides vs, int S, int H, float scale) {
+                       Strides qs, Strides ks, Strides vs, int SQ, int SK, int H,
+                       float scale) {
   __shared__ __align__(16) float ksm[KT][DH];
   __shared__ __align__(16) float vsm[KT][DH];
 
@@ -85,7 +89,7 @@ mha_encoder_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   const int qi = blockIdx.x * BQ + tid;
-  const bool active = qi < S;
+  const bool active = qi < SQ;
 
   float qv[DH], o[DH];
 #pragma unroll
@@ -95,10 +99,10 @@ mha_encoder_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   float m = -INFINITY, l = 0.f;
 
-  const int n_tiles = (S + KT - 1) / KT;
+  const int n_tiles = (SK + KT - 1) / KT;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * KT;
-    const int nvalid = min(KT, S - k0);
+    const int nvalid = min(KT, SK - k0);
     __syncthreads();  // the previous tile is no longer read
     for (int e = tid; e < KT * DH; e += BQ) {
       const int j = e / DH, d = e % DH;
@@ -152,7 +156,7 @@ mha_encoder_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (active) {
-    float* dst = out + ((long long)(b * S + qi) * H + h) * DH;
+    float* dst = out + ((long long)(b * SQ + qi) * H + h) * DH;
 #pragma unroll
     for (int d = 0; d < DH; ++d) dst[d] = o[d] / l;
   }
@@ -177,7 +181,7 @@ struct Bf16Params {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   Strides qs, ks, vs;
-  int S, H;
+  int SQ, SK, H;  // query rows, key rows, heads
   float scale;
 };
 
@@ -265,19 +269,19 @@ __global__ void __launch_bounds__(NT, 2) mha_encoder_bf16_kernel(const Bf16Param
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;  // fragment row group and column pair
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int S = p.S;
+  const int SQ = p.SQ, SK = p.SK;
   const __nv_bfloat16* qg = p.q + b * p.qs.b + h * p.qs.h + (long long)q0 * p.qs.s;
   const __nv_bfloat16* kg = p.k + b * p.ks.b + h * p.ks.h;
   const __nv_bfloat16* vg = p.v + b * p.vs.b + h * p.vs.h;
-  const int n_tiles = (S + BN - 1) / BN;
+  const int n_tiles = (SK + BN - 1) / BN;
 
   // prologue: Q with K/V tile 0 in the first group, then tiles 1 .. STAGES-2
-  load_tile<BM>(sQ, qg, p.qs.s, S - q0, tid);
+  load_tile<BM>(sQ, qg, p.qs.s, SQ - q0, tid);
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < n_tiles) {
-      load_tile<BN>(sK + st * BN * DH, kg + (long long)st * BN * p.ks.s, p.ks.s, S - st * BN, tid);
-      load_tile<BN>(sV + st * BN * DH, vg + (long long)st * BN * p.vs.s, p.vs.s, S - st * BN, tid);
+      load_tile<BN>(sK + st * BN * DH, kg + (long long)st * BN * p.ks.s, p.ks.s, SK - st * BN, tid);
+      load_tile<BN>(sV + st * BN * DH, vg + (long long)st * BN * p.vs.s, p.vs.s, SK - st * BN, tid);
     }
     cp_async_commit();
   }
@@ -296,8 +300,8 @@ __global__ void __launch_bounds__(NT, 2) mha_encoder_bf16_kernel(const Bf16Param
       const int nt = t + STAGES - 1;  // refill the buffer tile t-1 used
       if (nt < n_tiles) {
         const int st = nt % STAGES;
-        load_tile<BN>(sK + st * BN * DH, kg + (long long)nt * BN * p.ks.s, p.ks.s, S - nt * BN, tid);
-        load_tile<BN>(sV + st * BN * DH, vg + (long long)nt * BN * p.vs.s, p.vs.s, S - nt * BN, tid);
+        load_tile<BN>(sK + st * BN * DH, kg + (long long)nt * BN * p.ks.s, p.ks.s, SK - nt * BN, tid);
+        load_tile<BN>(sV + st * BN * DH, vg + (long long)nt * BN * p.vs.s, p.vs.s, SK - nt * BN, tid);
       }
       cp_async_commit();
     }
@@ -330,8 +334,8 @@ __global__ void __launch_bounds__(NT, 2) mha_encoder_bf16_kernel(const Bf16Param
       }
     }
 
-    // keys past S score -inf (only the ragged last tile has them)
-    const int kv_valid = S - t * BN;
+    // keys past SK score -inf (only the ragged last tile has them)
+    const int kv_valid = SK - t * BN;
     if (kv_valid < BN) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -405,15 +409,15 @@ __global__ void __launch_bounds__(NT, 2) mha_encoder_bf16_kernel(const Bf16Param
   }
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  __nv_bfloat16* o0 = p.o + ((long long)(b * S + row0) * p.H + h) * DH;
-  __nv_bfloat16* o1 = p.o + ((long long)(b * S + row1) * p.H + h) * DH;
+  __nv_bfloat16* o0 = p.o + ((long long)(b * SQ + row0) * p.H + h) * DH;
+  __nv_bfloat16* o1 = p.o + ((long long)(b * SQ + row1) * p.H + h) * DH;
 #pragma unroll
   for (int d = 0; d < 8; ++d) {
     const int col = d * 8 + 2 * tq;
-    if (row0 < S)
+    if (row0 < SQ)
       *reinterpret_cast<__nv_bfloat162*>(o0 + col) =
           __floats2bfloat162_rn(o[d][0] * inv0, o[d][1] * inv0);
-    if (row1 < S)
+    if (row1 < SQ)
       *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
           __floats2bfloat162_rn(o[d][2] * inv1, o[d][3] * inv1);
   }
@@ -423,9 +427,9 @@ __global__ void __launch_bounds__(NT, 2) mha_encoder_bf16_kernel(const Bf16Param
 
 // strides: the B, H and S strides (elements) of q, k and v, in that order
 extern "C" int wk_mha_encoder(const void* q, const void* k, const void* v, void* out,
-                              const long long* strides, int batch, int heads, int seq,
-                              int is_bf16, float scale, void* stream) {
-  if (batch <= 0 || heads <= 0 || seq <= 0 || batch > 65535 || heads > 65535)
+                              const long long* strides, int batch, int heads, int seq_q,
+                              int seq_k, int is_bf16, float scale, void* stream) {
+  if (batch <= 0 || heads <= 0 || seq_q <= 0 || seq_k <= 0 || batch > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
@@ -437,14 +441,14 @@ extern "C" int wk_mha_encoder(const void* q, const void* k, const void* v, void*
     if (err != cudaSuccess) return (int)err;
     const Bf16Params p{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
                        (const __nv_bfloat16*)v, (__nv_bfloat16*)out, qs, ks, vs,
-                       seq, heads, scale};
-    dim3 grid((seq + BM - 1) / BM, heads, batch);
+                       seq_q, seq_k, heads, scale};
+    dim3 grid((seq_q + BM - 1) / BM, heads, batch);
     mha_encoder_bf16_kernel<<<grid, NT, SMEM_BYTES, st>>>(p);
   } else {
-    dim3 grid((seq + BQ - 1) / BQ, heads, batch);
+    dim3 grid((seq_q + BQ - 1) / BQ, heads, batch);
     mha_encoder_f32_kernel<<<grid, BQ, 0, st>>>((const float*)q, (const float*)k,
-                                                 (const float*)v, (float*)out, qs, ks, vs, seq,
-                                                 heads, scale);
+                                                 (const float*)v, (float*)out, qs, ks, vs, seq_q,
+                                                 seq_k, heads, scale);
   }
   return (int)cudaGetLastError();
 }

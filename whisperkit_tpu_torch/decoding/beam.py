@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
-from whisperkit_tpu_torch.models.whisper import WhisperDims, decoder_forward, init_kv_cache
+from whisperkit_tpu_torch.models.whisper import WhisperDims, decoder_forward, init_kv_cache, local_heads
 from whisperkit_tpu_torch.text.tokenizer import SpecialTokens
 
 NEG = -1e9
@@ -91,7 +91,8 @@ def beam_decode_loop(
 
     cross_k_b = cross_k.repeat_interleave(k, dim=1)  # [L, B*K, H, 1500, Dh]
     cross_v_b = cross_v.repeat_interleave(k, dim=1)
-    kv_k, kv_v = init_kv_cache(dims, bk, total, params["decoder"]["token_embed"].dtype, dev)
+    kv_k, kv_v = init_kv_cache(dims, bk, total, params["decoder"]["token_embed"].dtype, dev,
+                               n_head=local_heads(params, dims.n_text_head))
 
     prompt_bk = prompt.repeat_interleave(k, dim=0)  # [B*K, P]
     logits = decoder_forward(params, prompt_bk, 0, kv_k, kv_v, cross_k_b, cross_v_b, dims)

@@ -29,13 +29,16 @@ import torch
 from whisperkit_tpu_torch.text.tokenizer import SpecialTokens
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
 from whisperkit_tpu_torch.decoding.sampler import sample_token
+from whisperkit_tpu_torch.parallel.mesh import RowDraws
 from whisperkit_tpu_torch.models.whisper import (
     WhisperDims,
     compute_cross_kv,
     compute_cross_kv_quantized,
     decoder_forward,
     encoder_forward,
+    gather_alignment,
     init_kv_cache,
+    local_heads,
 )
 
 
@@ -147,7 +150,8 @@ def prefill_window(
         raise ValueError(f"prompt length {p} != sample_begin {sample_begin}")
     total = sample_begin + max_new_tokens
     dtype = params["decoder"]["token_embed"].dtype
-    kv_k, kv_v = init_kv_cache(dims, b, total, dtype, prompt.device, quantize=quantize_self_kv)
+    kv_k, kv_v = init_kv_cache(dims, b, total, dtype, prompt.device, quantize=quantize_self_kv,
+                               n_head=local_heads(params, dims.n_text_head))
     align = None if alignment_heads is None else _alignment_buffer(p, b, alignment_heads, cross_k)
     logits = decoder_forward(
         params, prompt, 0, kv_k, kv_v, cross_k, cross_v, dims,
@@ -299,7 +303,9 @@ def decode_loop(
         suppress_blank=suppress_blank, alignment_heads=alignment_heads, quantize_self_kv=quantize_self_kv,
     )
     _advance(st, st.total, stop_check_interval)
-    return DecodeLoopOutput(st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, st.align)
+    return DecodeLoopOutput(
+        st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, gather_alignment(params, st.align),
+    )
 
 
 def _take_rows(x, index: torch.Tensor, dim: int):
@@ -313,9 +319,13 @@ def _take_rows(x, index: torch.Tensor, dim: int):
 def _compact(st: _Decode, rows: list[int], n_active: int) -> None:
     """Gather the decode's batch down to `rows` (current row indices; the
     first `n_active` still decoding, the rest repeats of the first, marked
-    done): the caches, the cross-KV, the buffers and the alignment. The
-    kernels then run on the smaller, contiguous batch."""
+    done): the caches, the cross-KV, the buffers, the alignment, and a mesh
+    shard's view of its group's draws, so each kept row goes on sampling
+    with its own noise. The kernels then run on the smaller, contiguous
+    batch."""
     index = torch.tensor(rows, dtype=torch.long, device=st.tokens.device)
+    if isinstance(st.scalars.generator, RowDraws):
+        st.scalars = st.scalars._replace(generator=st.scalars.generator.take(rows))
     st.tokens = st.tokens.index_select(0, index)
     st.token_logprobs = st.token_logprobs.index_select(0, index)
     st.last_logits = st.last_logits.index_select(0, index)
@@ -417,9 +427,14 @@ def decode_loop_segmented(
         rows = [rows[i] for i in active] + [None] * (b_new - len(active))
 
     if banked is None:  # never compacted
-        return DecodeLoopOutput(st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, st.align)
+        return DecodeLoopOutput(
+            st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, gather_alignment(params, st.align),
+        )
     banked = _bank(banked, st, [(i, r) for i, r in enumerate(rows) if r is not None], b0)
-    return DecodeLoopOutput(banked.tokens, banked.token_logprobs, st.pos, prefill.no_speech_prob, banked.align)
+    return DecodeLoopOutput(
+        banked.tokens, banked.token_logprobs, st.pos, prefill.no_speech_prob,
+        gather_alignment(params, banked.align),
+    )
 
 
 @torch.inference_mode()
@@ -431,13 +446,14 @@ def alignment_forward(
     f32: for decodes whose loop did not capture it (beam search), as
     openai/whisper timing.py does. Its cache is raw in the weights' dtype."""
     b, t = tokens.shape
-    kv_k, kv_v = init_kv_cache(dims, b, t, params["decoder"]["token_embed"].dtype, tokens.device)
+    kv_k, kv_v = init_kv_cache(dims, b, t, params["decoder"]["token_embed"].dtype, tokens.device,
+                               n_head=local_heads(params, dims.n_text_head))
     align = _alignment_buffer(t, b, alignment_heads, cross_k)
     decoder_forward(
         params, tokens, 0, kv_k, kv_v, cross_k, cross_v, dims,
         alignment_heads=alignment_heads, align_out=align,
     )
-    return align
+    return gather_alignment(params, align)
 
 
 @torch.inference_mode()
@@ -449,7 +465,7 @@ def detect_language_logits(
     b = _batch(cross_k)
     dev = _codes(cross_k).device
     dtype = params["decoder"]["token_embed"].dtype
-    kv_k, kv_v = init_kv_cache(dims, b, 8, dtype, dev)  # tiny cache for one step
+    kv_k, kv_v = init_kv_cache(dims, b, 8, dtype, dev, n_head=local_heads(params, dims.n_text_head))
     prompt = torch.full((b, 1), special.sot, dtype=torch.long, device=dev)
     logits = decoder_forward(params, prompt, 0, kv_k, kv_v, cross_k, cross_v, dims)
     lang = logits[:, 0, special.language_begin : special.language_begin + special.n_languages]

@@ -1,29 +1,33 @@
 """Token sampling (port of whisperkit_tpu/decoding/sampler.py).
 
-Temperature 0 → argmax; temperature > 0 → softmax over the top-k logits,
-then one draw from a caller-owned `torch.Generator`. Torch generators and
-JAX keys give different numbers from the same seed, so only greedy
-decoding is held token-for-token against the JAX package.
+Temperature 0 → argmax; temperature > 0 → one draw from the softmax over
+the top-k logits, as JAX's `jax.random.categorical` draws it: the argmax
+of top_vals / T plus Gumbel noise, the noise made from uniform draws of a
+caller-owned `torch.Generator`, or of a mesh shard's view of one
+generator's whole-batch draws (parallel/mesh.SharedDraws), so that a seed
+samples the same rows alike on one device and on several. Torch
+generators and JAX keys give different numbers from the same seed, so only
+greedy decoding is held token-for-token against the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
+
+from whisperkit_tpu_torch.parallel.mesh import gumbel
 
 
 def sample_token(
     logits: torch.Tensor,  # [B, V] f32, already filtered
     temperature: float,
-    generator: Optional[torch.Generator] = None,
+    generator=None,  # a torch.Generator, or a parallel.mesh.RowDraws view
     top_k: int = 5,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (tokens [B] int64, logprob-of-token [B] f32)."""
     if temperature > 0:
         top_vals, top_idx = torch.topk(logits, top_k, dim=-1)
-        probs = torch.softmax(top_vals / max(temperature, 1e-4), dim=-1)
-        choice = torch.multinomial(probs, 1, generator=generator)  # [B, 1]
+        noise = gumbel(generator, top_vals.shape, logits.device)
+        choice = torch.argmax(top_vals / max(temperature, 1e-4) + noise, dim=-1, keepdim=True)  # [B, 1]
         token = torch.gather(top_idx, 1, choice)[:, 0]
     else:
         token = torch.argmax(logits, dim=-1)

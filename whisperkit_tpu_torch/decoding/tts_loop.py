@@ -36,11 +36,11 @@ from whisperkit_tpu_torch.models.qwen3_tts import (
     Params,
     Qwen3TTSDims,
     code_decoder_forward,
-    gumbel,
     init_code_kv_cache,
     multicode_forward,
     sample_topk,
 )
+from whisperkit_tpu_torch.parallel.mesh import gumbel
 
 # frames between two reads of `done` by the host in `tts_generate_loop`
 SEGMENT_FRAMES = 16
@@ -59,7 +59,7 @@ def suppress_bias(device) -> torch.Tensor:
 class TTSScalars(NamedTuple):
     temperature: float
     repetition_penalty: float  # 1.0 = off
-    generator: torch.Generator  # on the device the loop runs on
+    generator: torch.Generator  # on the loop's device, or a mesh shard's parallel.mesh.RowDraws
 
 
 class TTSLoopOutput(NamedTuple):

@@ -582,13 +582,6 @@ def code_predictor_forward(
     return rms_norm(x, mc["ln_f"])
 
 
-def gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """Standard Gumbel noise, float32, as `jax.random.gumbel` draws it:
-    -log(-log(u)), u uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(torch.float32).tiny)))
-
-
 def sample_topk(
     logits: torch.Tensor,  # [B, V] float32
     temperature: float,

@@ -30,6 +30,19 @@ are plain torch, as the JAX package leaves them to XLA.
 A quantized tree (`ops/quant.quantize_whisper_params`) keeps its int8 and
 uint8 codes and its bf16 scales through `params_from_numpy` and
 `params_to_numpy`.
+
+Tensor parallelism: a tp rank's tree (parallel/sharding.
+shard_whisper_params) holds its Megatron shard and, under "tp", its rank's
+handle on the group's collectives (parallel/group.py), as a JAX tree holds
+its NamedShardings. Every function here that takes `params` reads it:
+each rank runs n_head / tp heads, a row-split linear's partial products
+are all-reduced before its bias is added once (`_dense_row`), W8A8's
+activation scale is reduced to the maximum over the ranks, and the
+alignment heads' probabilities are written by the rank that holds the head
+(`gather_alignment` then sums the ranks' buffers). The int8 cross-KV and
+self-KV scales are per head (over frames, or per token over Dh), so a head
+split leaves them exact. `encoder_forward(seq_group=...)` is the
+sequence-parallel encoder.
 """
 
 from __future__ import annotations
@@ -251,19 +264,54 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _product(x: torch.Tensor, p: Params, a8: bool = False, group=None) -> torch.Tensor:
+    """x @ the weight of `p`, by its form: "w_q4" → W4A16, "w_q" → W8A16
+    (W8A8 when `a8`), else the plain product."""
+    if "w_q4" in p:
+        return quant.quantized_matmul_w4(x, p)
+    if "w_q" in p:
+        return quant.quantized_matmul_w8a8(x, p, group) if a8 else quant.quantized_matmul(x, p)
+    return x @ p["w"]
+
+
 def dense(x: torch.Tensor, p: Params, a8: bool = False) -> torch.Tensor:
     """Linear layer; dispatches on the weight's form like the JAX `dense`:
     "w_q4" → W4A16, "w_q" → W8A16 (W8A8 when `a8`), else the plain
     product. `a8` is a no-op for unquantized and int4 weights."""
-    if "w_q4" in p:
-        y = quant.quantized_matmul_w4(x, p)
-    elif "w_q" in p:
-        y = quant.quantized_matmul_w8a8(x, p) if a8 else quant.quantized_matmul(x, p)
-    else:
-        y = x @ p["w"]
+    y = _product(x, p, a8)
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def _dense_row(x: torch.Tensor, p: Params, a8: bool, tp) -> torch.Tensor:
+    """A row-split linear (attention out, fc2): under tp each rank's
+    product over its input rows is a partial sum, summed over the ranks,
+    and the bias is added once, after the sum. W8A8 sums its exact integer
+    accumulators instead, with the activation scale reduced over the
+    ranks (`quantized_matmul_w8a8(group=)`), so the sharded product equals
+    the unsharded one."""
+    if tp is None:
+        return dense(x, p, a8)
+    if a8 and "w_q" in p:
+        y = _product(x, p, a8, tp)
+    else:
+        y = tp.all_reduce_sum(_product(x, p, a8))
+    return y + p["b"] if "b" in p else y
+
+
+def local_heads(params: Params, n_head: int) -> int:
+    """The heads of this tree's rank: n_head / tp under tp, else n_head."""
+    tp = params.get("tp")
+    return n_head if tp is None else n_head // tp.size
+
+
+def gather_alignment(params: Params, align: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Under tp, the alignment buffer with every rank's heads: each rank
+    wrote only the slots of the heads it holds into a zero buffer, so the
+    sum over the ranks is exact. Every rank must call it."""
+    tp = params.get("tp")
+    return align if tp is None or align is None else tp.all_reduce_sum(align)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -366,29 +414,50 @@ def _conv1d(x, w, b, stride):
 
 
 def encoder_forward(
-    params: Params, mel: torch.Tensor, dims: WhisperDims, act8: bool = False
+    params: Params, mel: torch.Tensor, dims: WhisperDims, act8: bool = False, seq_group=None,
 ) -> torch.Tensor:
     """mel [B, n_mels, 3000] → encoder output [B, 1500, d_audio].
 
     act8: W8A8, the "w8a8" scheme: int8-quantized block linears (q, k, v,
     out, fc1, fc2) run with int8 activations (`dense(a8=True)`); attention
-    and the convolutions stay as they are. No-op on unquantized weights."""
+    and the convolutions stay as they are. No-op on unquantized weights.
+
+    seq_group: a TPRank (parallel/sharding.encoder_seq_sharding), the
+    sequence-parallel mode over replicated weights: the convolutions run
+    on the whole mel, then rank r keeps frames [r·T/tp, (r+1)·T/tp); the
+    norms, projections and MLP run on those frames, each attention layer
+    all-gathers K and V and runs K2 with the rank's queries over all keys,
+    and the ranks' outputs are gathered at the end, so every rank returns
+    the whole [B, 1500, d_audio]."""
     enc = params["encoder"]
-    n_head = dims.n_audio_head
+    tp = params.get("tp")
+    n_head = local_heads(params, dims.n_audio_head)
     x = _gelu(_conv1d(mel, enc["conv1"]["w"], enc["conv1"]["b"], 1))
     x = _gelu(_conv1d(x, enc["conv2"]["w"], enc["conv2"]["b"], 2))
     x = x.transpose(1, 2)  # [B, T=1500, D]
     x = x + enc["pos_embed"].to(x.dtype)
+    if seq_group is not None:
+        if tp is not None:
+            raise ValueError("the sequence-parallel encoder takes replicated weights, not a tp shard")
+        frames = x.shape[1]
+        if frames % seq_group.size:
+            raise ValueError(f"{frames} frames do not split over {seq_group.size} ranks")
+        per = frames // seq_group.size
+        x = x[:, seq_group.rank * per : (seq_group.rank + 1) * per]
     for bp in enc["blocks"]:
         h = layer_norm(x, bp["attn_ln"])
         # head-split views in, [B, S, H, Dh] memory out: no copies either side
         q = _split_heads(dense(h, bp["attn"]["q"], act8), n_head)
-        k = _split_heads(dense(h, bp["attn"]["k"], act8), n_head)
-        v = _split_heads(dense(h, bp["attn"]["v"], act8), n_head)
-        x = x + dense(_merge_heads(mha_encoder(q, k, v)), bp["attn"]["out"], act8)
+        k = dense(h, bp["attn"]["k"], act8)
+        v = dense(h, bp["attn"]["v"], act8)
+        if seq_group is not None:
+            k, v = seq_group.all_gather(k, 1), seq_group.all_gather(v, 1)
+        k, v = _split_heads(k, n_head), _split_heads(v, n_head)
+        x = x + _dense_row(_merge_heads(mha_encoder(q, k, v)), bp["attn"]["out"], act8, tp)
         h = layer_norm(x, bp["mlp_ln"])
-        x = x + dense(_gelu(dense(h, bp["fc1"], act8)), bp["fc2"], act8)
-    return layer_norm(x, enc["ln_post"])
+        x = x + _dense_row(_gelu(dense(h, bp["fc1"], act8)), bp["fc2"], act8, tp)
+    x = layer_norm(x, enc["ln_post"])
+    return x if seq_group is None else seq_group.all_gather(x, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -397,8 +466,9 @@ def encoder_forward(
 
 
 def compute_cross_kv(params: Params, enc_out: torch.Tensor, dims: WhisperDims):
-    """Per-layer cross-attention K/V: (k, v), each [L, B, H, 1500, Dh]."""
-    n_head = dims.n_text_head
+    """Per-layer cross-attention K/V: (k, v), each [L, B, H, 1500, Dh]
+    (H / tp heads under tp)."""
+    n_head = local_heads(params, dims.n_text_head)
     ks, vs = [], []
     for bp in params["decoder"]["blocks"]:
         ks.append(_split_heads(dense(enc_out, bp["cross_attn"]["k"]), n_head))
@@ -411,9 +481,9 @@ def compute_cross_kv_quantized(params: Params, enc_out: torch.Tensor, dims: Whis
     time, so at most one layer's bf16 K/V exists at once.
 
     Returns ({"q8", "scale"}, {"q8", "scale"}) with q8 [L,B,H,1500,Dh]
-    int8 and scale [L,B,H,1,Dh] f32.
+    int8 and scale [L,B,H,1,Dh] f32 (H / tp heads under tp).
     """
-    n_head, n_layer = dims.n_text_head, dims.n_text_layer
+    n_head, n_layer = local_heads(params, dims.n_text_head), dims.n_text_layer
     b, frames, _ = enc_out.shape
     shape = (n_layer, b, n_head, frames, dims.head_dim)
     scale_shape = (n_layer, b, n_head, 1, dims.head_dim)
@@ -485,12 +555,16 @@ def head_slots(alignment_heads: Sequence[Sequence[int]], n_layer: int, n_head: i
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(dims: WhisperDims, batch: int, length: int, dtype, device, quantize: bool = False):
+def init_kv_cache(
+    dims: WhisperDims, batch: int, length: int, dtype, device, quantize: bool = False,
+    n_head: Optional[int] = None,
+):
     """Self-attention KV cache (k, v): two [L, B, H, length, Dh] zero
     tensors of `dtype`, or with `quantize` the int8 form, two
     {"q8": int8 [L, B, H, length, Dh], "scale": f32 [L, B, H, length, 1]}
-    dicts, zero-filled (the JAX prefill's allocation)."""
-    shape = (dims.n_text_layer, batch, dims.n_text_head, length, dims.head_dim)
+    dicts, zero-filled (the JAX prefill's allocation). `n_head` overrides
+    H (a tp rank's `local_heads`)."""
+    shape = (dims.n_text_layer, batch, n_head or dims.n_text_head, length, dims.head_dim)
 
     def one():
         if quantize:
@@ -555,8 +629,9 @@ def decoder_forward(
     avoid rebuilding it.
     """
     dec = params["decoder"]
+    tp = params.get("tp")
     b, t = tokens.shape
-    n_head = dims.n_text_head
+    n_head = local_heads(params, dims.n_text_head)
     s_max = (kv_k["q8"] if isinstance(kv_k, dict) else kv_k).shape[3]
     dev = tokens.device
 
@@ -577,7 +652,10 @@ def decoder_forward(
         raise ValueError("alignment_heads and align_out go together")
     slots = [None] * dims.n_text_layer
     if align_out is not None:
-        slots = head_slots(alignment_heads, dims.n_text_layer, n_head)
+        slots = head_slots(alignment_heads, dims.n_text_layer, dims.n_text_head)
+        if tp is not None:  # this rank's heads; a layer without one of them runs plain K3
+            hs = tp.head_slice(dims.n_text_head)
+            slots = [None if s is None or max(s[hs]) < 0 else s[hs] for s in slots]
         if align_out.shape[:3] != (t, b, len(alignment_heads)):
             raise ValueError(f"align_out: expected [{t}, {b}, {len(alignment_heads)}, frames], "
                              f"got {tuple(align_out.shape)}")
@@ -593,16 +671,16 @@ def decoder_forward(
             attn = _self_attend_step(q, kk, vv, mask_row)
         else:
             attn = _attend(q, kk, vv, mask)
-        x = x + dense(_merge_heads(attn), bp["attn"]["out"])
+        x = x + _dense_row(_merge_heads(attn), bp["attn"]["out"], False, tp)
 
         h = layer_norm(x, bp["cross_attn_ln"])
         cq = _split_heads(dense(h, bp["cross_attn"]["q"]), n_head)
         capture = {} if slots[li] is None else {"probs_out": probs_view, "probs_slots": slots[li]}
         cross_out = _cross_attend(cq, _layer(cross_k, li), _layer(cross_v, li), **capture)
-        x = x + dense(_merge_heads(cross_out), bp["cross_attn"]["out"])
+        x = x + _dense_row(_merge_heads(cross_out), bp["cross_attn"]["out"], False, tp)
 
         h = layer_norm(x, bp["mlp_ln"])
-        x = x + dense(_gelu(dense(h, bp["fc1"])), bp["fc2"])
+        x = x + _dense_row(_gelu(dense(h, bp["fc1"])), bp["fc2"], False, tp)
 
     x = layer_norm(x, dec["ln"])
     # float32 operands: the JAX einsum accumulates and returns float32

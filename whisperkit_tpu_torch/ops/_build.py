@@ -12,9 +12,11 @@ the package, named by a hash of the sources and flags so an edited kernel
 never loads a stale build. Nothing here runs at import time: the CPU tests
 import every module on hosts that have no nvcc.
 
-`launches` counts kernel launches per kernel: each wrapper adds one where
-it launches its kernel, and nowhere else, so a run can show that its main
-path went through the kernels.
+`launches` counts kernel launches per kernel, and `launches_by_device`
+per device and kernel: each wrapper adds one where it launches its
+kernel, and nowhere else, so a run can show that its main path (and, on a
+mesh, every device of it) went through the kernels. The counts are
+guarded by a lock: the mesh's worker threads launch at the same time.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional
@@ -43,6 +46,9 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend", "self_attend_q8")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+launches_by_device: dict[str, dict[str, int]] = {}
+_count_lock = threading.Lock()
+_load_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,8 +58,8 @@ _SIGNATURES = {
     # padded, basis fragments, mel_w, mel spans, out, batch, n_frames, n_mels, stream
     "wk_log_mel": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # q, k, v, out, strides (9 x int64: B, H, S of q, k, v), batch, heads,
-    # seq, is_bf16, scale, stream
-    "wk_mha_encoder": (_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _I, _F, _P),
+    # query rows, key rows, is_bf16, scale, stream
+    "wk_mha_encoder": (_P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _I, _I, _F, _P),
     # qi, q_scale, k, v, v_scale, out, batch*heads, t, s, stream
     "wk_cross_attend_q8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # the same, then probs, n_head, head slots (n_head x int8, host), probs
@@ -77,8 +83,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+        launches_by_device.clear()
 
 
 def _sources() -> list[Path]:
@@ -153,26 +161,35 @@ def build(force: bool = False) -> BuildResult:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (once, whichever
+    thread asks first; the others wait for it)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _load_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build().path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 
-def launch(kernel: str, fn_name: str, *args) -> None:
-    """Call one exported launcher on the current stream, raise on a
-    non-zero launch status, and count the launch."""
+def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call one exported launcher for tensors on `device`: with `device`
+    the CUDA runtime's current device (the launcher's attribute calls and
+    its launch act on the current device) and on `device`'s current
+    stream, whatever device the calling thread had made current. Raise on
+    a non-zero launch status; count the launch."""
     fn = getattr(library(), fn_name)
-    status = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    with torch.cuda.device(device):
+        status = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if status != 0:
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {status}")
-    launches[kernel] += 1
+    with _count_lock:
+        launches[kernel] += 1
+        per = launches_by_device.setdefault(str(device), dict.fromkeys(KERNELS, 0))
+        per[kernel] += 1
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

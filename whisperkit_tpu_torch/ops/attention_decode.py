@@ -133,17 +133,16 @@ def cross_attend_q8(
     out = torch.empty((b, h, t, dh), dtype=torch.float32, device=qi.device)
     args = (_build.ptr(qi), _build.ptr(q_scale), _build.ptr(k_q8), _build.ptr(v_q8),
             _build.ptr(v_scale), _build.ptr(out), b * h, t, s)
-    with torch.cuda.device(qi.device):
-        if probs_out is None:
-            _build.launch("cross_attend_q8", "wk_cross_attend_q8", *args)
-        else:
-            _check_probs_out(probs_out, probs_slots, b, h, t, s)
-            slots = (ctypes.c_byte * h)(*probs_slots)
-            strides = (ctypes.c_longlong * 3)(probs_out.stride(0), probs_out.stride(1), probs_out.stride(2))
-            _build.launch(
-                "cross_attend_q8_probs", "wk_cross_attend_q8_probs", *args,
-                _build.ptr(probs_out), h, ctypes.cast(slots, ctypes.c_void_p), strides,
-            )
+    if probs_out is None:
+        _build.launch("cross_attend_q8", "wk_cross_attend_q8", qi.device, *args)
+    else:
+        _check_probs_out(probs_out, probs_slots, b, h, t, s)
+        slots = (ctypes.c_byte * h)(*probs_slots)
+        strides = (ctypes.c_longlong * 3)(probs_out.stride(0), probs_out.stride(1), probs_out.stride(2))
+        _build.launch(
+            "cross_attend_q8_probs", "wk_cross_attend_q8_probs", qi.device, *args,
+            _build.ptr(probs_out), h, ctypes.cast(slots, ctypes.c_void_p), strides,
+        )
     return out
 
 
@@ -229,12 +228,11 @@ def self_attend(q, k, v, mask_row) -> torch.Tensor:
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
     out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _build.launch(
-            "self_attend", "wk_self_attend",
-            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_row),
-            _build.ptr(out), b * h, s, int(k.dtype == torch.bfloat16),
-        )
+    _build.launch(
+        "self_attend", "wk_self_attend", q.device,
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask_row),
+        _build.ptr(out), b * h, s, int(k.dtype == torch.bfloat16),
+    )
     return out
 
 
@@ -293,11 +291,10 @@ def self_attend_q8(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row) -> torch
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")
     out = torch.empty((b, h, 1, dh), dtype=torch.float32, device=qi.device)
-    with torch.cuda.device(qi.device):
-        _build.launch(
-            "self_attend_q8", "wk_self_attend_q8",
-            _build.ptr(qi), _build.ptr(q_scale), _build.ptr(k_q8), _build.ptr(k_scale),
-            _build.ptr(v_q8), _build.ptr(v_scale), _build.ptr(mask_row), _build.ptr(out),
-            b * h, s,
-        )
+    _build.launch(
+        "self_attend_q8", "wk_self_attend_q8", qi.device,
+        _build.ptr(qi), _build.ptr(q_scale), _build.ptr(k_q8), _build.ptr(k_scale),
+        _build.ptr(v_q8), _build.ptr(v_scale), _build.ptr(mask_row), _build.ptr(out),
+        b * h, s,
+    )
     return out

@@ -202,12 +202,11 @@ def log_mel_frames(audio: torch.Tensor, n_mels: int, n_frames: int = N_FRAMES) -
     _build.check_cuda("audio", padded, torch.float32, 2)
     basis, mel_w, spans = _kernel_bases(padded.device, n_mels)
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=padded.device)
-    with torch.cuda.device(padded.device):
-        _build.launch(
-            "log_mel", "wk_log_mel",
-            _build.ptr(padded), _build.ptr(basis), _build.ptr(mel_w), _build.ptr(spans),
-            _build.ptr(out), b, n_frames, n_mels,
-        )
+    _build.launch(
+        "log_mel", "wk_log_mel", padded.device,
+        _build.ptr(padded), _build.ptr(basis), _build.ptr(mel_w), _build.ptr(spans),
+        _build.ptr(out), b, n_frames, n_mels,
+    )
     return out
 
 

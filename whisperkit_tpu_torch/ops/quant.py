@@ -77,7 +77,7 @@ def quantized_matmul(x: torch.Tensor, q: dict) -> torch.Tensor:
     return x @ dequantize_weight(q, x.dtype)
 
 
-def quantized_matmul_w8a8(x: torch.Tensor, q: dict) -> torch.Tensor:
+def quantized_matmul_w8a8(x: torch.Tensor, q: dict, group=None) -> torch.Tensor:
     """x [..., in] @ int8 w through an exact integer dot (W8A8): x is
     row-quantized (symmetric per-token absmax, round half to even) and the
     integer accumulator is rescaled by (row scale × per-output-channel
@@ -85,11 +85,22 @@ def quantized_matmul_w8a8(x: torch.Tensor, q: dict) -> torch.Tensor:
 
     torch has no int8 × int8 → int32 product on CUDA, and float32 is not
     exact here (1280 · 127² > 2^24), so the dot runs in float64, which is
-    exact for these sizes on the CPU and the card alike."""
+    exact for these sizes on the CPU and the card alike.
+
+    `group` (a TPRank): w is this rank's rows of a row-split weight and x
+    its slice of the input features. The row's absmax is reduced to the
+    maximum over the ranks, so every rank quantizes with the whole row's
+    scale, and the ranks' integer accumulators are summed (exactly) before
+    the rescale: the result equals the unsharded product."""
     x32 = x.float()
-    a_scale = torch.clamp_min(x32.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        amax = group.all_reduce_max(amax)
+    a_scale = torch.clamp_min(amax / 127.0, 1e-8)
     xq = torch.clamp(torch.round(x32 / a_scale), -127, 127).to(torch.int8)
     acc = _int_dot(xq, q["w_q"])
+    if group is not None:
+        acc = group.all_reduce_sum(acc)
     y = acc.float() * a_scale * q["scale"].float()
     return y.to(x.dtype)
 

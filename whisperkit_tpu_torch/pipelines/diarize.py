@@ -13,9 +13,13 @@ speaker slot) pairs through the embedder BLOCK_ROWS at a time, so the card
 sees large batches and the activations' memory stays that of one block
 however long the audio (the JAX package's one batch of every pair takes
 ~0.1 GiB a pair with the published ResNet34). Clustering and the overlap
-aggregation stay on the host (NumPy/scipy). The pipeline runs on one device, `device` ("cuda" unless
-the caller asks for the CPU); the JAX package's data-parallel mesh over
-several devices is not ported (ROADMAP.md A.10).
+aggregation stay on the host (NumPy/scipy). The pipeline runs on
+`device`: one device ("cuda", the current card, by default) or a sequence
+of them. The chunks and the (chunk, speaker slot) pairs split over a
+data-parallel mesh of those devices (parallel/mesh.py; one cell on one
+device), one thread per device with its own replica of the models, each
+taking its rows BLOCK_ROWS at a time; the rows padded in to give every
+device equal rows (copies of the last) are dropped before the clustering.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import numpy as np
 import torch
 
 from whisperkit_tpu_torch.audio.io import SAMPLE_RATE, load_audio
-from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
 from whisperkit_tpu_torch.models.pyannet import (
     load_pyannote_segmentation,
     load_wespeaker_resnet34,
@@ -54,6 +57,7 @@ from whisperkit_tpu_torch.models.pyannote import (
 from whisperkit_tpu_torch.ops.fbank import kaldi_fbank
 from whisperkit_tpu_torch.ops.mel import log_mel_spectrogram
 from whisperkit_tpu_torch.ops.quant import quantize_speaker_params
+from whisperkit_tpu_torch.parallel.mesh import Devices, make_mesh, resolve_devices
 from whisperkit_tpu_torch.speaker.clustering import VBxClusterer, VBxClusteringConfig
 from whisperkit_tpu_torch.speaker.results import DiarizationResult, SpeakerMergeStrategy
 
@@ -156,16 +160,12 @@ class DiarizePipeline:
         *,
         segmenter_params=None,
         embedder_params=None,
-        device: Union[DeviceLike, Sequence[DeviceLike]] = "cuda",
+        device: Devices = "cuda",
     ):
-        if isinstance(device, (list, tuple)):
-            if len(device) != 1:
-                raise NotImplementedError(
-                    "diarization on more than one device (the JAX package's data-parallel mesh) is not "
-                    "ported to whisperkit_tpu_torch yet (ROADMAP.md A.10)"
-                )
-            device = device[0]
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
+        # the data-parallel mesh over every device
+        self._plan = make_mesh(dp=len(self.devices), devices=self.devices)
         self.config = config or PyannoteConfig()
         if segmenter_params is None:
             segmenter_params = init_segmenter(torch.Generator().manual_seed(self.config.seed),
@@ -175,6 +175,11 @@ class DiarizePipeline:
                                             self.config.embedder_dims)
         self.segmenter_params = prepare_params(segmenter_params, self.device)
         self.embedder_params = prepare_params(embedder_params, self.device)
+        # each further mesh cell's own replica (its own segmenter LSTM module)
+        self._replicas = [(self.segmenter_params, self.embedder_params)] + [
+            (prepare_params(segmenter_params, cell[0]), prepare_params(embedder_params, cell[0]))
+            for cell in self._plan.cells()[1:]
+        ]
         # converted checkpoints (models/pyannet.py) are told apart by their
         # structure; the conv models stay the random-init default
         self.segmenter_backend = "pyannet" if "sinc" in self.segmenter_params else "conv"
@@ -231,9 +236,18 @@ class DiarizePipeline:
             **kwargs,
         )
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _on_devices(self, rows: np.ndarray, fn) -> np.ndarray:
+        """fn(device, (segmenter, embedder) params, rows) → a numpy array
+        with one entry per row, run on the mesh: each cell takes its share
+        of `rows` (padded to equal shares with copies of the last row) on
+        its device, in its own thread (inline for one cell); the shares
+        come back in row order, the padding dropped."""
+        n = len(rows)
+        padded = np.concatenate([rows, np.repeat(rows[-1:], self._plan.pad_batch(n) - n, axis=0)])
+        slices = self._plan.row_slices(len(padded))
+        cells = self._plan.cells()
+        out = self._plan.run(lambda g, r: fn(cells[g][r], self._replicas[g], padded[slices[g]]))
+        return np.concatenate([cell[0] for cell in out])[:n]
 
     # -- engine -------------------------------------------------------------
 
@@ -270,17 +284,22 @@ class DiarizePipeline:
         n_chunks = len(chunk_starts)
         self.timings.chunk_count = n_chunks
 
-        # ---- segmenter (batched, BLOCK_ROWS chunks a call) ----------------
+        # ---- segmenter (batched, BLOCK_ROWS chunks a call, per device) ---
         t0 = time.perf_counter()
-        chunks_dev = torch.from_numpy(chunks).to(self.device)
+
+        def segment(dev, models, rows):
+            x = torch.from_numpy(rows).to(dev)
+            if pyannet:
+                act = [powerset_to_activity(pyannet_forward(models[0], x[b])) for b in _blocks(len(rows))]
+            else:
+                act = [segmenter_forward(models[0], x[b], sdims)["speaker_activity"] for b in _blocks(len(rows))]
+            return torch.cat(act).cpu().numpy()
+
+        activity = self._on_devices(chunks, segment)
         if pyannet:
-            activity = torch.cat([powerset_to_activity(pyannet_forward(self.segmenter_params, chunks_dev[b]))
-                                  for b in _blocks(n_chunks)]).cpu().numpy()
             frames = activity.shape[1]
             n_slots = activity.shape[2]
         else:
-            activity = torch.cat([segmenter_forward(self.segmenter_params, chunks_dev[b], sdims)["speaker_activity"]
-                                  for b in _blocks(n_chunks)]).cpu().numpy()
             frames = sdims.frames_per_chunk
             n_slots = sdims.n_local_speakers
         frame_sec = chunk_samples / SAMPLE_RATE / frames
@@ -295,31 +314,39 @@ class DiarizePipeline:
         embeddings = np.zeros((0, self.config.embedder_dims.embedding_dim), np.float32)
         ratios: list[float] = []
         if pairs:
-            rows = torch.tensor([c for c, _ in pairs], device=self.device)
-            if self.embedder_backend == "resnet":
-                # [C, F_fb, 80]; the CMN runs over active frames in the embedder
-                fbanks = kaldi_fbank(chunks_dev, mean_norm=False)
-                f_fb = fbanks.shape[1]
-                # map each 10 ms fbank frame onto the segmenter frame grid
-                seg_idx = np.minimum(np.arange(f_fb) * frames // f_fb, frames - 1)
-                masks = torch.from_numpy(
-                    np.stack([activity[c, seg_idx, s] for c, s in pairs]).astype(np.float32)).to(self.device)
-                emb = torch.cat([wespeaker_embed_masked(self.embedder_params, fbanks[rows[b]], masks[b])
-                                 for b in _blocks(len(pairs))]).cpu().numpy()
-                embeddings = emb / (np.linalg.norm(emb, axis=-1, keepdims=True) + 1e-8)
-            else:
-                mel_frames = 3000  # 30 s of 10 ms mel frames
-                mels = log_mel_spectrogram(chunks_dev, n_mels=self.config.embedder_dims.n_mels)  # [C, M, 3000]
-                # upsample the activity to the mel frame grid for masking
-                masks = torch.from_numpy(np.stack(
-                    [np.repeat(activity[c, :, s], mel_frames // frames)[:mel_frames] for c, s in pairs]
-                ).astype(np.float32)).to(self.device)
-                embeddings = torch.cat([
-                    embedder_forward(self.embedder_params, mels[rows[b]], masks[b], self.config.embedder_dims)
-                    for b in _blocks(len(pairs))
-                ]).cpu().numpy()
+            resnet = self.embedder_backend == "resnet"
+
+            def embed(dev, models, pair_rows):
+                # every device computes the features of all chunks, as one
+                # device does, and embeds its (chunk, slot) pairs from them
+                chunks_dev = torch.from_numpy(chunks).to(dev)
+                rows = torch.from_numpy(pair_rows[:, 0]).to(dev)
+                if resnet:
+                    # [C, F_fb, 80]; the CMN runs over active frames in the embedder
+                    feats = kaldi_fbank(chunks_dev, mean_norm=False)
+                    f_fb = feats.shape[1]
+                    # map each 10 ms fbank frame onto the segmenter frame grid
+                    seg_idx = np.minimum(np.arange(f_fb) * frames // f_fb, frames - 1)
+                    masks = np.stack([activity[c, seg_idx, s] for c, s in pair_rows])
+                else:
+                    mel_frames = 3000  # 30 s of 10 ms mel frames
+                    feats = log_mel_spectrogram(chunks_dev, n_mels=self.config.embedder_dims.n_mels)  # [C, M, 3000]
+                    # upsample the activity to the mel frame grid for masking
+                    masks = np.stack(
+                        [np.repeat(activity[c, :, s], mel_frames // frames)[:mel_frames] for c, s in pair_rows])
+                masks = torch.from_numpy(masks.astype(np.float32)).to(dev)
+                out = []
+                for b in _blocks(len(pair_rows)):
+                    if resnet:
+                        out.append(wespeaker_embed_masked(models[1], feats[rows[b]], masks[b]))
+                    else:
+                        out.append(embedder_forward(models[1], feats[rows[b]], masks[b], self.config.embedder_dims))
+                return torch.cat(out).cpu().numpy()
+
+            embeddings = self._on_devices(np.asarray(pairs, np.int64), embed)
+            if resnet:
+                embeddings = embeddings / (np.linalg.norm(embeddings, axis=-1, keepdims=True) + 1e-8)
             ratios = [float(active[c, :, s].mean()) for c, s in pairs]
-        self._sync()
         self.timings.embedder_seconds = time.perf_counter() - t0
         self.timings.embedding_count = len(pairs)
         if progress:

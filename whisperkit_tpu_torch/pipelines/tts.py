@@ -8,9 +8,17 @@ Qwen3Config.swift (variants, speakers), TextChunker.swift, PromptCache.swift.
 As in the JAX package, the reference's concurrent batch-of-1 chunk tasks
 become one batched generation (sentence chunks stacked, left-padded, with
 per-row done masks), and the vocoder decodes every frame of every chunk in
-one batched call. The pipeline runs on one device, `device` ("cuda" by
-default); the JAX package's data-parallel mesh over several devices is not
-ported (ROADMAP A.10).
+one batched call. The pipeline runs on `device`: one device ("cuda", the
+current card, by default) or a sequence of them. `generate` runs over a
+data-parallel mesh of those devices (parallel/mesh.py; one cell on one
+device), as the JAX package does: the chunk rows are padded to a multiple
+of the devices with copies of the last row, each device generates and
+vocodes its rows in a thread of its own with its replica of the weights,
+and the copies are dropped at delivery. The sampling noise of every frame
+is drawn for the whole batch from the one generator on the first device
+and split by rows (parallel/mesh.SharedDraws), so a seed gives the same
+codes on one device and on several. The single-row paths
+(`stream_blocks`, the prompt cache) run on the first device.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from whisperkit_tpu_torch.audio.output import PlaybackStrategy, StreamingAudioOutput, crossfade, save_audio
 from whisperkit_tpu_torch.audio.output import play as play_audio
 from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
+from whisperkit_tpu_torch.parallel.mesh import Devices, SharedDraws, make_mesh, resolve_devices, tree_to
 from whisperkit_tpu_torch.core.logging import logging
 from whisperkit_tpu_torch.decoding.tts_loop import (
     TTSScalars,
@@ -332,9 +341,11 @@ class TTSPipeline:
         tokenizer=None,
         seed: int = 0,
         quantize: Union[bool, str] = False,
-        device: DeviceLike = "cuda",
+        device: Devices = "cuda",
     ):
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
+        self._plan = make_mesh(dp=len(self.devices), devices=self.devices)
         self.dims = dims
         if params is None:
             g = torch.Generator(device=self.device).manual_seed(seed)
@@ -348,6 +359,8 @@ class TTSPipeline:
 
             params = quantize_tts_params(params, bits=4 if quantize == "w4a16" else 8)
         self.params = params
+        # one copy of the weights per distinct mesh device (the first's is params)
+        self._replicas = {d: tree_to(params, d) for d in self._plan.distinct_devices()}
         self.tokenizer = tokenizer or ByteFallbackTokenizer(dims.text_vocab)
         self.prompt_cache = TTSPromptCache(self.device)
         self.chunker = TextChunker()
@@ -371,12 +384,12 @@ class TTSPipeline:
                 from whisperkit_tpu_torch.models.params_npz import read_params_npz
 
                 tree = read_params_npz(folder / "qwen3_tts.npz")
-                return cls(params=params_from_numpy(tree, resolve_device(kwargs.get("device", "cuda"))), **kwargs)
+                return cls(params=params_from_numpy(tree, resolve_devices(kwargs.get("device", "cuda"))[0]), **kwargs)
             raise FileNotFoundError(
                 f"no TTS checkpoint (config.json + *.safetensors, or qwen3_tts.npz) in {model_folder}")
         from whisperkit_tpu_torch.models.qwen3_loader import load_qwen3_tts
 
-        dims, params = load_qwen3_tts(folder, device=resolve_device(kwargs.get("device", "cuda")))
+        dims, params = load_qwen3_tts(folder, device=resolve_devices(kwargs.get("device", "cuda"))[0])
         tokenizer = None
         if (folder / "tokenizer.json").exists():
             try:
@@ -492,6 +505,9 @@ class TTSPipeline:
             if hit is not None:
                 cached_kv, cached_len = hit
         tracks = [self._chunk_tracks(c, options) for c in chunks]
+        # the mesh pads the chunk rows to a dp multiple with copies of the
+        # last; the copies generate beside the others and are dropped
+        tracks += [tracks[-1]] * (self._plan.pad_batch(len(tracks)) - len(tracks))
         if cached_len:
             # only the variable position (first text token + codecBOS) prefills
             rows = [(t[-1:], c[-1:]) for t, c, _, _ in tracks]
@@ -504,21 +520,37 @@ class TTSPipeline:
         timings.chunks = len(chunks)
 
         t0 = time.perf_counter()
-        out = tts_generate_loop(
-            self.params, prompt_embeds, self._scalars(options), dims=self.dims,
-            max_new_tokens=options.max_new_tokens, top_k=options.top_k,
-            cached_kv=cached_kv, cached_len=cached_len, prompt_pad=prompt_pad,
-            trailing_text=trailing_text, step_cap=step_cap,
+        loop_args = dict(
+            dims=self.dims, max_new_tokens=options.max_new_tokens, top_k=options.top_k, cached_len=cached_len,
         )
-        n_frames = out.n_frames.cpu().numpy()
+        scalars = self._scalars(options)
+        cells, slices = self._plan.cells(), self._plan.row_slices(len(tracks))
+        # the noise one device would draw for the real chunks; a copy row
+        # repeats the last real row's
+        draws = SharedDraws(scalars.generator, len(chunks))
+
+        def generate_rows(g: int, r: int):
+            dev, sl = cells[g][r], slices[g]
+            return tts_generate_loop(
+                self._replicas[dev], prompt_embeds[sl].to(dev), scalars._replace(generator=draws.rows(sl)),
+                cached_kv=None if cached_kv is None else tuple(t.to(dev) for t in cached_kv),
+                prompt_pad=prompt_pad[sl].to(dev), trailing_text=trailing_text[sl].to(dev),
+                step_cap=step_cap[sl].to(dev), **loop_args,
+            )
+
+        outs = [cell[0] for cell in self._plan.run(generate_rows)]
+        n_frames = np.concatenate([o.n_frames.cpu().numpy() for o in outs])[: len(chunks)]
         timings.generate_seconds = time.perf_counter() - t0
         timings.frames = int(n_frames.sum())
         if progress:
             progress(0.8)
 
-        # vocoder: one batched call over all chunks
+        # vocoder: one batched call over each device's rows
         t0 = time.perf_counter()
-        waves = speech_decoder_forward(self.params, out.codes, self.dims).float().cpu().numpy()
+        waves = np.concatenate([cell[0] for cell in self._plan.run(
+            lambda g, r: speech_decoder_forward(
+                self._replicas[cells[g][r]], outs[g].codes, self.dims).float().cpu().numpy()
+        )])
         timings.vocode_seconds = time.perf_counter() - t0
         # the first audible buffer exists once generation and vocoding end
         timings.time_to_first_buffer = time.perf_counter() - t_start

@@ -23,9 +23,23 @@ Weights come from a checkpoint folder (`load_models`: the registry
 resolves `WhisperConfig.model_folder`/`model`, models/loader.load_whisper
 reads and quantizes it, text/tokenizer.load_tokenizer reads its BPE), or
 in memory as `dims`/`params` (already quantized by
-`ops/quant.quantize_whisper_params` where a scheme is wanted). More than
-one device raises NotImplementedError and names the later work that
-brings it.
+`ops/quant.quantize_whisper_params` where a scheme is wanted).
+
+More than one device: `device` may be a sequence of devices (a bare
+"cuda" is one card, the current one). With `ComputeOptions.dp_size`,
+`tp_size` and `dcn_size` (dp inferred from the devices when None, as in
+the JAX package) the VAD batch path runs each group over the
+dcn x dp x tp mesh (parallel/; one cell on one device): the group is
+padded to a multiple of dcn x dp rows and split dcn-major into the cells'
+rows; in one thread per device every cell encodes its rows and runs the
+fallback ladder on them, over its tp ranks' weight shards
+(parallel/sharding.py). The language is detected from every cell's
+probabilities together, and a sampled rung's noise is drawn for the whole
+group from one generator and split by rows (parallel/mesh.SharedDraws),
+so a seed gives the same text on one device and on N. As in the JAX
+package the other paths (the seek path, the short batch, streaming) run on
+the first device, which under tp > 1 keeps the whole tree besides its
+rank's shard; speculative decoding runs where the mesh is one cell.
 """
 
 from __future__ import annotations
@@ -47,7 +61,6 @@ from whisperkit_tpu_torch.core.configurations import (
     DecodingTask,
     WhisperConfig,
 )
-from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
 from whisperkit_tpu_torch.core.errors import ModelsUnavailable
 from whisperkit_tpu_torch.core.logging import logging
 from whisperkit_tpu_torch.core.modelstate import ModelState
@@ -72,6 +85,8 @@ from whisperkit_tpu_torch.decoding.loop import (
 from whisperkit_tpu_torch.decoding.speculative import speculative_decode_loop
 from whisperkit_tpu_torch.models.whisper import WhisperDims, _map
 from whisperkit_tpu_torch.ops.mel import log_mel_spectrogram
+from whisperkit_tpu_torch.parallel.group import TPRank
+from whisperkit_tpu_torch.parallel.mesh import Devices, MeshPlan, SharedDraws, resolve_devices, shard_batch
 from whisperkit_tpu_torch.text.languages import LANGUAGES
 from whisperkit_tpu_torch.text.segment_seeker import (
     FRAMES_PER_SECOND,
@@ -102,11 +117,25 @@ class _WindowDecode:
     sample_begin: int = 0
 
 
-def _not_in_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to whisperkit_tpu_torch yet (a later PR of the "
-        "port brings it; see ROADMAP.md); use whisperkit_tpu meanwhile"
-    )
+@dataclasses.dataclass
+class _Shard:
+    """One mesh worker's share of a VAD group: its rank's tree and device,
+    its rows of the group, the group's shared noise per sampled rung, its
+    tp rank, and timings of its own (only the coordinating thread writes
+    the pipeline's)."""
+
+    params: dict
+    device: torch.device
+    rows: slice
+    draws: dict[int, SharedDraws]
+    tp: Optional[TPRank]
+    timings: TranscriptionTimings = dataclasses.field(default_factory=TranscriptionTimings)
+
+
+# a worker's stage seconds run beside the other workers' (the group's time
+# is the slowest's); its counts add up
+_SHARD_SECONDS = ("prefill", "decoding_loop", "decoding_fallback")
+_SHARD_COUNTS = ("total_decoding_loops", "total_decoding_fallbacks", "prefill_cache_hits")
 
 
 class WhisperPipeline:
@@ -122,14 +151,14 @@ class WhisperPipeline:
         alignment_heads: Optional[np.ndarray] = None,
         draft_dims: Optional[WhisperDims] = None,
         draft_params=None,
-        device: DeviceLike = "cuda",
+        device: Devices = "cuda",
         **kwargs,
     ):
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
         self.config = config or WhisperConfig(**kwargs)
-        co = self.config.compute_options
-        if (co.dp_size or 1) * co.tp_size * co.dcn_size > 1:
-            raise _not_in_slice("running on more than one device")
+        self._mesh_plan: Optional[MeshPlan] = None
+        self._mesh_trees: Optional[list] = None
         self.model_state = ModelState.UNLOADED
         self.dims = dims
         self.tokenizer = tokenizer
@@ -189,6 +218,7 @@ class WhisperPipeline:
         self.dims, self.params, heads = load_whisper(
             folder, quantization=self.config.compute_options.quantization, device=self.device
         )
+        self._mesh_plan = self._mesh_trees = None
         if self.alignment_heads is None:
             self.alignment_heads = heads
         try:
@@ -215,7 +245,33 @@ class WhisperPipeline:
 
     def unload_models(self) -> None:
         self.params = None
+        self._mesh_plan = self._mesh_trees = None
         self.model_state = ModelState.UNLOADED
+
+    def _mesh(self) -> MeshPlan:
+        """The dcn x dp x tp mesh of ComputeOptions over the pipeline's
+        devices, dp inferred from them when None (the JAX `_mesh`): one
+        cell on one device. Built at first use, with each cell's rank tree
+        in `_mesh_trees` (replicated, or Megatron-split when tp > 1; None
+        for one cell, which decodes with `self.params`). A mesh that needs
+        more devices than the pipeline has raises, where the JAX package,
+        with dp inferred as 0, would quietly run on one device."""
+        if self._mesh_plan is None:
+            from whisperkit_tpu_torch.parallel.mesh import make_mesh
+            from whisperkit_tpu_torch.parallel.sharding import shard_whisper_params
+
+            co = self.config.compute_options
+            dp = co.dp_size or max(1, len(self.devices) // (co.tp_size * co.dcn_size))
+            plan = make_mesh(dp=dp, tp=co.tp_size, dcn=co.dcn_size, devices=self.devices)
+            trees = None  # one cell: the pipeline's own tree, read at each use
+            if plan.n_cells * plan.tp > 1:
+                try:
+                    trees = shard_whisper_params(plan, self.params)
+                except ValueError as e:
+                    raise ModelsUnavailable(f"tensor-parallel sharding failed for this param tree "
+                                            f"(tp={co.tp_size}): {e}") from e
+            self._mesh_plan, self._mesh_trees = plan, trees
+        return self._mesh_plan
 
     @property
     def is_multilingual(self) -> bool:
@@ -229,16 +285,16 @@ class WhisperPipeline:
 
     # -- helpers ------------------------------------------------------------
 
-    def _suppress_bias(self, options: DecodingOptions) -> torch.Tensor:
+    def _suppress_bias(self, options: DecodingOptions, device: Optional[torch.device] = None) -> torch.Tensor:
         sp = self.tokenizer.special
         ids = list(options.suppress_tokens or ())
         if -1 in ids:
             ids = [t for t in ids if t != -1] + non_speech_token_ids(sp, self.tokenizer)
-        key = tuple(sorted(set(ids)))
+        key = (tuple(sorted(set(ids))), device or self.device)
         if key not in self._suppress_cache:
             self._suppress_cache[key] = torch.from_numpy(
-                suppress_tokens_bias(sp.n_vocab, key)
-            ).to(self.device)
+                suppress_tokens_bias(sp.n_vocab, key[0])
+            ).to(key[1])
         return self._suppress_cache[key]
 
     def _build_prompt(self, options: DecodingOptions, language: str) -> tuple[list[int], int]:
@@ -263,7 +319,14 @@ class WhisperPipeline:
             prompt.extend(list(options.prefix_tokens)[-keep:])
         return prompt, sot_index
 
-    def _decode_scalars(self, options: DecodingOptions, temperature: float, seed_step: int) -> DecodeScalars:
+    def _generator(self, options: DecodingOptions, seed_step: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(options.seed + seed_step)
+
+    def _decode_scalars(
+        self, options: DecodingOptions, temperature: float, seed_step: int, draws=None,
+    ) -> DecodeScalars:
+        """`draws`: a mesh shard's view of the group's draws for this rung,
+        used in place of a generator of its own."""
         max_initial = (
             int(round(options.max_initial_timestamp / 0.02))
             if options.max_initial_timestamp is not None
@@ -276,15 +339,15 @@ class WhisperPipeline:
         )
         generator = None
         if temperature > 0.0:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(options.seed + seed_step)
+            generator = draws if draws is not None else self._generator(options, seed_step)
         return DecodeScalars(temperature, max_initial, ft, generator)
 
-    def _sync(self) -> None:
+    def _sync(self, device: Optional[torch.device] = None) -> None:
         """With ComputeOptions.sync_timings, wait for the device so the
         surrounding stage stamp measures execution, not enqueue."""
-        if self.config.compute_options.sync_timings and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        device = device or self.device
+        if self.config.compute_options.sync_timings and device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def _mel(self, window: np.ndarray) -> torch.Tensor:
         """[n_mels, 3000] for one ≤30 s window. It uploads through
@@ -332,15 +395,18 @@ class WhisperPipeline:
         i16 = torch.from_numpy(codes.reshape(padded.shape)).to(self.device)
         return i16.to(torch.float32) / 32768.0
 
-    def _encode(self, mel_batch: torch.Tensor, options: DecodingOptions):
+    def _encode(self, mel_batch: torch.Tensor, options: DecodingOptions, params=None):
         """encode_window with the serving-mode int8 cross-KV fused in (not
-        for beam search, which repeats the raw cross-KV per beam). With a
-        draft model, a batch of 1 and no option that keeps the decode off
-        the speculative path, the draft's cross-KV of the same window is
-        computed too."""
+        for beam search, which repeats the raw cross-KV per beam), over
+        `params` (a mesh rank's tree; the pipeline's own when None). With a
+        draft model, the pipeline's own tree, a batch of 1 and no option
+        that keeps the decode off the speculative path, the draft's
+        cross-KV of the same window is computed too."""
         co = self.config.compute_options
+        params = self.params if params is None else params
         if (
             self.draft_params is not None
+            and params is self.params
             and mel_batch.shape[0] == 1
             and options.beam_size <= 1
             and not (options.word_timestamps and self.alignment_heads is not None)
@@ -352,7 +418,7 @@ class WhisperPipeline:
         else:
             self._draft_kv = None
         return encode_window(
-            self.params, mel_batch, self.dims,
+            params, mel_batch, self.dims,
             quantize_kv=co.quantize_cross_kv and options.beam_size <= 1, act8=self._act8,
         )
 
@@ -372,6 +438,11 @@ class WhisperPipeline:
         return LANGUAGES[int(order[0])][0], lang_probs
 
     def _language_probs(self, ck, cv, n_rows=None) -> np.ndarray:
+        """Language probabilities of the first `n_rows` rows: one masked
+        decode step over the encoded rows, or, where `ck` is already a
+        numpy array of them (a mesh group's, gathered from every cell), those."""
+        if isinstance(ck, np.ndarray):
+            return ck[: (n_rows or None)]
         probs = detect_language_logits(
             self.params, ck, cv, dims=self.dims, special=self.tokenizer.special
         )
@@ -387,6 +458,12 @@ class WhisperPipeline:
         """Per-row language detection over an encoded batch (argmax per row)."""
         probs = self._language_probs(ck, cv, n_rows)
         return [LANGUAGES[int(i)][0] for i in np.argmax(probs, axis=-1)]
+
+    def _needs_language_probs(self, options: DecodingOptions) -> bool:
+        """Whether `_group_languages` will detect (and so read the probabilities)."""
+        if options.language or not self.is_multilingual:
+            return False
+        return options.detect_language or self._detected_language is None
 
     def _group_languages(
         self, options: DecodingOptions, ck, cv, n_real: int, *,
@@ -434,12 +511,19 @@ class WhisperPipeline:
     # -- decode with fallback -----------------------------------------------
 
     def _decode_with_fallback(
-        self, cross_k, cross_v, options: DecodingOptions, language, window_index: int
+        self, cross_k, cross_v, options: DecodingOptions, language, window_index: int,
+        shard: Optional[_Shard] = None,
     ) -> list[_WindowDecode]:
         """Temperature ladder over a batch of encoded windows (reference:
         TranscribeTask.swift:316-411). Failed rows are re-decoded at the
         next temperature; accepted rows keep their first passing result.
-        `language` is one code, or one per row."""
+        `language` is one code, or one per row. With `shard`, the batch is
+        a mesh worker's rows, decoded with its tree on its device
+        (speculatively only where that tree is the pipeline's own: a
+        one-cell mesh)."""
+        params = self.params if shard is None else shard.params
+        dev = self.device if shard is None else shard.device
+        timings = self.timings if shard is None else shard.timings
         sp = self.tokenizer.special
         b = (cross_k["q8"] if isinstance(cross_k, dict) else cross_k).shape[1]
         langs = [language] * b if isinstance(language, str) else list(language)
@@ -447,8 +531,8 @@ class WhisperPipeline:
             raise ValueError(f"per-row languages: got {len(langs)} for batch of {b}")
         prompts = [self._build_prompt(options, lg) for lg in langs]
         prompt, sot_index = prompts[0]
-        prompt_arr = torch.tensor([p for p, _ in prompts], dtype=torch.long, device=self.device)
-        suppress = self._suppress_bias(options)
+        prompt_arr = torch.tensor([p for p, _ in prompts], dtype=torch.long, device=dev)
+        suppress = self._suppress_bias(options, dev)
         max_new = min(options.sample_length, MAX_TOKEN_CONTEXT - len(prompt))
         capture = options.word_timestamps and self.alignment_heads is not None
         align_heads = tuple(map(tuple, np.asarray(self.alignment_heads).tolist())) if capture else None
@@ -465,15 +549,15 @@ class WhisperPipeline:
             if prefill is None:
                 t_pre = time.perf_counter()
                 prefill = prefill_window(
-                    self.params, cross_k, cross_v, prompt_arr,
+                    params, cross_k, cross_v, prompt_arr,
                     dims=self.dims, special=sp, sample_begin=len(prompt),
                     max_new_tokens=max_new, sot_index=sot_index, alignment_heads=align_heads,
                     quantize_self_kv=qskv,
                 )
-                self._sync()
-                self.timings.prefill += time.perf_counter() - t_pre
+                self._sync(dev)
+                timings.prefill += time.perf_counter() - t_pre
             else:
-                self.timings.prefill_cache_hits += 1
+                timings.prefill_cache_hits += 1
             return prefill
 
         common = dict(
@@ -484,18 +568,25 @@ class WhisperPipeline:
         results: list[Optional[_WindowDecode]] = [None] * b
         for rung, temperature in enumerate(options.temperatures):
             t0 = time.perf_counter()
-            scalars = self._decode_scalars(options, temperature, window_index * 101 + rung)
+            draws = None if shard is None or rung not in shard.draws else shard.draws[rung].rows(shard.rows)
+            scalars = self._decode_scalars(options, temperature, window_index * 101 + rung, draws)
             use_beam = options.beam_size > 1 and temperature == 0.0
             flag = self.early_stop_flag
+            should_stop = None
+            if flag is not None:
+                should_stop = lambda: flag.should_stop  # noqa: E731
+                if shard is not None and shard.tp is not None:
+                    # the tp ranks must stop at the same segment: the first reads the flag
+                    should_stop = lambda: shard.tp.agree(lambda: flag.should_stop)  # noqa: E731
             if use_beam:
                 out = beam_decode_loop(
-                    self.params, cross_k, cross_v, prompt_arr, suppress,
+                    params, cross_k, cross_v, prompt_arr, suppress,
                     scalars.max_initial_timestamp_index, beam_size=options.beam_size,
                     length_penalty=options.length_penalty, **common,
                 )
             elif (
-                self._draft_kv is not None and b == 1 and temperature == 0.0 and not capture
-                and flag is None and not co.segmented_decode
+                params is self.params and self._draft_kv is not None and b == 1 and temperature == 0.0
+                and not capture and flag is None and not co.segmented_decode
             ):
                 # batch-1 latency mode: lossless draft-verify with prefills of
                 # its own, sized for a round's writes past the window's budget
@@ -505,14 +596,13 @@ class WhisperPipeline:
                 )
             elif flag is not None or co.segmented_decode:
                 out = decode_loop_segmented(
-                    self.params, cross_k, cross_v, prompt_arr, suppress, scalars,
+                    params, cross_k, cross_v, prompt_arr, suppress, scalars,
                     top_k=options.top_k, alignment_heads=align_heads, prefill=get_prefill(),
-                    should_stop=(lambda: flag.should_stop) if flag is not None else None,
-                    compact=co.segmented_decode, **common,
+                    should_stop=should_stop, compact=co.segmented_decode, **common,
                 )
             else:
                 out = decode_loop(
-                    self.params, cross_k, cross_v, prompt_arr, suppress, scalars,
+                    params, cross_k, cross_v, prompt_arr, suppress, scalars,
                     top_k=options.top_k, alignment_heads=align_heads, prefill=get_prefill(), **common,
                 )
             tokens_np = out.tokens.cpu().numpy()
@@ -523,15 +613,15 @@ class WhisperPipeline:
                 # beam search does not capture in its loop: one teacher-forced
                 # pass over the winning hypotheses (openai timing.py style)
                 align_np = alignment_forward(
-                    self.params, cross_k, cross_v, out.tokens, dims=self.dims, alignment_heads=align_heads,
+                    params, cross_k, cross_v, out.tokens, dims=self.dims, alignment_heads=align_heads,
                 ).cpu().numpy()
             elif capture:
                 # the rows past the loop's last position are zeros
                 align_np = out.alignment[: min(out.length + 1, out.alignment.shape[0])].cpu().numpy()
-            self.timings.decoding_loop += time.perf_counter() - t0
+            timings.decoding_loop += time.perf_counter() - t0
             if rung > 0:
-                self.timings.decoding_fallback += time.perf_counter() - t0
-                self.timings.total_decoding_fallbacks += b
+                timings.decoding_fallback += time.perf_counter() - t0
+                timings.total_decoding_fallbacks += b
 
             any_pending = False
             for i in range(b):
@@ -543,7 +633,7 @@ class WhisperPipeline:
                 sampled = row[:n].tolist()
                 lps = lps_np[i, len(prompt) : len(prompt) + n].tolist()
                 eot_lp = float(lps_np[i, len(prompt) + n]) if n < len(row) else 0.0
-                self.timings.total_decoding_loops += n + (1 if n < len(row) else 0)
+                timings.total_decoding_loops += n + (1 if n < len(row) else 0)
                 avg_lp = (sum(lps) + eot_lp) / (n + 1) if n else eot_lp
                 text = self.tokenizer.decode(sampled)
                 cr = compression_ratio_text(text)
@@ -705,16 +795,24 @@ class WhisperPipeline:
         self.timings.audio_processing += time.perf_counter() - t_chunk
         self.timings.total_audio_processing_runs += 1
 
-        group = max(1, options.concurrent_worker_count)
+        plan = self._mesh()
+        group = one_group = max(1, options.concurrent_worker_count)
         # clamp to the chunk-count bucket: a group decodes until its slowest
         # row, so pad rows beyond the power-of-two bucket cost a full decode
         if chunks:
-            group = min(group, 1 << max(0, math.ceil(math.log2(len(chunks)))))
+            group = one_group = min(group, 1 << max(0, math.ceil(math.log2(len(chunks)))))
+        group = plan.pad_batch(group)  # every mesh cell gets equal rows
 
-        def bucket(n_real: int) -> int:
+        def bucket(n_real: int, width: int) -> int:
             # the final partial group decodes at the power-of-two bucket
             # covering its real rows, not at the full group width
-            return group if n_real >= group else min(1 << max(0, math.ceil(math.log2(n_real))), group)
+            if n_real >= width:
+                return width
+            return min(1 << max(0, math.ceil(math.log2(n_real))), width)
+
+        def gsize_of(n_real: int) -> int:
+            # a dcn x dp multiple
+            return min(plan.pad_batch(bucket(n_real, group)), group)
 
         t_mel = time.perf_counter()
         windows = [
@@ -724,7 +822,7 @@ class WhisperPipeline:
         # a partial last group pads its rows with the mel of a zero window,
         # computed in the same launches as the chunks'
         n_last = len(chunks) % group or group
-        pad_rows = bool(chunks) and n_last < bucket(n_last)
+        pad_rows = bool(chunks) and n_last < gsize_of(n_last)
         if pad_rows:
             windows.append(np.zeros(WINDOW_SAMPLES, np.float32))
         mels = self._mel_batch(windows) if windows else None
@@ -745,23 +843,17 @@ class WhisperPipeline:
         for start in range(0, len(order), group):
             batch_ids = order[start : start + group]
             n_real = len(batch_ids)
-            gsize = bucket(n_real)
+            gsize = gsize_of(n_real)
             mel_batch = mels[torch.tensor(batch_ids, device=self.device)]
             if n_real < gsize:
                 pad = pad_mel[None].expand(gsize - n_real, *pad_mel.shape)
                 mel_batch = torch.cat([mel_batch, pad], 0)
             for i in batch_ids:
                 self.window_preprocess(chunks[i].audio_samples, metas[i][0] // 160, metas[i][1])
-            t_enc = time.perf_counter()
-            _, ck, cv = self._encode(mel_batch, options)
-            self._sync()
-            self.timings.encoding += time.perf_counter() - t_enc
-            self.timings.total_encoding_runs += n_real
-            group_langs = self._group_languages(
-                options, ck, cv, n_real, pad_to=gsize, per_row=options.detect_language
+            # the rows one device would decode this group at: its draws' batch
+            batch_decodes = self._decode_group_on_mesh(
+                plan, mel_batch, options, n_real, start, bucket(n_real, one_group),
             )
-            batch_decodes = self._decode_with_fallback(ck, cv, options, group_langs, start)[:n_real]
-            del ck, cv
             if self.timings.first_token_time == 0.0:
                 self.timings.first_token_time = time.perf_counter()
             for i, wd in zip(batch_ids, batch_decodes):
@@ -813,6 +905,62 @@ class WhisperPipeline:
             text="".join(s.text for s in all_segments).strip(),
             segments=all_segments, language=language,
         )
+
+    def _decode_group_on_mesh(
+        self, plan: MeshPlan, mel_batch: torch.Tensor, options: DecodingOptions, n_real: int, window_index: int,
+        draw_rows: int,
+    ) -> list[_WindowDecode]:
+        """One VAD group over the mesh (a one-cell mesh on one device): its
+        rows (a dcn x dp multiple) split dcn-major into the cells' rows, each cell encoding and decoding its
+        rows on its tp ranks, one thread per device. The language is
+        resolved here from every cell's probabilities; each sampled rung's
+        noise is drawn from the one generator a single device would use,
+        for the `draw_rows` rows it would decode this group at, and split
+        by rows. → the group's real rows' decodes, in order."""
+        gsize = mel_batch.shape[0]
+        slices = plan.row_slices(gsize)
+        parts = shard_batch(plan, mel_batch)
+        trees = self._mesh_trees or [[self.params]]
+        need_probs = self._needs_language_probs(options)
+
+        def encode(g: int, r: int):
+            dev = plan.cells()[g][r]
+            # a rank's own tree; the pipeline's (one cell) is _encode's default
+            tree = () if trees[g][r] is self.params else (trees[g][r],)
+            _, ck, cv = self._encode(parts[g][r], options, *tree)
+            probs = None
+            if need_probs:  # every rank runs the step: under tp it holds collectives
+                probs = detect_language_logits(
+                    trees[g][r], ck, cv, dims=self.dims, special=self.tokenizer.special,
+                ).cpu().numpy()
+            self._sync(dev)
+            return ck, cv, probs
+
+        t_enc = time.perf_counter()
+        encoded = plan.run(encode)
+        self.timings.encoding += time.perf_counter() - t_enc
+        self.timings.total_encoding_runs += n_real
+        # the probabilities of every cell's rows stand in for the encoded rows
+        probs = np.concatenate([cell[0][2] for cell in encoded]) if need_probs else None
+        langs = self._group_languages(options, probs, None, n_real, pad_to=gsize, per_row=options.detect_language)
+        draws = {
+            rung: SharedDraws(self._generator(options, window_index * 101 + rung), min(draw_rows, gsize))
+            for rung, t in enumerate(options.temperatures) if t > 0.0
+        }
+
+        def decode(g: int, r: int):
+            shard = _Shard(trees[g][r], plan.cells()[g][r], slices[g], draws, plan.rank(g, r))
+            ck, cv, _ = encoded[g][r]
+            return self._decode_with_fallback(ck, cv, options, langs[slices[g]], window_index, shard), shard.timings
+
+        decoded = plan.run(decode)
+        del encoded
+        firsts = [cell[0] for cell in decoded]  # a cell's tp ranks decode alike; its first rank speaks
+        for name in _SHARD_SECONDS:
+            setattr(self.timings, name, getattr(self.timings, name) + max(getattr(t, name) for _, t in firsts))
+        for name in _SHARD_COUNTS:
+            setattr(self.timings, name, getattr(self.timings, name) + sum(getattr(t, name) for _, t in firsts))
+        return [wd for decodes, _ in firsts for wd in decodes][:n_real]
 
     def _should_skip_silent(self, wd: _WindowDecode, options: DecodingOptions) -> bool:
         """openai-style no-speech window skip."""
