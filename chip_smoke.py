@@ -138,12 +138,27 @@ Phases, one line each; any failure exits non-zero:
      over 1500 keys) against the replicated one; (e) diarization with
      phase 16's published models and TTS 0.6b (MESH_TTS_FRAMES frames, T 0
      and 0.9) at dp 2: the RTTM and embeddings, the codes under a gap
-     rule. The mesh runs' launches are the path `mesh`, per device too.
+     rule. The mesh runs' launches are the path `mesh`, per device too;
+     (a) prints the decode graph's captures and replays per device (each
+     dp thread captures its own), (b) that tp decodes eagerly.
      `python3 chip_smoke.py --mesh-only` runs phases 1, 2 and 24 alone
+ 25. the decode loop's CUDA graph (decoding/graph.py) against the eager
+     loop (`cuda_graph=False`) on phase 4's 32-window group, encoded and
+     prefilled once per case: bf16; W8A16 + int8 self-KV; ALIGNMENT_HEADS;
+     T 0.5 top-k 5 from one seed; segmented with phase 11's EOT bias,
+     which must compact and capture once more per compaction. Tokens,
+     log-probabilities, `done` and the alignment buffer bit-equal, the
+     kernels' launches equal (the graph's counted through its replays)
 Phases 21-23 run after phase 15, while phase 4's tree and phase 13's
 pipeline are on the card (and TF32 is off, as in phases 1-15), then phases
-16-20 run; phase 24's Whisper part runs after phase 12, on phase 4's and
-phase 6's trees, its part (e) after phase 20.
+16-20 run; phases 25 and 24's Whisper part run after phase 12, on phase
+4's and phase 6's trees, 24's part (e) after phase 20.
+
+The pipelines' greedy and sampled decode loops replay a CUDA graph of the
+step on the card (phases 4, 6, 9, 11, 14, 21-24); a launch inside the
+graph is counted once per replay, so every path's counts are the eager
+loop's. Runs that record each step's logits (phases 11, 12, 14, 15, 24's
+references: `StepLogits`) decode eagerly.
 
 Phase 3 also holds K2's split form (B=1, the second 750 query rows over
 all 1500 keys: the sequence-parallel encoder's launch) against its plain
@@ -947,9 +962,30 @@ def time_self_attend_q8(torch, g, dev, traces) -> dict:
     return {"plain_ms": plain, "times": times}
 
 
+def graph_stats(by_device: bool = False) -> dict:
+    """The decode step's CUDA graph since the last reset
+    (decoding/graph.py): captures, replays and the captures' host seconds,
+    summed over the devices, or per device."""
+    from whisperkit_tpu_torch.decoding import graph
+
+    if by_device:
+        return {d: dict(v) for d, v in graph.stats_by_device.items()}
+    total = dict.fromkeys(graph.STATS, 0)
+    for per in graph.stats_by_device.values():
+        for k, v in per.items():
+            total[k] += v
+    return total
+
+
+def say_graph(stats: dict) -> str:
+    return (f"graph: {stats['captures']} captures ({stats['capture_s']:.3f} s captured, {stats['instantiate_s']:.3f} s "
+            f"instantiated), {stats['replays']} replays")
+
+
 def transcribe_twice(torch, pipe, audio, options) -> dict:
-    """One warm pass, then one timed pass with the launch counts set to 0
-    just before it and read just after it."""
+    """One warm pass, then one timed pass with the launch counts (and the
+    decode graph's counts) set to 0 just before it and read just after it."""
+    from whisperkit_tpu_torch.decoding import graph
     from whisperkit_tpu_torch.ops import _build
 
     windows = []
@@ -964,12 +1000,13 @@ def transcribe_twice(torch, pipe, audio, options) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    graph.reset_stats()
     t0 = time.perf_counter()
     result = pipe.transcribe(audio, options, callback=on_window)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return {"result": result, "wall": wall, "warm": warm, "counts": dict(_build.launches),
-            "peak": torch.cuda.max_memory_allocated(), "windows": windows}
+            "peak": torch.cuda.max_memory_allocated(), "windows": windows, "graph": graph_stats()}
 
 
 def check_launches(label, counts, launched, per_layer, idle, n_layer) -> None:
@@ -1009,7 +1046,8 @@ def report_path(label, run, n_chunks, card, extra="") -> None:
         f"{label}: {AUDIO_SECONDS:.0f} s audio, {n_chunks} VAD chunks, {len(run['result'].segments)} segments "
         f"| wall {run['wall']:.3f} s (first run {run['warm']:.3f} s{extra}) "
         f"| RTF {run['wall'] / AUDIO_SECONDS:.6f} | {timings.tokens_per_second:.1f} tok/s "
-        f"| peak {run['peak'] / 2**30:.2f} GiB | launches {json.dumps(run['counts'])} | {card}"
+        f"| peak {run['peak'] / 2**30:.2f} GiB | launches {json.dumps(run['counts'])} | {say_graph(run['graph'])} "
+        f"| {card}"
     )
     say(
         f"  stages (host clock, no stage sync): mel {timings.log_mels:.3f} s, encode "
@@ -1025,6 +1063,8 @@ def run_path(torch, label, pipe, audio, card, launched, per_layer, idle, extra="
     run = transcribe_twice(torch, pipe, audio, options)
     n_chunks = len(pipe._vad_chunks(audio, options))
     check_launches(label, run["counts"], launched, per_layer, idle, pipe.dims.n_text_layer)
+    if not run["graph"]["replays"]:
+        fail(f"{label}: the decode loop replayed no CUDA graph: {run['graph']}")
     windows = run["windows"]
     if len(windows) != n_chunks or not all(windows):
         fail(f"{label}: {n_chunks} VAD chunks but {len(windows)} decoded windows, "
@@ -1058,7 +1098,7 @@ def phase_main_path(torch, card: str) -> dict:
         per_layer=("cross_attend_q8", "self_attend"), idle=("self_attend_q8",),
         extra=f", init_params {t_init:.1f} s",
     )
-    return {"counts": run["counts"], "pipe": pipe, "audio": audio}
+    return {"counts": run["counts"], "pipe": pipe, "audio": audio, "graph": run["graph"], "wall": run["wall"]}
 
 
 def phase_int8_path(torch, card: str, bf16_pipe, audio) -> dict:
@@ -1089,7 +1129,7 @@ def phase_int8_path(torch, card: str, bf16_pipe, audio) -> dict:
     )
     say(f"  weights: W8A16 {q_bytes} bytes ({q_bytes / 2**30:.3f} GiB) vs bf16 {bf16_bytes} bytes "
         f"({bf16_bytes / 2**30:.3f} GiB); peak counts both trees resident")
-    return {"counts": run["counts"], "pipe": pipe}
+    return {"counts": run["counts"], "pipe": pipe, "graph": run["graph"], "wall": run["wall"]}
 
 
 def phase_step_parity(torch, label, pipe, audio, card) -> None:
@@ -1217,13 +1257,24 @@ class Spy:
 class StepLogits(Spy):
     """Spy on the decode loop's sampler: for each step, the filtered
     logits' top-2 gap and the margin of the best token other than EOT over
-    EOT, [B] device tensors each (three small launches a step)."""
+    EOT, [B] device tensors each (three small launches a step). A replay
+    of the step's CUDA graph makes no Python call, so the loops it records
+    run eagerly (`cuda_graph=False`): the recorded runs are references."""
 
     def __init__(self, eot: int):
         from whisperkit_tpu_torch.decoding import loop
 
         super().__init__(loop, "sample_token")
-        self.eot, self.gaps, self.margins = eot, [], []
+        self.loop, self.eot, self.gaps, self.margins = loop, eot, [], []
+
+    def __enter__(self):
+        self.start = self.loop._start
+        self.loop._start = lambda *args, **kwargs: self.start(*args, **{**kwargs, "cuda_graph": False})
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self.loop._start = self.start
+        super().__exit__(*exc)
 
     def before(self, logits, *args, **kwargs) -> None:
         top2 = logits.topk(2, dim=-1).values
@@ -1256,11 +1307,14 @@ def divergences(label, ours, ref, gaps, sample_begin: int) -> int:
 
 def timed_transcribe(torch, pipe, audio, options) -> tuple:
     """(result, wall s, launch counts) of one transcribe with the launch
-    counts set to 0 just before it and read just after it."""
+    counts (and the decode graph's, `graph_stats`) set to 0 just before it
+    and read just after it."""
+    from whisperkit_tpu_torch.decoding import graph
     from whisperkit_tpu_torch.ops import _build
 
     torch.cuda.synchronize()
     _build.reset_launches()
+    graph.reset_stats()
     t0 = time.perf_counter()
     result = pipe.transcribe(audio, options)
     torch.cuda.synchronize()
@@ -1330,7 +1384,8 @@ def phase_word_timestamps(torch, card: str, pipe, audio) -> dict:
         f"| {passes} decoder passes: K3 probs form {probs}, plain {plain} | alignment buffer [{total}, {GROUP}, "
         f"{len(ALIGNMENT_HEADS)}, 1500] f32 ({total * GROUP * len(ALIGNMENT_HEADS) * 1500 * 4 / 1e6:.1f} MB) to the "
         f"host in {min(transfer) * 1e3:.1f}-{max(transfer) * 1e3:.1f} ms | peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches {json.dumps(counts)} | {card}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches {json.dumps(counts)} | "
+        f"{say_graph(graph_stats())} | {card}")
     return {"counts": counts, "wall": wall, "words": n_words, "transfer_ms": min(transfer) * 1e3}
 
 
@@ -1449,7 +1504,7 @@ def phase_segmented(torch, card: str, pipe, audio) -> dict:
         f"stop after one segment) {wall_d:.3f} s | B: {len(result_b.segments)} segments, launches "
         f"{json.dumps(counts)} | {card}")
     return {"counts": counts, "walls": [wall_a, wall_b, wall_c, wall_d], "compactions": sizes, "same": same_b,
-            "same_early_stop": same_d}
+            "same_early_stop": same_d, "bias": bias}
 
 
 def phase_speculative(torch, card: str, pipe, audio) -> dict:
@@ -1496,6 +1551,143 @@ def phase_speculative(torch, card: str, pipe, audio) -> dict:
         f"per target pass) | wall {wall:.3f} s, without the draft {wall_plain:.3f} s (with the step recorder), both "
         f"one pass | launches {json.dumps(counts)} | {card}")
     return {"counts": counts, "wall": wall, "wall_plain": wall_plain, "rounds": rounds, "same": same}
+
+
+def group_mel(pipe, audio, options):
+    """The mel of the first 32-window group that pipe.transcribe decodes
+    (its length-sorted VAD chunks, zero windows padding the group to
+    GROUP rows, as the pipeline pads a partial group)."""
+    import numpy as np
+
+    chunks = pipe._vad_chunks(audio, options)
+    order = sorted(range(len(chunks)), key=lambda i: len(chunks[i].audio_samples))[:GROUP]
+    windows = [audio[c.seek_offset_index : c.seek_offset_index + min(len(c.audio_samples), 480_000)]
+               for c in (chunks[i] for i in order)]
+    windows += [np.zeros(480_000, np.float32)] * (GROUP - len(windows))
+    return pipe._mel_batch(windows)
+
+
+class DoneSpy(Spy):
+    """Spy on the decode loop's `_release`, called once per decode and on
+    each compaction: the `done` mask and host position it found."""
+
+    def __init__(self):
+        from whisperkit_tpu_torch.decoding import loop
+
+        super().__init__(loop, "_release")
+        self.done = []
+
+    def before(self, st) -> None:
+        self.done.append((st.done.clone(), st.pos))
+
+
+def phase_decode_graph(torch, card: str, bf16_pipe, w8_params, audio, eot_bias: float) -> dict:
+    """Phase 25: the decode loop's CUDA graph of the step (decoding/graph.py)
+    against the eager loop (`cuda_graph=False`) on phase 4's 32-window
+    group, encoded and prefilled once per case, each decode from the same
+    prefill: (a) bf16 serving; (b) phase 6's W8A16 tree with the int8
+    self-KV cache (K5 in place of K4); (c) bf16 with ALIGNMENT_HEADS (K3's
+    probs form); (d) temperature 0.5, top-k 5, one generator seeded alike
+    for each run; (e) segmented decode with compaction under phase 11's
+    EOT bias, which must compact and capture once more per compaction.
+    Tokens, token log-probabilities, the `done` mask and (c) the alignment
+    buffer must be bit-equal (the same kernels on the same inputs in the
+    same order), and the kernels' launches equal: the graph's are counted
+    through its replays. Walls, the capture's and instantiation's host
+    seconds and the replays are printed."""
+    from whisperkit_tpu_torch.decoding import graph
+    from whisperkit_tpu_torch.decoding import loop
+    from whisperkit_tpu_torch.ops import _build
+    from whisperkit_tpu_torch.pipelines.whisper import MAX_TOKEN_CONTEXT
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    label = "phase 25 decode graph"
+    pipe, dims, sp = bf16_pipe, bf16_pipe.dims, bf16_pipe.tokenizer.special
+    options = pipeline_options(GROUP)
+    mel = group_mel(pipe, audio, options)
+    prompt, sot_index = pipe._build_prompt(options, "en")
+    prompt = torch.tensor([prompt] * GROUP, dtype=torch.long, device=pipe.device)
+    common = dict(dims=dims, special=sp, sample_begin=prompt.shape[1], top_k=options.top_k, sot_index=sot_index,
+                  use_timestamp_rules=not options.without_timestamps, suppress_blank=options.suppress_blank)
+    max_new = min(options.sample_length, MAX_TOKEN_CONTEXT - prompt.shape[1])
+    suppress = pipe._suppress_bias(options)
+    biased = suppress.clone()
+    biased[sp.eot] += eot_bias
+    cases = {
+        "a": dict(params=pipe.params, q8_self=False, heads=None, temperature=0.0, segmented=False),
+        "b": dict(params=w8_params, q8_self=True, heads=None, temperature=0.0, segmented=False),
+        "c": dict(params=pipe.params, q8_self=False, heads=ALIGNMENT_HEADS, temperature=0.0, segmented=False),
+        "d": dict(params=pipe.params, q8_self=False, heads=None, temperature=0.5, segmented=False),
+        "e": dict(params=pipe.params, q8_self=False, heads=None, temperature=0.0, segmented=True),
+    }
+    out = {}
+    for key, case in cases.items():
+        params = case["params"]
+        with torch.inference_mode():
+            _, ck, cv = loop.encode_window(params, mel, dims, quantize_kv=True)
+        pre = loop.prefill_window(params, ck, cv, prompt, **{k: common[k] for k in ("dims", "special", "sample_begin")},
+                                  max_new_tokens=max_new, sot_index=sot_index, alignment_heads=case["heads"],
+                                  quantize_self_kv=case["q8_self"])
+        runs = {}
+        for mode in ("eager", "graph"):
+            scalars = pipe._decode_scalars(options, case["temperature"], 0)
+            if case["temperature"] > 0:
+                scalars = scalars._replace(generator=torch.Generator(device=pipe.device).manual_seed(SEED))
+            kw = dict(common, max_new_tokens=max_new, alignment_heads=case["heads"], prefill=pre,
+                      cuda_graph=mode == "graph")
+            if case["temperature"] > 0:
+                kw["top_k"] = 5
+            sizes = []
+            compact = loop._compact
+            loop._compact = lambda st, rows, n: (sizes.append(len(rows)), compact(st, rows, n))[1]
+            try:
+                with DoneSpy() as spy:
+                    torch.cuda.synchronize()
+                    _build.reset_launches()
+                    graph.reset_stats()
+                    t0 = time.perf_counter()
+                    if case["segmented"]:
+                        res = loop.decode_loop_segmented(params, ck, cv, prompt, biased, scalars, compact=True, **kw)
+                    else:
+                        res = loop.decode_loop(params, ck, cv, prompt, suppress, scalars, **kw)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                loop._compact = compact
+            runs[mode] = {"out": res, "wall": wall, "counts": dict(_build.launches), "graph": graph_stats(),
+                          "done": spy.done[-1][0], "compactions": sizes}
+        eager, graphed = runs["eager"], runs["graph"]
+        equal = {
+            "tokens": torch.equal(eager["out"].tokens, graphed["out"].tokens),
+            "logprobs": torch.equal(eager["out"].token_logprobs, graphed["out"].token_logprobs),
+            "done": torch.equal(eager["done"], graphed["done"]),
+            "length": eager["out"].length == graphed["out"].length,
+        }
+        if case["heads"] is not None:
+            equal["alignment"] = torch.equal(eager["out"].alignment, graphed["out"].alignment)
+        kernels = {k: (eager["counts"][k], graphed["counts"][k]) for k in _build.KERNELS if eager["counts"][k]
+                   or graphed["counts"][k]}
+        g = graphed["graph"]
+        line = (f"{label} ({key}) {'W8A16 + int8 self-KV' if case['q8_self'] else 'bf16'}"
+                f"{', alignment heads' if case['heads'] else ''}{', T 0.5 top-k 5' if case['temperature'] else ''}"
+                f"{f', segmented, EOT bias {eot_bias:.4f}' if case['segmented'] else ''}: bit-equal {json.dumps(equal)} "
+                f"| walls eager {eager['wall']:.3f} s, graph {graphed['wall']:.3f} s | {say_graph(g)} | launches "
+                f"(eager, graph) {json.dumps(kernels)}")
+        if case["segmented"]:
+            line += f" | compactions to {graphed['compactions']} rows (eager {eager['compactions']})"
+        say(f"{line} | {card}")
+        if not all(equal.values()):
+            fail(f"{label} ({key}): the graph's decode differs from the eager loop's: {equal}")
+        if any(a != b for a, b in kernels.values()):
+            fail(f"{label} ({key}): launches differ between the eager loop and the graph: {kernels}")
+        if eager["graph"]["captures"] or not g["replays"]:
+            fail(f"{label} ({key}): eager {eager['graph']}, graph {g}")
+        if case["segmented"] and (not graphed["compactions"] or g["captures"] != len(graphed["compactions"]) + 1):
+            fail(f"{label} ({key}): {len(graphed['compactions'])} compactions, {g['captures']} captures")
+        out[key] = {"equal": equal, "eager_wall": eager["wall"], "graph_wall": graphed["wall"], "graph": g,
+                    "launches": {k: b for k, (_, b) in kernels.items()}, "compactions": graphed["compactions"]}
+        del runs, eager, graphed, pre, ck, cv
+    return out
 
 
 # phases 13-15: the request lengths cut from phase 4's audio, in seconds
@@ -3224,7 +3416,9 @@ def hold_windows(label, ours: dict, ref: dict, gaps: dict) -> int:
 def mesh_run(torch, pipe, audio, options, counts: dict) -> tuple:
     """One timed transcribe on a mesh pipeline, its launches added to
     `counts` (total and per device) → (result, {chunk: tokens}, wall,
-    peak bytes per distinct device, this run's launches by device)."""
+    peak bytes per distinct device, this run's launches by device). The
+    decode graph's counts are set to 0 before it (`graph_stats`)."""
+    from whisperkit_tpu_torch.decoding import graph
     from whisperkit_tpu_torch.ops import _build
 
     devices = sorted({str(d) for d in pipe.devices})
@@ -3233,6 +3427,7 @@ def mesh_run(torch, pipe, audio, options, counts: dict) -> tuple:
     windows = {}
     torch.cuda.synchronize()
     _build.reset_launches()
+    graph.reset_stats()
     t0 = time.perf_counter()
     result = pipe.transcribe(audio, options, callback=lambda p: windows.__setitem__(p.window_id, list(p.tokens)))
     for d in devices:
@@ -3305,16 +3500,21 @@ def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
         pipe = WhisperPipeline(config(quantization="w8a16", **co), dims=dims, params=w8_params, device=devs)
         pipe.transcribe(audio[: 60 * 16_000], options)  # warm: the workers' first launches
         result, windows, wall, peaks, by_device = mesh_run(torch, pipe, audio, options, counts)
+        graphs = graph_stats(by_device=True)
         check_segments(label, result.segments)
         same = hold_windows(label, windows, ref_windows, gaps)
         plan = pipe._mesh()
         say(f"{label}: mesh dcn {plan.dcn} x dp {plan.dp} x tp {plan.tp} | wall {wall:.3f} s (one device "
-            f"{ref_wall:.3f} s, with the step recorder) | {len(result.segments)} segments, {same} of "
+            f"{ref_wall:.3f} s, eager: with the step recorder) | {len(result.segments)} segments, {same} of "
             f"{len(ref_windows)} chunks equal | peak per device "
             f"{json.dumps({d: round(b / 2**30, 2) for d, b in peaks.items()})} GiB | launches per device "
-            f"{json.dumps(by_device)} | {card}")
+            f"{json.dumps(by_device)} | decode graph per device (each dp thread captures its own; tp runs eagerly) "
+            f"{json.dumps(graphs)} | {card}")
+        if plan.tp == 1 and not all(graphs.get(str(torch.device(d)), {}).get("replays") for d in devs):
+            fail(f"{label}: a device's decode replayed no CUDA graph: {graphs}")
         out[key] = {"wall": wall, "one_device_wall": ref_wall, "same": same, "chunks": len(ref_windows),
-                    "peak_gib": {d: b / 2**30 for d, b in peaks.items()}, "launches_by_device": by_device}
+                    "peak_gib": {d: b / 2**30 for d, b in peaks.items()}, "launches_by_device": by_device,
+                    "graph_by_device": graphs}
         del pipe
     del one
 
@@ -3332,6 +3532,11 @@ def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
                            alignment_heads=ALIGNMENT_HEADS)
     with DecodeCalls() as mesh_calls:
         result, windows, wall, peaks, by_device = mesh_run(torch, pipe, clip, words_options, counts)
+    # tp decodes eagerly: its all-reduces are host barriers between the ranks' threads
+    if graph_stats()["captures"]:
+        fail(f"{label}: the tp decode captured a CUDA graph: {graph_stats()}")
+    say(f"{label}: the decode loop ran eagerly, as tp does (its all-reduces are host barriers between the ranks' "
+        f"threads, parallel/group.py, which a CUDA graph cannot hold)")
     check_segments(label, result.segments)
     same = hold_windows(label, windows, ref_windows, gaps)
     gathered = mesh_alignment(torch, label, teacher.decodes, list(zip(mesh_calls.calls, mesh_calls.begins)),
@@ -3691,6 +3896,8 @@ def main() -> None:
         "segmented": phase_segmented(torch, card, bf16["pipe"], bf16["audio"]),
         "speculative": phase_speculative(torch, card, bf16["pipe"], bf16["audio"]),
     }
+    phases["decode_graph"] = phase_decode_graph(torch, card, bf16["pipe"], w8_params, bf16["audio"],
+                                                phases["segmented"]["bias"])
     # phase 24's Whisper part runs here, on phase 4's and phase 6's trees
     phases["mesh"] = phase_mesh(torch, card, bf16["pipe"], w8_params, bf16["audio"])
     del w8_params

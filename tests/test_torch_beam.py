@@ -25,6 +25,7 @@ from whisperkit_tpu_torch.decoding import beam, loop
 from whisperkit_tpu_torch.models import whisper as model
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 from whisperkit_tpu_torch.text.tokenizer import special_tokens_for_vocab
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 V = 207
 SP = special_tokens_for_vocab(V)

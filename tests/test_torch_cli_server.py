@@ -46,6 +46,7 @@ from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 from whisperkit_tpu_torch.server import client, schema
 from whisperkit_tpu_torch.server.openai_api import create_app
 from whisperkit_tpu_torch.tools.checkpoint import write_hf_checkpoint, write_synthetic_tokenizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 REPO = Path(__file__).resolve().parent.parent
 # a 448-token text context: the server decodes the 224-token default budget

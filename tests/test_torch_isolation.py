@@ -32,6 +32,7 @@ from whisperkit_tpu_torch.core import results
 from whisperkit_tpu_torch.core import timings
 from whisperkit_tpu_torch.text import languages, segment_seeker, tokenizer, utils, word_timestamps
 from whisperkit_tpu_torch.tools import workload
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "whisperkit_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

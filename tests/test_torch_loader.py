@@ -31,6 +31,7 @@ from whisperkit_tpu_torch.models import whisper as model
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 from whisperkit_tpu_torch.text.tokenizer import FakeTokenizer, WhisperTokenizer
 from whisperkit_tpu_torch.tools import checkpoint
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 HF_CFG = dict(
     vocab_size=207, num_mel_bins=80, d_model=128, encoder_layers=2, encoder_attention_heads=4,

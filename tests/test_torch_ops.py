@@ -22,6 +22,7 @@ from whisperkit_tpu.ops.attention import mha_encoder_pallas
 from whisperkit_tpu_torch.models.whisper import _merge_heads, _q8_row_quantize, _split_heads
 from whisperkit_tpu_torch.ops import _build, attention, attention_decode, mel
 from whisperkit_tpu_torch.tools import decode_attn_check, k2_check
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 
 def _t(x):

@@ -29,6 +29,7 @@ from whisperkit_tpu_torch.models import whisper as model
 from whisperkit_tpu_torch.ops.mel import log_mel_spectrogram
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 REPO = Path(__file__).resolve().parent.parent
 DIMS = model.WhisperDims(80, 207, 1500, 64, 4, 2, 64, 64, 4, 2)

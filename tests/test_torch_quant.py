@@ -19,6 +19,7 @@ from whisperkit_tpu.models import whisper as jmodel
 from whisperkit_tpu.ops import quant as jquant
 from whisperkit_tpu_torch.models import whisper as model
 from whisperkit_tpu_torch.ops import quant
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 DIMS = model.WhisperDims(80, 207, 1500, 64, 4, 2, 64, 64, 4, 2)
 JDIMS = jmodel.WhisperDims(*dataclasses.astuple(DIMS))

@@ -26,6 +26,7 @@ from whisperkit_tpu_torch.core.configurations import DecodingOptions, WhisperCon
 from whisperkit_tpu_torch.models import whisper as model
 from whisperkit_tpu_torch.pipelines.scheduler import BatchScheduler
 from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 DIMS = model.WhisperDims(80, 207, 1500, 64, 4, 2, 64, 64, 4, 2)
 JDIMS = jmodel.WhisperDims(*dataclasses.astuple(DIMS))

@@ -19,6 +19,7 @@ from whisperkit_tpu.text import tokenizer as jtok
 from whisperkit_tpu_torch.text import languages
 from whisperkit_tpu_torch.text import tokenizer as tok
 from whisperkit_tpu_torch.tools.checkpoint import write_synthetic_tokenizer
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 PACKAGES = {"jax": (jtok, jlanguages), "torch": (tok, languages)}
 # the stdlib approximation of the GPT-2 pattern (letters ≈ [^\W\d_])

@@ -33,6 +33,7 @@ from whisperkit_tpu_torch.pipelines.whisper import WhisperPipeline
 from whisperkit_tpu_torch.text import word_timestamps as wt
 from whisperkit_tpu_torch.text.tokenizer import FakeTokenizer, special_tokens_for_vocab
 from whisperkit_tpu_torch.tools.workload import synth_speechlike_audio
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: torch on one thread)
 
 V = 207
 SP = special_tokens_for_vocab(V)

@@ -2,9 +2,11 @@
 whisperkit_tpu/decoding/filters.py).
 
 Reference: Sources/WhisperKit/Core/Text/LogitsFilter.swift. Every filter is
-a function on a [B, V] logits tensor; the decode position `pos` is a host
-integer (the port's decode loop runs on the host), so branches on it are
-plain Python and nothing here waits for the device.
+a function on a [B, V] logits tensor built from tensor masks, as JAX's are.
+The decode position `pos` may be a 0-d int64 tensor on the logits' device
+(the decode loop keeps it there, so that a CUDA graph of the step replays
+at each new position) or a host int (beam search, speculative decoding);
+nothing branches on it in Python and nothing here waits for the device.
 """
 
 from __future__ import annotations
@@ -48,21 +50,18 @@ def non_speech_token_ids(sp: SpecialTokens, tokenizer=None) -> list[int]:
     return sorted(t for t in ids if 0 <= t < sp.n_vocab)
 
 
-def apply_suppress_blank(logits: torch.Tensor, sp: SpecialTokens, at_begin: bool) -> torch.Tensor:
-    """Mask ' ' and EOT at the first sampled position."""
-    if not at_begin:
-        return logits
-    logits = logits.clone()
-    for tok in (sp.whitespace, sp.eot):
-        if 0 <= tok < logits.shape[-1]:
-            logits[:, tok] = NEG_INF
-    return logits
+def apply_suppress_blank(logits: torch.Tensor, sp: SpecialTokens, at_begin) -> torch.Tensor:
+    """Mask ' ' and EOT at the first sampled position; `at_begin` is a
+    bool or a 0-d bool tensor."""
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    blank = (ids == sp.whitespace) | (ids == sp.eot)
+    return logits.masked_fill(blank[None, :] & at_begin, NEG_INF)
 
 
 def apply_timestamp_rules(
     logits: torch.Tensor,  # [B, V] f32
     tokens: torch.Tensor,  # [B, T] token buffer
-    pos: int,  # current length (next write index)
+    pos,  # current length (next write index): a 0-d int64 tensor or an int
     sample_begin: int,
     sp: SpecialTokens,
     max_initial_timestamp_index: int,
@@ -79,21 +78,18 @@ def apply_timestamp_rules(
         token, text is masked
     """
     b, v = logits.shape
-    ids = torch.arange(v, device=logits.device)
+    dev = logits.device
+    pos = torch.as_tensor(pos, dtype=torch.long, device=dev)
+    ids = torch.arange(v, device=dev)
     is_ts = ids >= sp.timestamp_begin
 
-    logits = logits.clone()
-    if 0 <= sp.notimestamps < v:
-        logits[:, sp.notimestamps] = NEG_INF
+    logits = logits.masked_fill((ids == sp.notimestamps)[None, :], NEG_INF)
 
-    if pos - 1 >= sample_begin:
-        last_was_ts = tokens[:, pos - 1] >= sp.timestamp_begin
-    else:
-        last_was_ts = torch.zeros((b,), dtype=torch.bool, device=logits.device)
-    if pos - 2 >= sample_begin:
-        penult_was_ts = tokens[:, pos - 2] >= sp.timestamp_begin
-    else:
-        penult_was_ts = torch.ones((b,), dtype=torch.bool, device=logits.device)
+    def at(offset: int) -> torch.Tensor:  # tokens[:, pos - offset], clamped to 0
+        return tokens.gather(1, (pos - offset).clamp(min=0).expand(b, 1))[:, 0]
+
+    last_was_ts = (pos - 1 >= sample_begin) & (at(1) >= sp.timestamp_begin)
+    penult_was_ts = (pos - 2 < sample_begin) | (at(2) >= sp.timestamp_begin)
 
     # after a lone timestamp → mask text (EOT stays allowed); after a
     # completed pair → mask timestamps
@@ -104,19 +100,18 @@ def apply_timestamp_rules(
     logits = logits.masked_fill(mask_ts[:, None] & is_ts[None, :], NEG_INF)
 
     # monotonic timestamps: mask [timestamp_begin, floor)
-    if pos > sample_begin:
-        sampled = tokens[:, sample_begin:pos]
-        ts_vals = torch.where(sampled >= sp.timestamp_begin, sampled, -1)
-        max_ts = ts_vals.amax(dim=1)  # -1 if none
-        floor = torch.where(mask_text, max_ts, max_ts + 1)
-        mono = (max_ts >= 0)[:, None] & is_ts[None, :] & (ids[None, :] < floor[:, None])
-        logits = logits.masked_fill(mono, NEG_INF)
+    positions = torch.arange(tokens.shape[1], device=dev)
+    sampled = (positions >= sample_begin) & (positions < pos)
+    ts_vals = torch.where(sampled[None, :] & (tokens >= sp.timestamp_begin), tokens, -1)
+    max_ts = ts_vals.amax(dim=1)  # -1 if none
+    floor = torch.where(mask_text, max_ts, max_ts + 1)
+    mono = (max_ts >= 0)[:, None] & is_ts[None, :] & (ids[None, :] < floor[:, None])
+    logits = logits.masked_fill(mono, NEG_INF)
 
     # first sampled token must be a timestamp, within the initial cap
-    if pos == sample_begin:
-        logits = logits.masked_fill(~is_ts[None, :], NEG_INF)
-        too_late = ids > sp.timestamp_begin + max_initial_timestamp_index
-        logits = logits.masked_fill((is_ts & too_late)[None, :], NEG_INF)
+    at_begin = pos == sample_begin
+    too_late = ids > sp.timestamp_begin + max_initial_timestamp_index
+    logits = logits.masked_fill(at_begin & ~(is_ts & ~too_late)[None, :], NEG_INF)
 
     return _apply_ts_prob_rule(logits, is_ts)
 

@@ -1,12 +1,19 @@
 """The Whisper decode loop (port of whisperkit_tpu/decoding/loop.py).
 
 The JAX package runs the whole token loop as one `lax.while_loop` on the
-device. Here the loop is a host `for` over positions that only enqueues
-work: the position is a host integer, the per-row `done` mask stays on the
-device, and the host reads it only every `stop_check_interval` steps to
-stop early once every row has finished. Stopping late is exact, because a
-finished row keeps emitting EOT with log-probability 0, which is what the
-EOT-filled token buffer already holds.
+device. Here one position is one call of `_step`, which touches tensors
+only: the position lives on the device (a 0-d int64 tensor, as JAX's
+traced `pos`), and the step writes the tokens, log-probabilities, `done`
+mask, mask row, caches and alignment row at it, in place. On CUDA the
+first step runs eagerly and is then captured as a CUDA graph
+(`decoding/graph.py`), which every later position replays: one launch
+from the host instead of a few thousand. On the CPU, with
+`cuda_graph=False`, and under tensor parallelism the same `_step` runs
+eagerly. The host counts positions, draws the sampler's noise into a
+buffer before each step, and reads `done` only every `stop_check_interval`
+steps to stop early once every row has finished. Stopping late is exact,
+because a finished row keeps emitting EOT with log-probability 0, which is
+what the EOT-filled token buffer already holds.
 
 Batching: every function is batched over B windows, with a per-row `done`
 mask for heterogeneous finish times.
@@ -28,8 +35,9 @@ import torch
 
 from whisperkit_tpu_torch.text.tokenizer import SpecialTokens
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
+from whisperkit_tpu_torch.decoding.graph import StepGraph
 from whisperkit_tpu_torch.decoding.sampler import sample_token
-from whisperkit_tpu_torch.parallel.mesh import RowDraws
+from whisperkit_tpu_torch.parallel.mesh import RowDraws, gumbel_from_uniform, uniform
 from whisperkit_tpu_torch.models.whisper import (
     WhisperDims,
     compute_cross_kv,
@@ -184,16 +192,21 @@ class _Decode:
     tokens: torch.Tensor  # [B, TOTAL]
     token_logprobs: torch.Tensor  # [B, TOTAL]
     done: torch.Tensor  # [B] bool
-    last_logits: torch.Tensor  # [B, V]
+    last_logits: torch.Tensor  # [B, V], written in place
     mask_row: torch.Tensor  # [1, TOTAL] additive mask of the T==1 step
     align: Optional[torch.Tensor]  # [TOTAL, B, A, 1500] with alignment heads
-    pos: int  # next write position
+    pos: int  # next write position, as the host counts it
+    pos_dev: torch.Tensor  # the same, 0-d int64 on the device: what the step reads
+    noise_u: Optional[torch.Tensor]  # [B, top_k] uniform draws for the step, temperature > 0
+    align_stage: Optional[torch.Tensor]  # [1, B, A, 1500]: the step's alignment row
+    use_graph: bool  # replay a CUDA graph of the step
+    graph: Optional[StepGraph] = None  # the step's graph, once captured
 
 
 def _start(
     params, cross_k, cross_v, prompt, suppress_bias, scalars, prefill: Optional[PrefillState], *,
     dims, special, sample_begin, max_new_tokens, top_k, sot_index, use_timestamp_rules, suppress_blank,
-    alignment_heads, quantize_self_kv,
+    alignment_heads, quantize_self_kv, cuda_graph,
 ) -> tuple[_Decode, PrefillState]:
     """The decode's state after the prompt: `prefill`'s, or a new prefill's."""
     if prefill is None:
@@ -217,56 +230,100 @@ def _start(
     # additive causal mask row of the T==1 step, opened one position per step
     mask_row = torch.full((1, _codes(prefill.kv_k).shape[3]), float("-inf"), dtype=torch.float32, device=dev)
     mask_row[:, :sample_begin] = 0.0
+    noise_u = None
+    if scalars.temperature > 0:
+        noise_u = torch.zeros((b, top_k), dtype=torch.float32, device=dev)
+    # tensor parallelism stays eager: its all-reduces are host barriers
+    # between the ranks' threads (parallel/group.py), which no graph holds
+    use_graph = cuda_graph and dev.type == "cuda" and params.get("tp") is None
     st = _Decode(
         params, cross_k, cross_v, suppress_bias, scalars, dims, special, sample_begin, total, top_k,
         use_timestamp_rules, suppress_blank, alignment_heads, prefill.kv_k, prefill.kv_v, tokens,
         torch.zeros((b, total), dtype=torch.float32, device=dev), torch.zeros((b,), dtype=torch.bool, device=dev),
-        prefill.last_logits, mask_row, align, sample_begin,
+        # a copy: the step writes it in place, and the prefill serves every rung
+        prefill.last_logits.clone(), mask_row, align, sample_begin,
+        torch.tensor(sample_begin, dtype=torch.long, device=dev), noise_u,
+        None if align is None else torch.zeros_like(align[:1]), use_graph,
     )
     return st, prefill
+
+
+def _step(st: _Decode, forward: bool) -> None:
+    """Decode the position `st.pos_dev` points at, on tensors only (what a
+    CUDA graph captures): filter the last logits, sample (with the noise
+    in `st.noise_u`), apply the stop checks, write the token, its
+    log-probability and `done` at the position; with `forward`, open the
+    mask row there and run the decoder on the token (its logits into
+    `st.last_logits`, its alignment row into `st.align`); then advance the
+    position. No host value depends on the position."""
+    sp = st.special
+    pos = st.pos_dev
+    at = pos.view(1)
+    logits = st.last_logits + st.suppress_bias[None, :]
+    if st.suppress_blank:
+        logits = apply_suppress_blank(logits, sp, pos == st.sample_begin)
+    if st.use_timestamp_rules:
+        logits = apply_timestamp_rules(
+            logits, st.tokens, pos, st.sample_begin, sp, st.scalars.max_initial_timestamp_index,
+        )
+    noise = None if st.noise_u is None else gumbel_from_uniform(st.noise_u)
+    token, logprob = sample_token(logits, st.scalars.temperature, top_k=st.top_k, noise=noise)
+
+    # stop checks: EOT, the context cap (loop bound), first-token floor
+    stop = st.done
+    first_threshold = st.scalars.first_token_logprob_threshold
+    if first_threshold != float("-inf"):
+        stop = stop | ((pos == st.sample_begin) & (logprob < first_threshold))
+    token = torch.where(stop, sp.eot, token)
+    logprob = torch.where(stop, 0.0, logprob)
+    st.tokens.index_copy_(1, at, token[:, None])
+    st.token_logprobs.index_copy_(1, at, logprob[:, None])
+    st.done.copy_(stop | (token == sp.eot))
+
+    if forward:
+        st.mask_row.index_fill_(1, at, 0.0)
+        capture = {}
+        if st.align is not None:
+            capture = {"alignment_heads": st.alignment_heads, "align_out": st.align_stage}
+        logits = decoder_forward(
+            st.params, token[:, None], pos, st.kv_k, st.kv_v, st.cross_k, st.cross_v, st.dims,
+            mask_row=st.mask_row, **capture,
+        )
+        st.last_logits.copy_(logits[:, -1])
+        if st.align is not None:
+            st.align.index_copy_(0, at, st.align_stage)
+    pos.add_(1)
 
 
 def _advance(st: _Decode, end: int, stop_check_interval: int) -> None:
     """Decode positions st.pos .. end - 1, or stop sooner once the host,
     which reads the `done` mask every `stop_check_interval` positions,
     sees every row done. The step at the last position runs only to
-    capture its alignment: its logits are never read."""
-    sp = st.special
-    first_threshold = st.scalars.first_token_logprob_threshold
+    capture its alignment: its logits are never read, and without an
+    alignment buffer it runs no decoder (eagerly: the graph holds the
+    decoder). With `st.use_graph`, the first step with a decoder runs
+    eagerly and is captured, and every later one replays the capture."""
     while st.pos < end:
-        pos = st.pos
-        if pos > st.sample_begin and (pos - st.sample_begin) % stop_check_interval == 0:
+        if st.pos > st.sample_begin and (st.pos - st.sample_begin) % stop_check_interval == 0:
             if bool(st.done.all()):  # the loop's one host sync, every K steps
                 return
-        logits = st.last_logits + st.suppress_bias[None, :]
-        if st.suppress_blank:
-            logits = apply_suppress_blank(logits, sp, pos == st.sample_begin)
-        if st.use_timestamp_rules:
-            logits = apply_timestamp_rules(
-                logits, st.tokens, pos, st.sample_begin, sp, st.scalars.max_initial_timestamp_index,
-            )
-        token, logprob = sample_token(logits, st.scalars.temperature, st.scalars.generator, st.top_k)
+        if st.noise_u is not None:  # the step's noise, in the eager sampler's draw order
+            st.noise_u.copy_(uniform(st.scalars.generator, st.noise_u.shape, st.noise_u.device))
+        forward = st.pos + 1 < st.total or st.align is not None
+        if not (st.use_graph and forward):
+            _step(st, forward)
+        elif st.graph is None:
+            st.graph = StepGraph(lambda: _step(st, True), st.tokens.device)  # runs this position, then captures
+        else:
+            st.graph.replay()
+        st.pos += 1
 
-        # stop checks: EOT, the context cap (loop bound), first-token floor
-        stop = st.done
-        if pos == st.sample_begin and first_threshold != float("-inf"):
-            stop = stop | (logprob < first_threshold)
-        token = torch.where(stop, sp.eot, token)
-        logprob = torch.where(stop, 0.0, logprob)
-        st.tokens[:, pos] = token
-        st.token_logprobs[:, pos] = logprob
-        st.done = stop | (token == sp.eot)
 
-        st.pos = pos + 1
-        if st.pos < st.total or st.align is not None:
-            st.mask_row[:, pos] = 0.0
-            capture = {}
-            if st.align is not None:
-                capture = {"alignment_heads": st.alignment_heads, "align_out": st.align[pos : pos + 1]}
-            st.last_logits = decoder_forward(
-                st.params, token[:, None], pos, st.kv_k, st.kv_v, st.cross_k, st.cross_v, st.dims,
-                mask_row=st.mask_row, **capture,
-            )[:, -1]
+def _release(st: _Decode) -> None:
+    """Free the step's graph and its memory pool."""
+    if st.graph is not None:
+        st.graph.close()
+        st.graph = None
 
 
 @torch.inference_mode()
@@ -290,19 +347,24 @@ def decode_loop(
     prefill: Optional[PrefillState] = None,
     stop_check_interval: int = 16,
     quantize_self_kv: bool = False,
+    cuda_graph: bool = True,
 ) -> DecodeLoopOutput:
     """Greedy (temperature 0) or top-k sampled decode of up to
     `max_new_tokens` tokens per row after the prompt. `quantize_self_kv`
     selects the int8 self-KV cache when there is no `prefill` to reuse.
     With `alignment_heads`, the output carries each position's alignment
-    (a `prefill` must then have captured it too)."""
+    (a `prefill` must then have captured it too). On CUDA the steps replay
+    a CUDA graph of one step; `cuda_graph=False` runs them eagerly, for
+    comparison only."""
     st, prefill = _start(
         params, cross_k, cross_v, prompt, suppress_bias, scalars, prefill,
         dims=dims, special=special, sample_begin=sample_begin, max_new_tokens=max_new_tokens,
         top_k=top_k, sot_index=sot_index, use_timestamp_rules=use_timestamp_rules,
         suppress_blank=suppress_blank, alignment_heads=alignment_heads, quantize_self_kv=quantize_self_kv,
+        cuda_graph=cuda_graph,
     )
     _advance(st, st.total, stop_check_interval)
+    _release(st)
     return DecodeLoopOutput(
         st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, gather_alignment(params, st.align),
     )
@@ -323,6 +385,7 @@ def _compact(st: _Decode, rows: list[int], n_active: int) -> None:
     shard's view of its group's draws, so each kept row goes on sampling
     with its own noise. The kernels then run on the smaller, contiguous
     batch."""
+    _release(st)  # the graph froze the old batch's tensors: the next step captures anew
     index = torch.tensor(rows, dtype=torch.long, device=st.tokens.device)
     if isinstance(st.scalars.generator, RowDraws):
         st.scalars = st.scalars._replace(generator=st.scalars.generator.take(rows))
@@ -335,6 +398,9 @@ def _compact(st: _Decode, rows: list[int], n_active: int) -> None:
     st.cross_k, st.cross_v = _take_rows(st.cross_k, index, 1), _take_rows(st.cross_v, index, 1)
     if st.align is not None:
         st.align = st.align.index_select(1, index)
+        st.align_stage = st.align_stage.index_select(1, index)
+    if st.noise_u is not None:
+        st.noise_u = st.noise_u.index_select(0, index)
 
 
 class _Banked(NamedTuple):
@@ -386,6 +452,7 @@ def decode_loop_segmented(
     compact: bool = False,
     quantize_self_kv: bool = False,
     stop_check_interval: int = 16,
+    cuda_graph: bool = True,
 ) -> DecodeLoopOutput:
     """decode_loop with host checkpoints every `segment_tokens` positions
     (the JAX `decode_loop_segmented`).
@@ -398,12 +465,15 @@ def decode_loop_segmented(
     decoding fit in half the batch (and two or more segments remain), the
     decode is gathered down to the next power of two of them
     (`_compact`), the finished rows' buffers banked at their original
-    rows, so finished rows stop costing the steps their attention."""
+    rows, so finished rows stop costing the steps their attention. On CUDA
+    the steps replay a CUDA graph, captured anew after each compaction
+    (`cuda_graph=False`: eager, for comparison only)."""
     st, prefill = _start(
         params, cross_k, cross_v, prompt, suppress_bias, scalars, prefill,
         dims=dims, special=special, sample_begin=sample_begin, max_new_tokens=max_new_tokens,
         top_k=top_k, sot_index=sot_index, use_timestamp_rules=use_timestamp_rules,
         suppress_blank=suppress_blank, alignment_heads=alignment_heads, quantize_self_kv=quantize_self_kv,
+        cuda_graph=cuda_graph,
     )
     b0 = prompt.shape[0]
     rows: list[Optional[int]] = list(range(b0))  # original row of each current row; None: a pad
@@ -425,6 +495,7 @@ def decode_loop_segmented(
         banked = _bank(banked, st, [(i, r) for i, r in enumerate(rows) if r is not None and done[i]], b0)
         _compact(st, active + [active[0]] * (b_new - len(active)), len(active))
         rows = [rows[i] for i in active] + [None] * (b_new - len(active))
+    _release(st)
 
     if banked is None:  # never compacted
         return DecodeLoopOutput(

@@ -12,6 +12,8 @@ greedy decoding is held token-for-token against the JAX package.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from whisperkit_tpu_torch.parallel.mesh import gumbel
@@ -22,11 +24,17 @@ def sample_token(
     temperature: float,
     generator=None,  # a torch.Generator, or a parallel.mesh.RowDraws view
     top_k: int = 5,
+    noise: Optional[torch.Tensor] = None,  # [B, top_k] Gumbel noise drawn beforehand
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (tokens [B] int64, logprob-of-token [B] f32)."""
+    """Returns (tokens [B] int64, logprob-of-token [B] f32). At temperature
+    > 0 the noise is `noise` where given (a CUDA graph of the decode step
+    reads it from a buffer the host fills before each replay: a draw from
+    a generator inside the capture would be frozen into it), else the next
+    draw of `generator`."""
     if temperature > 0:
         top_vals, top_idx = torch.topk(logits, top_k, dim=-1)
-        noise = gumbel(generator, top_vals.shape, logits.device)
+        if noise is None:
+            noise = gumbel(generator, top_vals.shape, logits.device)
         choice = torch.argmax(top_vals / max(temperature, 1e-4) + noise, dim=-1, keepdim=True)  # [B, 1]
         token = torch.gather(top_idx, 1, choice)[:, 0]
     else:

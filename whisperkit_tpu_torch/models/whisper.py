@@ -351,22 +351,25 @@ def _q8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _q8_row_quantize(x.float())
 
 
-def _self_kv_write(cache, new: torch.Tensor, pos: int) -> None:
+def _self_kv_write(cache, new: torch.Tensor, pos) -> None:
     """Write one layer's new K/V rows [B,H,T,Dh] into its cache at
     positions [pos, pos+T), quantizing on write when the cache is the int8
-    {"q8", "scale"} form.
+    {"q8", "scale"} form. `pos` is an int, or for T == 1 a 0-d int64
+    tensor on the cache's device (written by `index_copy_`, so a CUDA
+    graph of the step writes wherever the position then points).
 
     In place, where the JAX version returns an updated cache: the cache is
     the largest decode-time buffer, and eager torch cannot alias a
     functional update the way XLA does inside jit, so a copy per step
     would double the step's cache traffic."""
     t = new.shape[2]
-    if isinstance(cache, dict):
-        q8, scale = _q8_rows(new)
-        cache["q8"][:, :, pos : pos + t] = q8
-        cache["scale"][:, :, pos : pos + t] = scale
-    else:
-        cache[:, :, pos : pos + t] = new
+    parts = dict(zip(("q8", "scale"), _q8_rows(new))) if isinstance(cache, dict) else {None: new}
+    for key, rows in parts.items():
+        dst = cache if key is None else cache[key]
+        if isinstance(pos, torch.Tensor):
+            dst.index_copy_(2, pos.view(1), rows)
+        else:
+            dst[:, :, pos : pos + t] = rows
 
 
 def _attend_self_q8(q, k, v, mask):
@@ -597,7 +600,7 @@ def _self_attend_step(q, kk, vv, mask_row):
 def decoder_forward(
     params: Params,
     tokens: torch.Tensor,  # [B, T] int
-    pos_offset: int,  # position of tokens[:, 0]
+    pos_offset,  # position of tokens[:, 0]: an int, or for T == 1 a 0-d int64 tensor
     kv_k,  # [L, B, H, S, Dh] or int8 {"q8", "scale"}, written in place
     kv_v,
     cross_k,  # [L, B, H, 1500, Dh] or int8 {"q8", "scale"}
@@ -627,6 +630,14 @@ def decoder_forward(
     raw, K5 int8) with the additive mask row (0 up to `pos_offset`, -inf
     after), which the caller may pass in (`mask_row`, [1, S] float32) to
     avoid rebuilding it.
+
+    At T == 1 `pos_offset` may be a 0-d int64 tensor on the tokens'
+    device (the decode loop's device-side position, as JAX's traced
+    `pos`): then no host int slices `pos_embed` (`index_select`) or the
+    cache (`index_copy_`), so a CUDA graph of the step replays at every
+    position. The decode loop gives it its own mask row and, with
+    alignment heads, a [1, B, A, frames] staging `align_out` that it
+    copies to the position's row itself.
     """
     dec = params["decoder"]
     tp = params.get("tp")
@@ -635,13 +646,20 @@ def decoder_forward(
     s_max = (kv_k["q8"] if isinstance(kv_k, dict) else kv_k).shape[3]
     dev = tokens.device
 
+    on_device = isinstance(pos_offset, torch.Tensor)
+    if on_device and t != 1:
+        raise ValueError(f"a tensor position takes one token per row, got {t}")
     x = dec["token_embed"][tokens]
-    pos = dec["pos_embed"][pos_offset : pos_offset + t]
+    if on_device:
+        pos = dec["pos_embed"].index_select(0, pos_offset.view(1))
+    else:
+        pos = dec["pos_embed"][pos_offset : pos_offset + t]
     x = (x + pos[None]).to(dec["token_embed"].dtype)
 
     if t == 1 and mask_row is None:
+        key_pos = torch.arange(s_max, device=dev)[None, :]
         mask_row = torch.zeros((1, s_max), dtype=torch.float32, device=dev)
-        mask_row[:, pos_offset + 1 :] = float("-inf")
+        mask_row = mask_row.masked_fill(key_pos > pos_offset, float("-inf"))
     elif t > 1:
         key_pos = torch.arange(s_max, device=dev)[None, :]
         query_pos = pos_offset + torch.arange(t, device=dev)[:, None]

@@ -17,10 +17,16 @@ per device and kernel: each wrapper adds one where it launches its
 kernel, and nowhere else, so a run can show that its main path (and, on a
 mesh, every device of it) went through the kernels. The counts are
 guarded by a lock: the mesh's worker threads launch at the same time.
+
+A CUDA graph's replay makes no Python call, so while a thread captures a
+graph (`recording`) its launches go to a record instead of the counts,
+and each replay adds that record to them (`add_launches`): a run counts
+what it launched, graph or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -29,7 +35,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
@@ -49,6 +55,8 @@ launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 launches_by_device: dict[str, dict[str, int]] = {}
 _count_lock = threading.Lock()
 _load_lock = threading.Lock()
+# per thread: the (kernel, device) launches of the graph it is capturing
+_capture = threading.local()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +95,32 @@ def reset_launches() -> None:
         for name in launches:
             launches[name] = 0
         launches_by_device.clear()
+
+
+def _count(kernel: str, device: str, n: int = 1) -> None:
+    """Add n launches of `kernel` on `device`; the caller holds _count_lock."""
+    launches[kernel] += n
+    launches_by_device.setdefault(device, dict.fromkeys(KERNELS, 0))[kernel] += n
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[list[tuple[str, str]]]:
+    """While a CUDA graph is captured on this thread: `launch` appends
+    (kernel, device) to the yielded list instead of counting."""
+    record: list[tuple[str, str]] = []
+    _capture.record = record
+    try:
+        yield record
+    finally:
+        _capture.record = None
+
+
+def add_launches(record: list[tuple[str, str]]) -> None:
+    """Count the launches of one replay of a graph whose capture `recording`
+    gave `record`."""
+    with _count_lock:
+        for kernel, device in record:
+            _count(kernel, device)
 
 
 def _sources() -> list[Path]:
@@ -180,16 +214,19 @@ def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     the CUDA runtime's current device (the launcher's attribute calls and
     its launch act on the current device) and on `device`'s current
     stream, whatever device the calling thread had made current. Raise on
-    a non-zero launch status; count the launch."""
+    a non-zero launch status; count the launch, or record it while this
+    thread captures a graph (`recording`)."""
     fn = getattr(library(), fn_name)
     with torch.cuda.device(device):
         status = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     if status != 0:
         raise RuntimeError(f"{fn_name} launch failed with CUDA error {status}")
+    record = getattr(_capture, "record", None)
+    if record is not None:
+        record.append((kernel, str(device)))
+        return
     with _count_lock:
-        launches[kernel] += 1
-        per = launches_by_device.setdefault(str(device), dict.fromkeys(KERNELS, 0))
-        per[kernel] += 1
+        _count(kernel, str(device))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -8,7 +8,11 @@ device: every worker thread runs the port's single-device code on its own
 rows (dp, dcn) or on its own weight shard (tp, parallel/sharding.py), with
 the device made current. The tp ranks of one (dcn, dp) cell meet in a
 `TPGroup` (parallel/group.py); nothing else is shared between threads, so
-no collective can cross a dcn slice or a dp group.
+no collective can cross a dcn slice or a dp group. A dp or dcn thread's
+Whisper decode captures and replays its own CUDA graph of the step on its
+own device (decoding/graph.py), its noise drawn from its rows of the
+group's draws before each replay; a tp rank's decode stays eager, since
+its all-reduces are host barriers between the threads.
 
   MeshPlan / make_mesh      the grid, `pad_batch`, the dcn-major row order
   MeshPlan.run              fn(group, rank) in every cell's thread
@@ -314,12 +318,21 @@ class RowDraws:
         return RowDraws(self.shared, self.index[torch.as_tensor(list(rows), dtype=torch.long)], self._k)
 
 
-def gumbel(generator, shape, device) -> torch.Tensor:
-    """Standard Gumbel noise of `shape` on `device`, float32, as
-    `jax.random.gumbel` draws it: -log(-log(u)), u uniform in [tiny, 1)
+def uniform(generator, shape, device) -> torch.Tensor:
+    """The next uniform draw in [0, 1) of `shape` on `device`, float32,
     from a torch.Generator or a RowDraws view."""
     if isinstance(generator, RowDraws):
-        u = generator.rand(shape, device)
-    else:
-        u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+        return generator.rand(shape, device)
+    return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise from uniform draws `u`, as `jax.random.gumbel`
+    makes it: -log(-log(u)), u clamped to [tiny, 1)."""
     return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(torch.float32).tiny)))
+
+
+def gumbel(generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel noise of `shape` on `device`, float32, from the
+    next draw of a torch.Generator or a RowDraws view."""
+    return gumbel_from_uniform(uniform(generator, shape, device))

@@ -23,15 +23,31 @@ tokens, so the steps attend over positions START .. START + STEPS - 1 of
 a START + STEPS + 1 = 224-key self-KV cache (the main path's length), for
 bf16 weights with the bf16 self-KV cache (the `ComputeOptions.serving()`
 decode) and the same weights quantized to W8A16 with the int8 self-KV cache (`serving(quantization="w8a16",
-quantize_self_kv=True)`). For each it prints one JSON line:
+quantize_self_kv=True)`). Each runs twice: the eager loop
+(`cuda_graph=False`, "loop": "eager") and the CUDA graph of the step
+("loop": "graph"). For each it prints one JSON line:
 
   step_ms_unprofiled  wall per step of three loops after a warm-up one
-                      (host clock, the device synced before and after)
+                      (host clock, the device synced before and after);
+                      for the graph, of the replays alone: the step
+                      captured once, then STEPS replays a call from the
+                      same position
+  decode_call_ms      graph only: wall per step of three whole
+                      `decode_loop` calls, each running its first step
+                      eagerly and capturing the step anew (the pipeline's
+                      cost per group)
+  capture_s, instantiate_s  graph only: host seconds of the capture of
+                      the step and of the graph's instantiation
+                      (`decoding/graph.stats_by_device`), per capture
   device_busy_ms      per step: the union of the device activities'
                       intervals (kernels, copies, sets) in a
                       `torch.profiler` trace of one more loop
   launches_per_step   device activities per step in that trace
-  port_kernels        the port's kernel launches per step (`_build.launches`)
+  host_launches_per_step  the host's calls that put work on the device
+                      (kernel and graph launches, async copies and sets)
+                      per step in that trace
+  port_kernels        the port's kernel launches per step (`_build.launches`,
+                      counted through the replays for the graph)
   kernel_ms_per_launch  device ms per launch of K3, K4 and K5 in that trace
   top                 the 12 kernel names with the most device time:
                       [name (first 70 characters), count in the trace,
@@ -61,6 +77,9 @@ BATCH, STEPS, START, SEED = 32, 32, 191, 0
 # the decode step's attention kernels, by the name of their device activity
 STEP_KERNELS = {"self_attend": "self_attend_kernel", "self_attend_q8": "self_attend_q8_kernel",
                 "cross_attend_q8": "cross_attend_q8_kernel"}
+# the host's runtime calls that put work on the device, by their name in a trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def _busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -78,18 +97,21 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def _trace(fn) -> list:
-    """Device activities of one call of `fn` under torch.profiler."""
+def _trace(fn) -> tuple[list, int]:
+    """Device activities of one call of `fn` under torch.profiler, and the
+    count of the host's LAUNCH_CALLS."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
-    return device
+    host = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS)
+    return device, host
 
 
 def _top(device: list, per: float) -> list:
@@ -130,11 +152,13 @@ def _walls(fn, per: float = 1.0) -> list:
     return walls
 
 
-def decode_runner(pipe, mel, steps: int, start: int):
+def decode_runner(pipe, mel, steps: int, start: int, cuda_graph: bool):
     """A call that runs `decode_loop` for `steps` steps after a prompt of
-    `start` tokens (prefilled once here)."""
+    `start` tokens (prefilled once here), and one that replays a graph of
+    the step `steps` times from the same position (None when not
+    `cuda_graph`)."""
     from whisperkit_tpu_torch.core.configurations import DecodingOptions
-    from whisperkit_tpu_torch.decoding.loop import decode_loop, prefill_window
+    from whisperkit_tpu_torch.decoding import loop as decode
 
     sp = pipe.tokenizer.special
     options = DecodingOptions(language="en", first_token_log_prob_threshold=None)
@@ -146,19 +170,29 @@ def decode_runner(pipe, mel, steps: int, start: int):
         dims=pipe.dims, special=sp, sample_begin=start, max_new_tokens=steps + 1,
         sot_index=sot_index,
     )
-    pre = prefill_window(pipe.params, ck, cv, prompt_arr, **kwargs,
-                         quantize_self_kv=pipe.config.compute_options.quantize_self_kv)
+    pre = decode.prefill_window(pipe.params, ck, cv, prompt_arr, **kwargs,
+                                quantize_self_kv=pipe.config.compute_options.quantize_self_kv)
+    rest = dict(top_k=options.top_k, use_timestamp_rules=not options.without_timestamps,
+                suppress_blank=options.suppress_blank, cuda_graph=cuda_graph)
+    args = (pipe.params, ck, cv, prompt_arr, pipe._suppress_bias(options), pipe._decode_scalars(options, 0.0, 0))
 
     def loop():
         # steps + 1 sampled tokens, `steps` decoder steps
-        return decode_loop(
-            pipe.params, ck, cv, prompt_arr, pipe._suppress_bias(options),
-            pipe._decode_scalars(options, 0.0, 0), **kwargs, top_k=options.top_k,
-            use_timestamp_rules=not options.without_timestamps,
-            suppress_blank=options.suppress_blank, prefill=pre,
-        )
+        return decode.decode_loop(*args, **kwargs, **rest, prefill=pre)
 
-    return loop
+    if not cuda_graph:
+        return loop, None
+    # one more position, so that each of the `steps` replays runs the decoder
+    st, _ = decode._start(*args, pre, **{**kwargs, "max_new_tokens": steps + 2}, **rest, alignment_heads=None,
+                          quantize_self_kv=False)
+    decode._advance(st, start + 1, 16)  # the first step, eagerly, then its capture
+
+    def replays():
+        st.pos_dev.fill_(start + 1)
+        st.pos = start + 1
+        decode._advance(st, start + 1 + steps, 16)
+
+    return loop, replays
 
 
 def profile_decode(loop, steps: int) -> dict:
@@ -166,11 +200,12 @@ def profile_decode(loop, steps: int) -> dict:
     from whisperkit_tpu_torch.ops import _build
 
     _build.reset_launches()
-    device = _trace(loop)
+    device, host = _trace(loop)
     counts = {k: v / steps for k, v in _build.launches.items() if v}
     return {
         "device_busy_ms": _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / steps,
         "launches_per_step": len(device) / steps,
+        "host_launches_per_step": host / steps,
         "port_kernels": counts,
         "kernel_ms_per_launch": _per_launch_ms(device),
         "top": _top(device, steps),
@@ -179,7 +214,7 @@ def profile_decode(loop, steps: int) -> dict:
 
 def profile_encode(call) -> dict:
     """The encode line's traced figures, from one more call of `call`."""
-    device = _trace(call)
+    device, _ = _trace(call)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3
     k2 = _span_ms(device, lambda n: "mha_encoder" in n)
     return {
@@ -196,6 +231,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.decoding import graph
     from whisperkit_tpu_torch.decoding.loop import encode_window
     from whisperkit_tpu_torch.models.whisper import VARIANT_DIMS, init_params
     from whisperkit_tpu_torch.ops.quant import quantize_whisper_params
@@ -226,15 +262,25 @@ def main() -> None:
             if label == "bf16":
                 jobs.append(({"encode": "bf16", "batch": BATCH},
                              functools.partial(encode_window, tree, mel, dims, quantize_kv=True), 1, profile_encode))
-            jobs.append(({"config": label, "batch": BATCH, "positions": [START, START + STEPS - 1]},
-                         decode_runner(pipe, mel, STEPS, START), STEPS,
-                         functools.partial(profile_decode, steps=STEPS)))
+            head = {"config": label, "batch": BATCH, "positions": [START, START + STEPS - 1]}
+            loop, _ = decode_runner(pipe, mel, STEPS, START, cuda_graph=False)
+            jobs.append(({**head, "loop": "eager"}, loop, STEPS, functools.partial(profile_decode, steps=STEPS)))
+            graph.reset_stats()
+            loop, replays = decode_runner(pipe, mel, STEPS, START, cuda_graph=True)
+            (stats,) = graph.stats_by_device.values()
+            head = {**head, "loop": "graph", "capture_s": stats["capture_s"],
+                    "instantiate_s": stats["instantiate_s"]}
+            jobs.append((head, replays, STEPS, functools.partial(profile_decode, steps=STEPS)))
+            jobs.append((None, loop, STEPS, None))  # the whole call's wall, beside the replays'
         # every wall before the first trace: once a profiler session has run,
         # each later launch of the process costs the host more
         walls = [_walls(fn, per) for _, fn, per, _ in jobs]
-        for (head, fn, per, profile), wall in zip(jobs, walls):
+        for i, ((head, fn, per, profile), wall) in enumerate(zip(jobs, walls)):
+            if head is None:
+                continue
             key = "wall_ms" if "encode" in head else "step_ms_unprofiled"
-            print(json.dumps({**head, key: wall, **profile(fn)}), flush=True)
+            extra = {"decode_call_ms": walls[i + 1]} if head.get("loop") == "graph" else {}
+            print(json.dumps({**head, key: wall, **extra, **profile(fn)}), flush=True)
 
 
 if __name__ == "__main__":
