@@ -15,11 +15,13 @@ Phases, one line each; any failure exits non-zero:
      the port), and the least time the card could take (`bound_ms`); K1
      also against its plain version in float64 on random and speech-like
      audio; K4/K5 per row on the check inputs of
-     tools/decode_attn_check.py. In a process of its own (this script run
-     with TIMES_ARG): K4, K5 and SDPA timed at the main path's cache length
-     S = 224 with the mask open to S/2 and to S - 1, by CUDA events with
-     the host's time per call, then K1, K4, K5 and SDPA by device time
-     from `torch.profiler` traces. Once a profiler session has run, every
+     tools/decode_attn_check.py (K5 also at S = 229 and 448). In a process
+     of its own (this script run with TIMES_ARG): K4 and SDPA timed at the
+     main path's cache length S = 224 with the mask open to S/2 and to
+     S - 1, K5 with it open to 0, 31, S/2 and S - 1, eager and as a CUDA
+     graph of 50 launches, by CUDA events with the host's time per call,
+     then K1, K4, K5 and SDPA by device time from `torch.profiler` traces.
+     Once a profiler session has run, every
      later launch of its process costs the host more
      (whisperkit_tpu_torch/tools/launch_cost.py), which moved phases 4-8's
      walls by seconds when the traces ran in this process
@@ -245,11 +247,12 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return _timed_loop(torch, fn, iters)[0]
 
 
-def device_ms(torch, fn, iters: int, kernel: str | None = None) -> float:
-    """Mean device time per call of `fn(i)` over `iters` calls, from the
+def device_ms(torch, fn, iters: int, kernel: str | None = None, per_call: int = 1) -> float:
+    """Mean device time per launch of `fn(i)` over `iters` calls, from the
     device activities of a `torch.profiler` (CUPTI) trace: those whose name
-    holds `kernel`, which must run once per call, or with no `kernel` every
-    device activity of the calls."""
+    holds `kernel`, which must run `per_call` times per call (a graph's
+    replay: its launches), or with no `kernel` every device activity of the
+    calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -263,21 +266,37 @@ def device_ms(torch, fn, iters: int, kernel: str | None = None) -> float:
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if kernel is not None:
             events = [e for e in events if kernel in e.name]
-        if events and (kernel is None or len(events) == iters):
-            return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / iters
+        if events and (kernel is None or len(events) == iters * per_call):
+            return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / (iters * per_call)
     fail(f"three traces of {iters} calls held {len(events)} device activities"
          + (f" named {kernel!r}" if kernel else ""))
 
 
-def launch_times(torch, fn, iters: int, traces: list, kernel: str | None = None) -> dict:
-    """A call's CUDA-event time (`ms`) and the host's time to issue it
-    (`host_us`) over `iters` back-to-back calls (`_timed_loop`); its device
-    time (`device_ms`) joins the dict once `traced_times` has run the trace
-    queued in `traces`."""
+def launch_times(torch, fn, iters: int, traces: list, kernel: str | None = None, per_call: int = 1) -> dict:
+    """A launch's CUDA-event time (`ms`) and the host's time to issue it
+    (`host_us`) over `iters` back-to-back calls (`_timed_loop`) of `per_call`
+    launches each; its device time (`device_ms`) joins the dict once
+    `traced_times` has run the trace queued in `traces`."""
     ms, host = _timed_loop(torch, fn, iters)
-    times = {"ms": ms, "host_us": host * 1e6}
-    traces.append((times, fn, iters, kernel))
+    times = {"ms": ms / per_call, "host_us": host * 1e6 / per_call}
+    traces.append((times, fn, iters, kernel, per_call))
     return times
+
+
+def captured(torch, fn, launches: int):
+    """A CUDA graph of the calls fn(0) .. fn(launches - 1), captured after
+    one uncaptured pass on the capture's side stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(launches):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fn(i)
+    return graph
 
 
 def max_abs(torch, a, b) -> float:
@@ -548,9 +567,9 @@ def traced_times(torch) -> dict:
            "k3": time_cross_attend_q8(torch, g, dev, traces)}
     audio = [torch.randn((GROUP, 480_000), generator=g, device=dev) * 0.1 for _ in range(2)]
     k1 = {}
-    traces.append((k1, lambda i: mel.log_mel_frames(audio[i % 2], 128), 20, "log_mel_kernel"))
-    for times, fn, iters, kernel in traces:
-        times["device_ms"] = device_ms(torch, fn, iters, kernel)
+    traces.append((k1, lambda i: mel.log_mel_frames(audio[i % 2], 128), 20, "log_mel_kernel", 1))
+    for times, fn, iters, kernel, per_call in traces:
+        times["device_ms"] = device_ms(torch, fn, iters, kernel, per_call)
     out["log_mel_device_ms"] = k1["device_ms"]
     out["k3"] = {form: t["device_ms"] for form, t in out["k3"].items()}
     return out
@@ -580,13 +599,16 @@ def time_cross_attend_q8(torch, g, dev, traces) -> dict:
     out = {}
     for form, fn in forms.items():
         out[form] = {}
-        traces.append((out[form], fn, 50, "cross_attend_q8_kernel"))
+        traces.append((out[form], fn, 50, "cross_attend_q8_kernel", 1))
     return out
 
 
 # the main path's self-KV cache length: the 3-token prompt and
 # min(224, MAX_TOKEN_CONTEXT - 3) = 221 new tokens
 S_SELF = 224
+# K5's launches per CUDA graph in its in-graph timing (the decode step
+# replays it from a graph)
+GRAPH_LAUNCHES = 50
 
 
 def bound_of(t: dict) -> dict:
@@ -595,10 +617,19 @@ def bound_of(t: dict) -> dict:
 
 def self_fields(times: dict, s: int) -> dict:
     """K4/K5's extra fields of the kernels line: device and host times at
-    S - 1 (every key visible) and the figures at S/2."""
+    S - 1 (every key visible) and the figures at S/2; K5's at every timed
+    position, eager and in a graph, with the share of the bound."""
     full, half = times[s - 1], times[s // 2]
     fields = {"device_ms": full["kernel"]["device_ms"], "host_us": full["kernel"]["host_us"],
               "at_half": {"pos": s // 2, **half["kernel"], **bound_of(half)}}
+    if "graph" in full:
+        fields["by_position"] = {
+            pos: {"device_ms": t["kernel"]["device_ms"], "graph_device_ms": t["graph"]["device_ms"],
+                  "graph_ms": t["graph"]["ms"], **bound_of(t),
+                  "share": t["bound_ms"] / t["kernel"]["device_ms"],
+                  "graph_share": t["bound_ms"] / t["graph"]["device_ms"]}
+            for pos, t in times.items()
+        }
     if "library" in full:
         fields["library_device_ms"] = full["library"]["device_ms"]
         fields["at_half"]["library_ms"] = half["library"]["ms"]
@@ -613,8 +644,13 @@ def say_self_times(key: str, times: dict, card: str) -> None:
         if "library" in t:
             lib = (f" | SDPA event {t['library']['ms']:.4f} ms, device {t['library']['device_ms']:.4f} ms, "
                    f"host {t['library']['host_us']:.1f} µs/call")
+        graph = ""
+        if "graph" in t:
+            graph = (f" | in a graph of {GRAPH_LAUNCHES} launches: event {t['graph']['ms']:.4f} ms, device "
+                     f"{t['graph']['device_ms']:.4f} ms ({100 * t['bound_ms'] / t['graph']['device_ms']:.1f}% "
+                     "of the bound)")
         say(f"phase 3 {key} S={S_SELF} pos {pos}: kernel event {k['ms']:.4f} ms, device {k['device_ms']:.4f} ms, "
-            f"host {k['host_us']:.1f} µs/call{lib} | bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"host {k['host_us']:.1f} µs/call{lib}{graph} | bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
             f"{100 * t['bound_ms'] / k['device_ms']:.1f}% of it by device time) | {card}")
 
 
@@ -775,7 +811,7 @@ def check_self_attend(torch, g, dev, card) -> tuple[float, str]:
     """K4 against its plain version at S=224 on the check inputs of
     tools/decode_attn_check.py (peaked rows with the max in the last, ragged
     chunk of the kernel's split or in the first, near-flat rows), at B=4 and
-    B=32, the mask open to 0, S/2 and S-1: each row within 1e-5 (float32
+    B=32, the mask open to 0, 31, S/2 and S-1: each row within 1e-5 (float32
     throughout, another summation order). Masked rows filled with NaN must
     leave the output unchanged (the kernel never reads them). The plain
     split-key algorithm with each of its faults must exceed the limit on
@@ -811,7 +847,7 @@ def check_self_attend(torch, g, dev, card) -> tuple[float, str]:
         + "; ".join(f"{key} {[round(x, 3) for x in w.values()]}" for key, w in worst.items())
         + f"; NaN in the masked rows leaves the output unchanged | {card}")
     say(f"phase 3 self_attend faults at B=4 (worst row / limit per position and kind): {json.dumps(faults)}")
-    return max(errs), f" | bf16 cache S={s}, checked at B=4 and 32, pos 0, {s // 2}, {s - 1}; timed at B=32"
+    return max(errs), f" | bf16 cache S={s}, checked at B=4 and 32, pos {list(dc.positions(s))}; timed at B=32"
 
 
 def time_self_attend(torch, g, dev, traces) -> dict:
@@ -851,32 +887,41 @@ def time_self_attend(torch, g, dev, traces) -> dict:
     return {"plain_ms": plain, "times": times}
 
 
+# K5's check shapes beside the main path's (B=4 and 32 at S=224): a
+# cache length that is not a multiple of 4 (its scale rows are not 16-byte
+# aligned), and the decode loop's longest (2 · 224)
+Q8_CHECK_SHAPES = ((4, S_SELF), (GROUP, S_SELF), (4, 229), (GROUP, 448))
+
+
 def check_self_attend_q8(torch, g, dev, card) -> tuple[float, str, float]:
-    """K5 against its plain version at S=224 on the check inputs of
+    """K5 against its plain version on the check inputs of
     tools/decode_attn_check.py (peaked rows with the max near the end of the
     visible keys or near the start, near-flat rows; query and cache
     quantized per row, the rows after the position unwritten: zero codes
-    and scales), at B=4 and B=32, the mask open to 0, S/2 and S-1: each
-    row's error within K5_FLIPS · 127 · p_scale of that row (K5_FLIPS
+    and scales) at Q8_CHECK_SHAPES, the mask open to 0, 31, S/2 and S-1:
+    each row's error within K5_FLIPS · 127 · p_scale of that row (K5_FLIPS
     requantization flips). NaN in the masked rows' scales must leave the
-    output unchanged (the kernel never reads them). Rows built to round at
-    exact ties must give the exact half-to-even output. Returns (max abs
-    err, a note, the largest row limit)."""
+    output unchanged (the kernel never reads them). The plain model of the
+    kernel's algorithm with each of its faults must exceed the limit on the
+    B=4 S=224 inputs. Rows built to round at exact ties must give the exact
+    half-to-even output. Returns (max abs err, a note, the largest row
+    limit)."""
     from whisperkit_tpu_torch.ops import attention_decode
     from whisperkit_tpu_torch.tools import decode_attn_check as dc
 
-    b, h, s = GROUP, 20, S_SELF
-    errs, tols, worst = [], [], {}
-    for batch in (4, b):
+    b, h = GROUP, 20
+    errs, tols, worst, small = [], [], {}, []
+    for batch, s in Q8_CHECK_SHAPES:
         for pos in dc.positions(s):
             args = dc.check_inputs_q8(batch, h, s, pos, g, dev)
             out = attention_decode.self_attend_q8(*args)
             ref = attention_decode.self_attend_q8_reference(*args)
             limit = dc.q8_row_limit(args)
             ratio = dc.excess(out, ref, limit)
-            worst[f"B={batch} pos {pos}"] = dc.worst_by_kind(ratio)
+            key = f"B={batch} S={s} pos {pos}"
+            worst[key] = dc.worst_by_kind(ratio)
             if not float(ratio.max()) <= 1.0 or not bool(torch.isfinite(out).all()):
-                fail(f"self_attend_q8 B={batch} pos {pos}: worst row at {worst[f'B={batch} pos {pos}']} of its "
+                fail(f"self_attend_q8 {key}: worst row at {worst[key]} of its "
                      f"limit of {dc.K5_FLIPS} requantization flips for {dc.ROW_KINDS}")
             errs.append(max_abs(torch, out, ref))
             tols.append(limit.flatten())
@@ -887,11 +932,18 @@ def check_self_attend_q8(torch, g, dev, card) -> tuple[float, str, float]:
                 vs_nan[:, :, pos + 1 :] = float("nan")
                 if not torch.equal(attention_decode.self_attend_q8(qi, q_scale, k8, ks_nan, v8, vs_nan, mask_row),
                                    out):
-                    fail(f"self_attend_q8 B={batch} pos {pos}: NaN in the masked rows' scales changed the output")
+                    fail(f"self_attend_q8 {key}: NaN in the masked rows' scales changed the output")
+            if (batch, s) == (4, S_SELF):
+                small.append(args)
     tol_row = torch.cat(tols)
     say(f"phase 3 self_attend_q8 check, worst row / limit ({dc.K5_FLIPS} flips × 127 × p_scale) per kind "
         f"{dc.ROW_KINDS}: " + "; ".join(f"{key} {[float(f'{x:.3g}') for x in w.values()]}" for key, w in worst.items())
         + f"; NaN in the masked rows' scales leaves the output unchanged | {card}")
+    faults = dc.q8_fault_table(small)
+    if not dc.separates(faults, "block"):
+        fail(f"self_attend_q8: the limit does not separate the kernel's algorithm from its faults {faults}")
+    say(f"phase 3 self_attend_q8 faults at B=4 (worst row / limit per position and kind): {json.dumps(faults)}")
+    s = S_SELF  # the tie rows and the timing: the main path's length
 
     # round half to even: keys 0 and 1 alike (probabilities 1/2 each), with
     # v_scale 127 at key 0 and 2j + 1/2 at key 1 (j = row mod 64), so that
@@ -911,7 +963,8 @@ def check_self_attend_q8(torch, g, dev, card) -> tuple[float, str, float]:
     if not (torch.equal(out, exact) and torch.equal(ref, exact)):
         fail(f"self_attend_q8 ties: not rounded half to even (kernel max abs {max_abs(torch, out, exact):.3e}, "
              f"plain {max_abs(torch, ref, exact):.3e} from the exact output)")
-    extra = (f" | int8 cache S={s}, checked at B=4 and 32, pos 0, {s // 2}, {s - 1}; limit per row "
+    shapes = ", ".join(f"B={batch} S={n} pos {list(dc.positions(n))}" for batch, n in Q8_CHECK_SHAPES)
+    extra = (f" | int8 cache S={s}, checked at {shapes}; limit per row "
              f"{dc.K5_FLIPS} flips × 127 × p_scale, {float(tol_row.min()):.3e} to {float(tol_row.max()):.3e}; "
              "ties at 2j + 1/2 exact; timed at B=32")
     return max(errs), extra, float(tol_row.max())
@@ -932,11 +985,12 @@ def _q8_timing_inputs(torch, g, dev, sets: int) -> list:
 
 
 def time_self_attend_q8(torch, g, dev, traces) -> dict:
-    """K5 at S=224, the mask open to S/2 and to S-1, on four random cache
-    sets (codes and per-token scales, 79 MB) that rotate so launches read
-    device memory, and the plain version's CUDA-event ms at S-1; the
-    device-time traces join `traces`. Returns {"plain_ms", "times":
-    {position: figures}}."""
+    """K5 at S=224, the mask open to 0, 31, S/2 and S-1, on four random
+    cache sets (codes and per-token scales, 79 MB) that rotate so launches
+    read device memory: eager, and replayed from a CUDA graph of
+    GRAPH_LAUNCHES launches (as the decode step runs it), and the plain
+    version's CUDA-event ms at S-1; the device-time traces join `traces`.
+    Returns {"plain_ms", "times": {position: figures}}."""
     from whisperkit_tpu_torch.ops import attention_decode
     from whisperkit_tpu_torch.tools import decode_attn_check as dc
 
@@ -945,13 +999,18 @@ def time_self_attend_q8(torch, g, dev, traces) -> dict:
     qi, q_scale = sets[0][:2]
     caches = [c[2:] for c in sets]
     times = {}
-    for pos in (s // 2, s - 1):
+    for pos in dc.positions(s):
         mask_row = dc.mask_upto(s, pos, dev)
         n = pos + 1
+
+        def launch(i, m=mask_row):
+            return attention_decode.self_attend_q8(qi, q_scale, *caches[i % 4], m)
+
+        graph = captured(torch, launch, GRAPH_LAUNCHES)
         times[pos] = {
-            "kernel": launch_times(
-                torch, lambda i, m=mask_row: attention_decode.self_attend_q8(qi, q_scale, *caches[i % 4], m), 50,
-                traces, "self_attend_q8_kernel"),
+            "kernel": launch_times(torch, launch, 50, traces, "self_attend_q8_kernel"),
+            "graph": launch_times(torch, lambda i, gr=graph: gr.replay(), 4, traces, "self_attend_q8_kernel",
+                                  GRAPH_LAUNCHES),
             # the visible keys' int8 codes and f32 scales of K and V, the
             # query, the mask row and the f32 output
             **bound(2 * b * h * n * (64 + 4) + qi.numel() + 4 * (q_scale.numel() + s + b * h * 64),

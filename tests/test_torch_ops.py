@@ -469,14 +469,28 @@ def _q8_cache(rng, b, h, s, pos):
     return q, cache, mask
 
 
-@pytest.mark.parametrize("pos", [0, 17, 39])
-def test_self_attend_q8_reference_matches_jax_attend_self_q8(pos):
+# K5's cache lengths and mask positions: S = 40 (ids kept from the first
+# form of these tests), a length that is not a multiple of 4 (the kernel's
+# scale rows are then not 16-byte aligned) and the longest the kernel
+# takes, each at the on-card check's positions (0, 31, S/2, S - 1)
+Q8_SHAPES = [
+    pytest.param(40, 0, id="0"), pytest.param(40, 17, id="17"), pytest.param(40, 39, id="39"),
+    *((s, pos) for s in (229, attention_decode.MAX_SELF_KEYS) for pos in decode_attn_check.positions(s)),
+]
+
+
+def _q8_seed(base, s, pos):
+    return base + pos if s == 40 else [base, s, pos]
+
+
+@pytest.mark.parametrize("s, pos", Q8_SHAPES)
+def test_self_attend_q8_reference_matches_jax_attend_self_q8(s, pos):
     """The plain K5 on the port's row-quantized query against JAX's
     `_attend_self_q8` (which quantizes the query itself). A ±1 flip of one
     requantized probability is allowed (the JAX kernel-vs-einsum test's
     rtol 2e-2 / atol 2e-3)."""
-    rng = np.random.default_rng(20 + pos)
-    q, (k8, ks, v8, vs), mask = _q8_cache(rng, 2, 3, 40, pos)
+    rng = np.random.default_rng(_q8_seed(20, s, pos))
+    q, (k8, ks, v8, vs), mask = _q8_cache(rng, 2, 3, s, pos)
     ref = np.asarray(jax_attend_self_q8(
         jnp.asarray(q), {"q8": jnp.asarray(k8), "scale": jnp.asarray(ks)},
         {"q8": jnp.asarray(v8), "scale": jnp.asarray(vs)}, jnp.asarray(mask)[None, None],
@@ -484,21 +498,133 @@ def test_self_attend_q8_reference_matches_jax_attend_self_q8(pos):
     qi, q_scale = _q8_row_quantize(_t(q) * 64**-0.5)
     out = attention_decode.self_attend_q8(qi, q_scale, _t(k8), _t(ks), _t(v8), _t(vs), _t(mask))
     assert out.dtype == torch.float32 and out.shape == (2, 3, 1, 64)
+    assert np.isfinite(ref).all()
     assert np.isfinite(out.numpy()).all()
     np.testing.assert_allclose(out.numpy(), ref, rtol=2e-2, atol=2e-3)
 
 
-@pytest.mark.parametrize("pos", [0, 17, 39])
-def test_self_attend_q8_matches_pallas_interpret(pos):
+@pytest.mark.parametrize("s, pos", Q8_SHAPES)
+def test_self_attend_q8_matches_pallas_interpret(s, pos):
     """The Pallas kernel in interpret mode and the port on the same int8
     inputs (tolerance as above)."""
-    rng = np.random.default_rng(30 + pos)
-    q, (k8, ks, v8, vs), mask = _q8_cache(rng, 2, 3, 40, pos)
+    rng = np.random.default_rng(_q8_seed(30, s, pos))
+    q, (k8, ks, v8, vs), mask = _q8_cache(rng, 2, 3, s, pos)
     qi, q_scale = (np.array(a) for a in jax_q8_row_quantize(jnp.asarray(q) * 64**-0.5))
     args = (qi, q_scale, k8, ks, v8, vs, mask)
     ref = np.asarray(jad.self_attend_q8_pallas(*(jnp.asarray(a) for a in args)))
     out = attention_decode.self_attend_q8(*(_t(a) for a in args)).numpy()
     np.testing.assert_allclose(out, ref, rtol=2e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("s", [224, 229])
+def test_self_attend_q8_block_reference_matches_pallas_interpret(s):
+    """K5's algorithm in plain torch (the exp sum in the kernel's order)
+    against the Pallas kernel in interpret mode on the on-card check's
+    inputs, each row within the check's limit (K5_FLIPS requantization
+    flips), at every check position; NaN in the masked rows' scales
+    changes nothing, as the kernel reads none of them."""
+    g = torch.Generator().manual_seed(s)
+    for pos in decode_attn_check.positions(s):
+        args = decode_attn_check.check_inputs_q8(1, 6, s, pos, g, "cpu")
+        ref = torch.from_numpy(np.array(jad.self_attend_q8_pallas(*(jnp.asarray(a.numpy()) for a in args))))
+        out = attention_decode.self_attend_q8_block_reference(*args)
+        ratio = decode_attn_check.excess(out, ref, decode_attn_check.q8_row_limit(args))
+        assert float(ratio.max()) <= 1.0, (pos, ratio)
+        qi, q_scale, k8, ks, v8, vs, mask = args
+        ks, vs = ks.clone(), vs.clone()
+        ks[:, :, pos + 1 :] = vs[:, :, pos + 1 :] = float("nan")
+        assert torch.equal(attention_decode.self_attend_q8_block_reference(qi, q_scale, k8, ks, v8, vs, mask), out)
+
+
+@pytest.fixture(scope="module")
+def k5_faults():
+    g = torch.Generator().manual_seed(1)
+    return decode_attn_check.q8_fault_table(
+        [decode_attn_check.check_inputs_q8(1, 6, 224, pos, g, "cpu") for pos in decode_attn_check.positions(224)]
+    )
+
+
+def test_k5_limit_passes_the_block_algorithm(k5_faults):
+    assert decode_attn_check.worst(k5_faults["block"]) <= 1.0, k5_faults["block"]
+    assert decode_attn_check.separates(k5_faults, "block")
+
+
+@pytest.mark.parametrize(
+    "fault, pos, kind",
+    [
+        ("drop_last_visible", 0, "near_flat"),
+        ("drop_last_visible", 223, "near_flat"),
+        ("masked_scored_zero", 31, "near_flat"),
+        ("masked_scored_zero", 112, "near_flat"),
+        ("p_scale_of_probs", 31, "peaked_first_chunk"),
+        ("p_scale_of_probs", 223, "near_flat"),
+    ],
+)
+def test_k5_limit_fails_each_fault(k5_faults, fault, pos, kind):
+    """Each altered form of K5's algorithm exceeds the limit where the
+    inputs were built to show it (masked keys exist only before S - 1)."""
+    assert k5_faults[fault][f"pos {pos}"][kind] > 1.0, k5_faults[fault]
+
+
+@pytest.mark.parametrize("s", [37, 224, 512])
+def test_k5_block_sum_takes_the_kernels_order(s):
+    """`_k5_block_sum` bit for bit against a scalar float32 walk of the
+    kernel's reduction: thread t adds keys t, t + 256, ... in turn; the
+    xor butterfly (16, 8, 4, 2, 1) over each warp's lanes; the same over
+    the eight warps' sums, lanes 8-31 holding 0."""
+    rng = np.random.default_rng(s)
+    x = np.exp(rng.standard_normal(s) * 4).astype(np.float32)
+
+    def butterfly(lanes):
+        for off in (16, 8, 4, 2, 1):
+            lanes = [np.float32(lanes[i] + lanes[i ^ off]) for i in range(32)]
+        return lanes
+
+    threads = [np.float32(0.0)] * 256
+    for key in range(s):
+        threads[key % 256] = np.float32(threads[key % 256] + x[key])
+    warps = [butterfly(threads[32 * w : 32 * w + 32])[0] for w in range(8)]
+    expected = butterfly(warps + [np.float32(0.0)] * 24)[0]
+    got = attention_decode._k5_block_sum(torch.from_numpy(x)[None])
+    assert got.shape == (1, 1) and got.dtype == torch.float32
+    assert float(got[0, 0]) == float(expected)
+
+
+@pytest.mark.parametrize("kernel", ["self_attend", "self_attend_q8"])
+@pytest.mark.parametrize("fault, message", [("too_long", "at most 512 keys"), ("misaligned", "16-byte aligned")])
+def test_self_attention_wrappers_raise_on_layouts_their_kernels_refuse(monkeypatch, kernel, fault, message):
+    """On CUDA tensors (stood in here by objects that say so) K4's and K5's
+    wrappers raise, before any launch, for a cache longer than
+    MAX_SELF_KEYS and for K/V data that is not 16-byte aligned: their
+    kernels stage rows in shared memory, K5's by bulk copies."""
+
+    class Stand:
+        is_cuda = True
+        device = "cuda"
+
+        def __init__(self, shape, dtype, misaligned=False):
+            self.shape, self.dtype, self.misaligned = torch.Size(shape), dtype, misaligned
+
+        def data_ptr(self):
+            return 8 if self.misaligned else 256
+
+    def launched(*_):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(_build, "check_cuda", lambda *_, **__: None)
+    monkeypatch.setattr(_build, "launch", launched)
+    s = attention_decode.MAX_SELF_KEYS + (4 if fault == "too_long" else 0)
+    bad = fault == "misaligned"
+    mask = Stand((1, s), torch.float32)
+    if kernel == "self_attend":
+        args = (Stand((2, 3, 1, 64), torch.float32), Stand((2, 3, s, 64), torch.bfloat16, bad),
+                Stand((2, 3, s, 64), torch.bfloat16), mask)
+    else:
+        args = (Stand((2, 3, 1, 64), torch.int8), Stand((2, 3, 1, 1), torch.float32),
+                Stand((2, 3, s, 64), torch.int8, bad), Stand((2, 3, s, 1), torch.float32),
+                Stand((2, 3, s, 64), torch.int8), Stand((2, 3, s, 1), torch.float32), mask)
+    with pytest.raises(ValueError, match=message):
+        getattr(attention_decode, kernel)(*args)
 
 
 def test_self_attend_q8_integer_dots_are_exact_in_float32():

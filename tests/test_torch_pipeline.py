@@ -411,3 +411,28 @@ def test_profile_step_busy_time_is_the_union_of_intervals():
     assert _busy_us([]) == 0.0
     # overlapping, nested, touching and disjoint intervals, unsorted
     assert _busy_us([(5.0, 7.0), (0.0, 2.0), (1.0, 3.0), (1.5, 1.8), (3.0, 4.0)]) == 6.0
+
+
+def test_profile_step_reports_k5_per_position_in_launch_order():
+    """`_k5_by_position` takes the trace's K5 launches in time order, one
+    per layer a step, step j at the mask position first_pos + j, and sets
+    each beside its bound: the visible keys' codes and scales of K and V,
+    the query, its scale, the output and the mask row over 3.35 TB/s."""
+    from types import SimpleNamespace
+
+    from whisperkit_tpu_torch.tools.profile_step import _k5_by_position
+
+    def activity(name, start, us):
+        return SimpleNamespace(name=name, time_range=SimpleNamespace(start=start, end=start + us))
+
+    # two steps of three layers, listed out of order, and another kernel between
+    device = [activity("self_attend_q8_kernel", 100.0 + 10 * i, 4.0 if i < 3 else 6.0) for i in (5, 0, 3, 1, 4, 2)]
+    device.append(activity("cross_attend_q8_kernel<false>", 101.0, 50.0))
+    out = _k5_by_position(device, steps=2, first_pos=9, cache_len=16, rows=2)
+    assert out["k5_launches_per_step"] == 3
+    (p0, us0, b0, r0), (p1, us1, b1, r1) = out["k5_by_position"]
+    assert (p0, us0, p1, us1) == (9, 4.0, 10, 6.0)
+    assert b0 == pytest.approx((2 * 2 * 10 * 68 + 2 * (64 + 4 + 256) + 16 * 4) / 3.35e12 * 1e6)
+    assert b1 == pytest.approx((2 * 2 * 11 * 68 + 2 * (64 + 4 + 256) + 16 * 4) / 3.35e12 * 1e6)
+    assert (r0, r1) == (pytest.approx(b0 / 4.0), pytest.approx(b1 / 6.0))
+    assert out["k5_share"] == pytest.approx((b0 + b1) / 10.0)

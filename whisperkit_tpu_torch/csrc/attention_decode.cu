@@ -29,7 +29,11 @@
 // names: see its section below.
 //
 // K4 splits each row's key axis among the block's warps and stages V in
-// shared memory: see its section below. K5 keeps K3's layout.
+// shared memory: see its section below. K5 keeps one softmax per row and
+// has its K and V rows, up to the last visible key, copied into shared
+// memory by the Tensor Memory Accelerator (cp.async.bulk on mbarriers) at
+// the block's start, so V lands while the scores and the softmax are
+// formed: see its section below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -443,15 +447,103 @@ self_attend_kernel(const float* __restrict__ q,     // [BH, DH]
 //   p_scale = max(max(pw) / 127, 1e-8)
 //   pi = clip(rint(pw / p_scale), 0, 127)                       round half to even
 //   out = (pi . v)[int32] * p_scale                             f32
-// Laid out as K3 (int8 __dp4a scores, int8 P.V in int32) over K4's grid
-// (one block per (batch, head)). Keys whose mask entry is -inf are not
-// read, neither codes nor scales: an unwritten cache row has scale 0, and
-// 0 * -inf is never evaluated. Position 0 is always visible, so the row
-// max is finite. At B = 32, S = 224 a launch reads 18.4 MB of int8 K/V and
-// 1.1 MB of scales; by device time it takes 10.8 us with every key visible,
-// 55% of the 5.9 us bandwidth bound on the H100 (chip_smoke.py phase 3). A
-// split-key form like K4's measured no faster there, so this layout stays.
+// One block of NT threads per (batch, head) row.
+//
+// What bounds it: at the main path's sizes, the chain of latencies. A row
+// is 2 · 224 · 64 B of int8 K/V and 2 · 224 · 4 B of scales; a launch at
+// B = 32 moves 19.5 MB, 5.9 us at 3.35 TB/s with every key visible, half
+// that at S/2. One p_scale for the whole row means no P.V work can start
+// before the row's softmax is done, so splitting the keys among warps (as
+// K4 does) shortens loops but not the chain. What shortens it is taking
+// the V round trip off it:
+//
+//   1. Warp 0 reads the mask row and finds n, one past the last visible
+//      key; its lane 0 at once asks the Tensor Memory Accelerator for two
+//      bulk copies into shared memory, K rows [0, n) and V rows [0, n)
+//      (cp.async.bulk, n · 64 B each), each completing on its own mbarrier.
+//      Keys past n are never read.
+//   2. Meanwhile every thread reads the mask entries of its keys (thread t
+//      owns keys t and t + NT) and, for the visible ones only, their K and V
+//      scales with plain loads: a scale row starts at bh · S · 4 bytes, not
+//      16-byte aligned for every S, and a masked key's scale (0 or NaN in an
+//      unwritten row) is never read, so 0 · -inf is never formed.
+//   3. Once K has landed: the scores from shared memory with __dp4a (the
+//      16-byte chunks of a row taken in a rotated order, free of bank
+//      conflicts), then the softmax, the weighted probabilities and their
+//      requantization in the order of operations of the form this one
+//      replaced: the output is bit for bit the same. Each block reduction
+//      has a buffer of its own, so it takes one barrier.
+//   4. V has landed meanwhile: P.V from shared memory in int32 (exact in any
+//      order); the two 16-lane groups of a warp meet by a shuffle, the warps
+//      in shared memory.
+//
+// Shared memory: 2 · S · 64 + S bytes, 28.9 KB at S = 224 (5 blocks on an
+// SM, all 640 rows of B = 32 resident at once), 66 KB at MAX_SELF_KEYS.
+// On the H100 (chip_smoke.py phase 3, B = 32, S = 224, by device time):
+// 0.0057 ms with the mask open to S/2 and 0.0096 ms to S - 1, 52% and 61%
+// of the bandwidth bound, against 0.0075 and 0.0107 ms for the form this
+// one replaced (K3's layout: the K rows, then the scales, then the V rows
+// after the softmax, each a round trip of its own). Inside the int8 decode
+// step's graph (tools/profile_step.py, positions 192-223) it takes
+// 0.0100-0.0111 ms (0.0110 at S - 1, against 0.0096 back to back): each
+// layer's cache comes cold. Forms with 128 or 64 threads, with K read
+// straight into registers, with every scale read whatever the mask, or
+// with an L2 prefetch of the first rows before the mask is read measured
+// no faster.
 // ---------------------------------------------------------------------------
+constexpr int Q8_KPT = MAX_SELF_KEYS / NT;  // keys a thread owns: t, t + NT, ...
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// make the barriers' initialisation visible to the copy engine
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive once, and expect `bytes` more to land before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// block_max / block_sum over a `red` no other reduction uses: one barrier
+__device__ __forceinline__ float block_max_once(float x, float* red) {
+  x = warp_max(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = (threadIdx.x & 31) < NWARP ? red[threadIdx.x & 31] : -INFINITY;
+  return warp_max(x);
+}
+
+__device__ __forceinline__ float block_sum_once(float x, float* red) {
+  x = warp_sum(x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  x = (threadIdx.x & 31) < NWARP ? red[threadIdx.x & 31] : 0.f;
+  return warp_sum(x);
+}
+
 __global__ void __launch_bounds__(NT)
 self_attend_q8_kernel(const int8_t* __restrict__ qi,      // [BH, DH]
                       const float* __restrict__ q_scale,  // [BH]
@@ -462,91 +554,143 @@ self_attend_q8_kernel(const int8_t* __restrict__ qi,      // [BH, DH]
                       const float* __restrict__ mask,     // [S]
                       float* __restrict__ out,            // [BH, DH]
                       int S) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sc = reinterpret_cast<float*>(smem);                // S scores / weighted probs
-  signed char* pq = reinterpret_cast<signed char*>(sc + S);  // S int8 probs
-  __shared__ int qw[DH / 4];
-  __shared__ float red[NWARP];
-  __shared__ int vred[NT / 16][DH];
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* kst = reinterpret_cast<int8_t*>(smem);                         // [S, DH] staged K rows
+  int8_t* vst = kst + (size_t)S * DH;                                    // [S, DH] staged V rows
+  signed char* pq = reinterpret_cast<signed char*>(vst + (size_t)S * DH);  // [S] int8 probs
+  __shared__ __align__(8) uint64_t landed[2];  // K rows, V rows
+  __shared__ __align__(16) int qw[DH / 4];
+  __shared__ int n_s;
+  __shared__ float red[3][NWARP];
+  __shared__ int vred[NWARP][DH];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const long bh = blockIdx.x;
-  if (tid < DH / 4) qw[tid] = reinterpret_cast<const int*>(qi + bh * DH)[tid];
-  __syncthreads();
-  const float qs = q_scale[bh];
 
-  const int8_t* kb = k + bh * S * DH;
+  // step 1
+  if (w == 0) {
+    int hi = 0;
+#pragma unroll
+    for (int i = 0; i < MAX_SELF_KEYS / 32; ++i) {
+      const int s = lane + 32 * i;
+      if (s < S && mask[s] != -INFINITY) hi = s + 1;
+    }
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      n_s = hi;
+      mbar_init(&landed[0]);
+      mbar_init(&landed[1]);
+      mbar_init_fence();
+      const uint32_t bytes = (uint32_t)hi * DH;
+      mbar_arrive_expect(&landed[0], bytes);
+      mbar_arrive_expect(&landed[1], bytes);
+      if (bytes) {
+        bulk_copy(kst, k + bh * S * DH, bytes, &landed[0]);
+        bulk_copy(vst, v + bh * S * DH, bytes, &landed[1]);
+      }
+    }
+  } else if (w == 1 && lane < DH / 4) {
+    qw[lane] = reinterpret_cast<const int*>(qi + bh * DH)[lane];
+  }
+
+  // step 2
+  const float qs = q_scale[bh];
   const float* ksb = k_scale + bh * S;
+  const float* vsb = v_scale + bh * S;
+  float mk[Q8_KPT], ks[Q8_KPT], vs[Q8_KPT];
+#pragma unroll
+  for (int i = 0; i < Q8_KPT; ++i) {
+    const int s = tid + NT * i;
+    mk[i] = s < S ? mask[s] : -INFINITY;
+    ks[i] = vs[i] = 0.f;
+    if (mk[i] != -INFINITY) {
+      ks[i] = ksb[s];
+      vs[i] = vsb[s];
+    }
+  }
+  __syncthreads();  // n, qw and the barriers
+  const int n = n_s;
+
+  // step 3
+  mbar_wait(&landed[0], 0);
+  const int rot = (lane >> 1) & 3;  // lanes 2j, 2j + 1 start at chunk j mod 4
+  const int4* q4 = reinterpret_cast<const int4*>(qw);
+  float x[Q8_KPT];
   float lmax = -INFINITY;
-  for (int s = tid; s < S; s += NT) {
-    const float mk = mask[s];
-    float x = -INFINITY;
-    if (mk != -INFINITY) {
-      const int4* kr = reinterpret_cast<const int4*>(kb + (long)s * DH);
+#pragma unroll
+  for (int i = 0; i < Q8_KPT; ++i) {
+    const int s = tid + NT * i;
+    x[i] = -INFINITY;
+    if (mk[i] != -INFINITY) {
+      const int4* kr = reinterpret_cast<const int4*>(kst + s * DH);
       int acc = 0;
 #pragma unroll
       for (int c = 0; c < DH / 16; ++c) {
-        const int4 w = kr[c];
-        acc = __dp4a(w.x, qw[4 * c + 0], acc);
-        acc = __dp4a(w.y, qw[4 * c + 1], acc);
-        acc = __dp4a(w.z, qw[4 * c + 2], acc);
-        acc = __dp4a(w.w, qw[4 * c + 3], acc);
+        const int cc = (c + rot) & 3;
+        const int4 kv = kr[cc], qv = q4[cc];
+        acc = __dp4a(kv.x, qv.x, acc);
+        acc = __dp4a(kv.y, qv.y, acc);
+        acc = __dp4a(kv.z, qv.z, acc);
+        acc = __dp4a(kv.w, qv.w, acc);
       }
-      x = (float)acc * qs * ksb[s] + mk;
+      x[i] = (float)acc * qs * ks[i] + mk[i];
     }
-    sc[s] = x;
-    lmax = fmaxf(lmax, x);
+    lmax = fmaxf(lmax, x[i]);
   }
-  const float mx = block_max(lmax, red);
+  const float mx = block_max_once(lmax, red[0]);
 
+  float e[Q8_KPT];
   float lsum = 0.f;
-  for (int s = tid; s < S; s += NT) {
-    const float e = expf(sc[s] - mx);
-    sc[s] = e;
-    lsum += e;
+#pragma unroll
+  for (int i = 0; i < Q8_KPT; ++i) {
+    e[i] = expf(x[i] - mx);
+    lsum += e[i];
   }
-  const float sum = block_sum(lsum, red);
+  const float sum = block_sum_once(lsum, red[1]);
 
-  const float* vsb = v_scale + bh * S;
+  float pw[Q8_KPT];
   float lpmax = 0.f;
-  for (int s = tid; s < S; s += NT) {
-    const float e = sc[s];
-    const float pw = e > 0.f ? (e / sum) * vsb[s] : 0.f;  // masked keys: no scale read
-    sc[s] = pw;
-    lpmax = fmaxf(lpmax, pw);
+#pragma unroll
+  for (int i = 0; i < Q8_KPT; ++i) {
+    pw[i] = e[i] > 0.f ? (e[i] / sum) * vs[i] : 0.f;  // masked keys: no scale read
+    lpmax = fmaxf(lpmax, pw[i]);
   }
-  const float p_scale = fmaxf(block_max(lpmax, red) / 127.f, 1e-8f);
-
-  for (int s = tid; s < S; s += NT) {
-    const float r = fminf(fmaxf(rintf(sc[s] / p_scale), 0.f), 127.f);
-    pq[s] = (signed char)(int)r;
+  const float p_scale = fmaxf(block_max_once(lpmax, red[2]) / 127.f, 1e-8f);
+#pragma unroll
+  for (int i = 0; i < Q8_KPT; ++i) {
+    const int s = tid + NT * i;
+    if (s < n) pq[s] = (signed char)(int)fminf(fmaxf(rintf(pw[i] / p_scale), 0.f), 127.f);
   }
   __syncthreads();
 
-  // pass 2: 16 groups over the key axis, lane l owns channels 4l .. 4l+3;
-  // a zero probability (every masked key) adds nothing, so its row of V is
-  // not read
+  // step 4: 16 groups over the key axis, lane l of a group owns channels
+  // 4l .. 4l+3, so a warp reads two whole rows
+  mbar_wait(&landed[1], 0);
   const int g = tid >> 4, l = tid & 15;
-  const int8_t* vb = v + bh * S * DH;
   int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-  for (int s = g; s < S; s += NT / 16) {
+  for (int s = g; s < n; s += NT / 16) {
     const int p = pq[s];
-    if (p == 0) continue;
-    const char4 vv = reinterpret_cast<const char4*>(vb + (long)s * DH)[l];
+    const char4 vv = reinterpret_cast<const char4*>(vst + s * DH)[l];
     a0 += p * vv.x;
     a1 += p * vv.y;
     a2 += p * vv.z;
     a3 += p * vv.w;
   }
-  vred[g][4 * l + 0] = a0;
-  vred[g][4 * l + 1] = a1;
-  vred[g][4 * l + 2] = a2;
-  vred[g][4 * l + 3] = a3;
+  a0 += __shfl_xor_sync(0xffffffffu, a0, 16);
+  a1 += __shfl_xor_sync(0xffffffffu, a1, 16);
+  a2 += __shfl_xor_sync(0xffffffffu, a2, 16);
+  a3 += __shfl_xor_sync(0xffffffffu, a3, 16);
+  if (lane < 16) {
+    vred[w][4 * l + 0] = a0;
+    vred[w][4 * l + 1] = a1;
+    vred[w][4 * l + 2] = a2;
+    vred[w][4 * l + 3] = a3;
+  }
   __syncthreads();
   if (tid < DH) {
     int tot = 0;
 #pragma unroll
-    for (int i = 0; i < NT / 16; ++i) tot += vred[i][tid];
+    for (int i = 0; i < NWARP; ++i) tot += vred[i][tid];
     out[bh * DH + tid] = (float)tot * p_scale;
   }
 }
@@ -641,13 +785,14 @@ extern "C" int wk_self_attend(const void* q, const void* k, const void* v,
 extern "C" int wk_self_attend_q8(const void* qi, const void* q_scale, const void* k,
                                  const void* k_scale, const void* v, const void* v_scale,
                                  const void* mask, void* out, int bh, int s, void* stream) {
-  if (bh <= 0 || s <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = aligned16((size_t)s * (sizeof(float) + 1));
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        self_attend_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (bh <= 0 || s <= 0 || s > MAX_SELF_KEYS) return (int)cudaErrorInvalidValue;
+  // the bulk copies need 16-byte aligned rows: the wrapper checks k and v
+  if (((uintptr_t)k | (uintptr_t)v) % 16) return (int)cudaErrorMisalignedAddress;
+  static size_t done = 0;
+  // staged K and V rows, the int8 probabilities
+  const size_t smem = aligned16(2 * (size_t)s * DH + s);
+  cudaError_t e = configure(self_attend_q8_kernel, smem, &done);
+  if (e != cudaSuccess) return (int)e;
   self_attend_q8_kernel<<<bh, NT, smem, (cudaStream_t)stream>>>(
       (const int8_t*)qi, (const float*)q_scale, (const int8_t*)k, (const float*)k_scale,
       (const int8_t*)v, (const float*)v_scale, (const float*)mask, (float*)out, s);

@@ -12,7 +12,10 @@ K4 splits each (batch, head) row's keys among SPLIT_WARPS warps
 (`split_chunks`), each with its own softmax max and sum, merged once;
 `self_attend_split_reference` is that algorithm in plain torch, for the
 tests and the on-card check (tools/decode_attn_check.py), never on the
-main path.
+main path. K5 keeps one softmax per row over the keys up to the last
+visible one, its exp sum taken per thread, per warp and per block;
+`self_attend_q8_block_reference` is that order in plain torch, for the
+same uses.
 
 For CUDA tensors each launches its hand-written kernel in
 csrc/attention_decode.cu; for CPU tensors it runs the plain torch version
@@ -34,7 +37,7 @@ from whisperkit_tpu_torch.ops import _build
 
 # K4 splits each (batch, head) row's keys among this many warps
 SPLIT_WARPS = 8
-# the longest cache K4 takes (its V rows are staged in shared memory);
+# the longest cache K4 and K5 take (they stage rows in shared memory);
 # the decode loop's is at most 2 · MAX_TOKEN_CONTEXT = 448
 MAX_SELF_KEYS = 512
 # the most heads K3's probs form maps to slots (its kernel's MAX_HEADS)
@@ -259,11 +262,77 @@ def self_attend_q8_reference(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row
     return (pi @ v_q8.float()) * p_scale
 
 
+# K5's block: this many threads, thread t owning keys t, t + K5_THREADS, ...
+K5_THREADS = 256
+Q8_FAULTS = ("drop_last_visible", "masked_scored_zero", "p_scale_of_probs")
+
+
+def _k5_block_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in K5's order → [..., 1]: each thread's keys
+    in turn from 0, then a butterfly of xor shuffles (16, 8, 4, 2, 1) over
+    the 32 threads of each warp, then the same over the warps' sums, the
+    lanes past the last warp holding 0."""
+    s = x.shape[-1]
+    per_thread = -(-s // K5_THREADS)
+    keys = torch.nn.functional.pad(x, (0, per_thread * K5_THREADS - s)).unflatten(-1, (per_thread, K5_THREADS))
+    acc = torch.zeros_like(keys[..., 0, :])
+    for i in range(per_thread):
+        acc = acc + keys[..., i, :]
+    lanes = torch.arange(32, device=x.device)
+
+    def butterfly(y):
+        for off in (16, 8, 4, 2, 1):
+            y = y + y[..., lanes ^ off]
+        return y
+
+    warps = butterfly(acc.unflatten(-1, (K5_THREADS // 32, 32)))[..., 0]
+    return butterfly(torch.nn.functional.pad(warps, (0, 32 - warps.shape[-1])))[..., :1]
+
+
+def self_attend_q8_block_reference(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row,
+                                   fault: str | None = None) -> torch.Tensor:
+    """K5's algorithm in plain torch, shapes as in `self_attend_q8_reference`:
+    the keys up to the last visible one (n), masked keys scored -inf without
+    reading their scales, the exp sum in the kernel's order
+    (`_k5_block_sum`), the V scales folded in only where the exp is
+    positive, one p_scale for the row, P·V in exact integers; no visible
+    key gives 0, as the kernel. `fault` names one of Q8_FAULTS to alter it
+    (for the check's proof that it can fail): the last visible key left
+    out, masked keys scored 0 instead of -inf (and then all S keys), or
+    p_scale taken from the probabilities before the V scales are folded
+    in."""
+    if fault not in (None, *Q8_FAULTS):
+        raise ValueError(f"unknown fault {fault!r}")
+    inf = float("-inf")
+    visible = torch.nonzero(mask_row[0] != inf)
+    n = int(visible[-1]) + 1 if len(visible) else 0
+    mask = mask_row
+    if fault == "drop_last_visible":
+        n = max(n - 1, 0)
+    if fault == "masked_scored_zero":
+        n, mask = k_q8.shape[2], torch.zeros_like(mask_row)
+    if n == 0:
+        return torch.zeros(qi.shape, dtype=torch.float32, device=qi.device)
+    mask = mask[..., :n]
+    k, ks, v, vs = k_q8[:, :, :n].float(), k_scale[:, :, :n], v_q8[:, :, :n].float(), v_scale[:, :, :n]
+    dots = (qi.float() @ k.transpose(-1, -2)) * q_scale
+    scores = torch.where(mask == inf, inf, dots * ks.transpose(-1, -2) + mask)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = e / _k5_block_sum(e)
+    pw = torch.where(e > 0, probs * vs.transpose(-1, -2), 0.0)
+    top = (probs if fault == "p_scale_of_probs" else pw).amax(dim=-1, keepdim=True)
+    p_scale = torch.clamp_min(top / 127.0, 1e-8)
+    pi = torch.clamp(torch.round(pw / p_scale), 0, 127)
+    return (pi @ v) * p_scale
+
+
 def self_attend_q8(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row) -> torch.Tensor:
     """T==1 self-attention over the int8 cache: qi [B,H,1,Dh] i8, q_scale
     [B,H,1,1] f32, k/v [B,H,S,Dh] i8, k_scale/v_scale [B,H,S,1] f32,
-    mask_row [1,S] f32 → [B,H,1,Dh] f32. CUDA: csrc/attention_decode.cu;
-    CPU: the plain version."""
+    mask_row [1,S] f32 → [B,H,1,Dh] f32, S ≤ MAX_SELF_KEYS. CUDA:
+    csrc/attention_decode.cu, which copies the K and V rows up to the last
+    visible key into shared memory with bulk copies (k and v 16-byte
+    aligned); CPU: the plain version."""
     if not qi.is_cuda:
         return self_attend_q8_reference(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row)
     _build.check_cuda("qi", qi, torch.int8, 4)
@@ -287,6 +356,8 @@ def self_attend_q8(qi, q_scale, k_q8, k_scale, v_q8, v_scale, mask_row) -> torch
     for name, (x, shape) in expected.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
+    if s > MAX_SELF_KEYS:
+        raise ValueError(f"self_attend_q8 takes a cache of at most {MAX_SELF_KEYS} keys, got {s}")
     for name, x in (("qi", qi), ("k", k_q8), ("v", v_q8)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: data must be 16-byte aligned")

@@ -1,5 +1,5 @@
 """The decode-step attention kernels' check inputs (K3's probs form, K4,
-K5), and proof that K4's check can fail.
+K5), and proof that K4's and K5's checks can fail.
 
     python -m whisperkit_tpu_torch.tools.decode_attn_check
 
@@ -18,7 +18,7 @@ check able to fail a wrong kernel:
 
 V has mean 3/4, as in `k2_check`: near-flat outputs are then averages
 well away from 0, and the rows' sums show. The mask is open up to a
-position (0, S/2 or S - 1 in the check); the rows after it hold K/V data
+position (0, 31, S/2 or S - 1 in the check); the rows after it hold K/V data
 (K4) or are unwritten, zero codes and scales (K5, as the cache holds
 them), and a correct kernel never reads them.
 
@@ -28,13 +28,16 @@ frames, kind 1 at the first, kind 2 near flat), for one or more query
 rows; its probabilities within `K3_PROBS_LIMIT` of the plain version's,
 its output bit for bit the plain launch's.
 
-Run as a script, this builds K4's inputs on the CPU at B=4 H=20 S=224
-(the main path's cache length) and reports, for K4's split-key algorithm
-(`self_attend_split_reference`) unaltered and with each fault, the worst
-row's error in units of its limit per position (0, S/2 and S - 1) and row
-kind. The unaltered form must stay within 1; each altered one must exceed
-it somewhere: no rescale at the merge, the ragged last chunk dropped, or
-masked keys scored 0 instead of -inf.
+Run as a script, this builds K4's and K5's inputs on the CPU at B=4 H=20
+S=224 (the main path's cache length) and reports, for K4's split-key
+algorithm (`self_attend_split_reference`) and K5's algorithm
+(`self_attend_q8_block_reference`), each unaltered and with each of its
+faults, the worst row's error in units of its limit per position (0, 31,
+S/2 and S - 1) and row kind. The unaltered forms must stay within 1; each
+altered one must exceed it somewhere. K4: no rescale at the merge, the
+ragged last chunk dropped, or masked keys scored 0 instead of -inf. K5:
+the last visible key left out, masked keys scored 0, or p_scale taken
+before the V scales are folded in.
 """
 
 from __future__ import annotations
@@ -60,7 +63,9 @@ BATCH, HEADS, SEQ, SEED = 4, 20, 224, 0
 
 
 def positions(s: int) -> tuple[int, ...]:
-    return (0, s // 2, s - 1)
+    """The check's mask positions: the first key, 31, S/2 and S - 1 (in that
+    order, each once)."""
+    return tuple(dict.fromkeys((0, min(31, s - 1), s // 2, s - 1)))
 
 
 def row_kinds(b: int, h: int, device) -> torch.Tensor:
@@ -173,15 +178,31 @@ def fault_table(inputs: list) -> dict:
     }
 
 
+def q8_fault_table(inputs: list) -> dict:
+    """As `fault_table`, for K5: over the K5 inputs `inputs`, the kernel's
+    algorithm unaltered ("block") and with each of Q8_FAULTS, against
+    `self_attend_q8_reference`, in units of `q8_row_limit`."""
+    return {
+        fault or "block": {
+            f"pos {_pos(args)}": worst_by_kind(excess(
+                ad.self_attend_q8_block_reference(*args, fault=fault), ad.self_attend_q8_reference(*args),
+                q8_row_limit(args)))
+            for args in inputs
+        }
+        for fault in (None, *ad.Q8_FAULTS)
+    }
+
+
 def worst(by_pos: dict) -> float:
     """The largest entry of one form's table."""
     return max(max(kinds.values()) for kinds in by_pos.values())
 
 
-def separates(table: dict) -> bool:
+def separates(table: dict, unaltered: str = "split") -> bool:
     """True when the unaltered form stays within the limit everywhere and
     each fault exceeds it somewhere."""
-    return worst(table["split"]) <= 1.0 and all(worst(t) > 1.0 for form, t in table.items() if form != "split")
+    return worst(table[unaltered]) <= 1.0 and all(
+        worst(t) > 1.0 for form, t in table.items() if form != unaltered)
 
 
 def main() -> None:
@@ -189,6 +210,9 @@ def main() -> None:
     k4 = [check_inputs(BATCH, HEADS, SEQ, pos, g, "cpu") for pos in positions(SEQ)]
     print(json.dumps({"device": "cpu", "shape": [BATCH, HEADS, SEQ, 64], "positions": list(positions(SEQ)),
                       "cache": "bfloat16", "limit": f"{K4_LIMIT} absolute", "excess": fault_table(k4)}))
+    k5 = [check_inputs_q8(BATCH, HEADS, SEQ, pos, g, "cpu") for pos in positions(SEQ)]
+    print(json.dumps({"device": "cpu", "shape": [BATCH, HEADS, SEQ, 64], "positions": list(positions(SEQ)),
+                      "cache": "int8", "limit": f"{K5_FLIPS} flips × 127 × p_scale", "excess": q8_fault_table(k5)}))
 
 
 if __name__ == "__main__":

@@ -31,7 +31,7 @@ quantize_self_kv=True)`). Each runs twice: the eager loop
                       (host clock, the device synced before and after);
                       for the graph, of the replays alone: the step
                       captured once, then STEPS replays a call from the
-                      same position
+                      same position, the mask row reset to it each call
   decode_call_ms      graph only: wall per step of three whole
                       `decode_loop` calls, each running its first step
                       eagerly and capturing the step anew (the pipeline's
@@ -49,6 +49,13 @@ quantize_self_kv=True)`). Each runs twice: the eager loop
   port_kernels        the port's kernel launches per step (`_build.launches`,
                       counted through the replays for the graph)
   kernel_ms_per_launch  device ms per launch of K3, K4 and K5 in that trace
+  k5_by_position      int8 only: K5's device µs per launch at each mask
+                      position the steps open (the trace's launches in
+                      order, one per layer a step), beside the bound at
+                      that position (bytes over 3.35 TB/s: the visible
+                      keys' int8 codes and f32 scales of K and V, the
+                      query, the mask row, the output) and their ratio;
+                      `k5_share` is the mean bound over the mean time
   top                 the 12 kernel names with the most device time:
                       [name (first 70 characters), count in the trace,
                       ms per step]
@@ -77,6 +84,8 @@ BATCH, STEPS, START, SEED = 32, 32, 191, 0
 # the decode step's attention kernels, by the name of their device activity
 STEP_KERNELS = {"self_attend": "self_attend_kernel", "self_attend_q8": "self_attend_q8_kernel",
                 "cross_attend_q8": "cross_attend_q8_kernel"}
+# the card's memory rate, for K5's bound (the H100's published 3.35 TB/s)
+PEAK_BYTES_PER_S = 3.35e12
 # the host's runtime calls that put work on the device, by their name in a trace
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -138,6 +147,25 @@ def _per_launch_ms(device: list) -> dict:
     return out
 
 
+def _k5_by_position(device: list, steps: int, first_pos: int, cache_len: int, rows: int) -> dict:
+    """K5's device µs per launch at each position of the traced steps and
+    its bound there: the trace's K5 launches in time order, `rows` =
+    batch × heads (batch, head) rows a launch, step j opening the mask to
+    first_pos + j over a cache of `cache_len` keys."""
+    launches = sorted((e for e in device if STEP_KERNELS["self_attend_q8"] in e.name),
+                      key=lambda e: e.time_range.start)
+    per_step = len(launches) // steps
+    table, spent, least = [], 0.0, 0.0
+    for j in range(steps):
+        pos = first_pos + j
+        us = sum(e.time_range.end - e.time_range.start for e in launches[j * per_step:(j + 1) * per_step]) / per_step
+        n = pos + 1  # visible keys
+        bound_us = (2 * rows * n * (64 + 4) + rows * (64 + 4 + 64 * 4) + cache_len * 4) / PEAK_BYTES_PER_S * 1e6
+        table.append([pos, us, bound_us, bound_us / us])
+        spent, least = spent + us, least + bound_us
+    return {"k5_by_position": table, "k5_share": least / spent, "k5_launches_per_step": per_step}
+
+
 def _walls(fn, per: float = 1.0) -> list:
     """Host-clock ms (over `per`) of three calls of `fn` after a warm-up
     one, the device synced before and after each."""
@@ -188,21 +216,27 @@ def decode_runner(pipe, mel, steps: int, start: int, cuda_graph: bool):
     decode._advance(st, start + 1, 16)  # the first step, eagerly, then its capture
 
     def replays():
+        # back to the position after the eager step, the mask row closed
+        # again past it (each replay opens its position)
         st.pos_dev.fill_(start + 1)
         st.pos = start + 1
+        st.mask_row[:, start + 1 :] = float("-inf")
         decode._advance(st, start + 1 + steps, 16)
 
     return loop, replays
 
 
-def profile_decode(loop, steps: int) -> dict:
-    """The decode line's traced figures, from one more call of `loop`."""
+def profile_decode(loop, steps: int, k5: dict | None = None) -> dict:
+    """The decode line's traced figures, from one more call of `loop`;
+    with `k5` (the keywords of `_k5_by_position` but the trace's), K5's
+    figures per position too."""
     from whisperkit_tpu_torch.ops import _build
 
     _build.reset_launches()
     device, host = _trace(loop)
     counts = {k: v / steps for k, v in _build.launches.items() if v}
     return {
+        **(_k5_by_position(device, steps, **k5) if k5 else {}),
         "device_busy_ms": _busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / steps,
         "launches_per_step": len(device) / steps,
         "host_launches_per_step": host / steps,
@@ -263,14 +297,23 @@ def main() -> None:
                 jobs.append(({"encode": "bf16", "batch": BATCH},
                              functools.partial(encode_window, tree, mel, dims, quantize_kv=True), 1, profile_encode))
             head = {"config": label, "batch": BATCH, "positions": [START, START + STEPS - 1]}
+            # K5's positions: the eager loop's steps open the mask to START ..
+            # START + STEPS - 1 of the prefill's START + STEPS + 1 key cache;
+            # the replays, one position later, to START + 1 .. START + STEPS
+            rows = BATCH * dims.n_text_head
+            k5 = label == "int8"
             loop, _ = decode_runner(pipe, mel, STEPS, START, cuda_graph=False)
-            jobs.append(({**head, "loop": "eager"}, loop, STEPS, functools.partial(profile_decode, steps=STEPS)))
+            jobs.append(({**head, "loop": "eager"}, loop, STEPS, functools.partial(
+                profile_decode, steps=STEPS,
+                k5=dict(first_pos=START, cache_len=START + STEPS + 1, rows=rows) if k5 else None)))
             graph.reset_stats()
             loop, replays = decode_runner(pipe, mel, STEPS, START, cuda_graph=True)
             (stats,) = graph.stats_by_device.values()
             head = {**head, "loop": "graph", "capture_s": stats["capture_s"],
                     "instantiate_s": stats["instantiate_s"]}
-            jobs.append((head, replays, STEPS, functools.partial(profile_decode, steps=STEPS)))
+            jobs.append((head, replays, STEPS, functools.partial(
+                profile_decode, steps=STEPS,
+                k5=dict(first_pos=START + 1, cache_len=START + STEPS + 1, rows=rows) if k5 else None)))
             jobs.append((None, loop, STEPS, None))  # the whole call's wall, beside the replays'
         # every wall before the first trace: once a profiler session has run,
         # each later launch of the process costs the host more
