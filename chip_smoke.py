@@ -20,7 +20,9 @@ Phases, one line each; any failure exits non-zero:
      main path's cache length S = 224 with the mask open to S/2 and to
      S - 1, K5 with it open to 0, 31, S/2 and S - 1, eager and as a CUDA
      graph of 50 launches, by CUDA events with the host's time per call,
-     then K1, K4, K5 and SDPA by device time from `torch.profiler` traces.
+     K2 and SDPA on the head-split views at B = 32 and B = 2 and in the
+     split form, then K1, K2, K4, K5 and SDPA by device time from
+     `torch.profiler` traces.
      Once a profiler session has run, every
      later launch of its process costs the host more
      (whisperkit_tpu_torch/tools/launch_cost.py), which moved phases 4-8's
@@ -196,6 +198,9 @@ SEED = 0
 # published dense peaks of one H100 SXM (the bound of each kernel)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
+# the special function units' exp2 rate: 16 per SM per clock (132 SMs) at
+# the 1.83 GHz that the 989 TFLOP/s bf16 peak implies; K2's second bound
+PEAK_EXP_PER_S = 132 * 16 * 1.83e9
 AUDIO_SECONDS = 600.0
 GROUP = 32
 # the conv diarization's 30 s chunks at a 15 s stride over AUDIO_SECONDS,
@@ -522,7 +527,8 @@ def check_cross_probs(torch, g, dev, card, qi, q_scale, kv, v_scale) -> dict:
 def phase_traced_times(card: str, results: dict, checks: dict) -> None:
     """Run `traced_times` in a process of its own, so that its profiler
     sessions leave this process's launches, and phases 4-8, as they were.
-    Adds K1's and K3's device times to `results`, and the probs form's
+    Adds K1's, K2's (with SDPA's beside it, at B = 32, B = 2 and in the
+    split form) and K3's device times to `results`, and the probs form's
     beside plain K3's, and records K4 and K5 with their `checks` (max abs
     error, a note, the tolerance)."""
     proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), TIMES_ARG],
@@ -544,6 +550,16 @@ def phase_traced_times(card: str, results: dict, checks: dict) -> None:
         f"{probs['device_ms']:.4f} ms (bound {probs['bound_ms']:.4f}, {100 * probs['bound_ms'] / probs['device_ms']:.1f}%), "
         f"all 20 heads {probs['all_heads']['device_ms']:.4f} ms (bound {probs['all_heads']['bound_ms']:.4f}, "
         f"{100 * probs['all_heads']['bound_ms'] / probs['all_heads']['device_ms']:.1f}%) | {card}")
+    k2 = results["mha_encoder"]
+    for shape, t in timed["k2"].items():
+        into = k2 if shape == f"b{GROUP}" else k2[shape]
+        into.update({"device_ms": t["kernel"]["device_ms"], "host_us": t["kernel"]["host_us"],
+                     "library_device_ms": t["library"]["device_ms"]})
+        say(f"phase 3 mha_encoder {shape} by device time: kernel {into['device_ms']:.4f} ms (event "
+            f"{t['kernel']['ms']:.4f}, host {into['host_us']:.1f} µs/call) | SDPA {into['library_device_ms']:.4f} ms "
+            f"(event {t['library']['ms']:.4f}) | bound {into['bound_ms']:.4f} ms ({into['bound_by']}, "
+            f"{100 * into['bound_ms'] / into['device_ms']:.1f}% of it), exp bound {into['exp_bound_ms']:.4f} ms"
+            f" | {card}")
     for key, (err, extra, tol) in checks.items():
         times = {int(pos): v for pos, v in timed[key]["times"].items()}
         say_self_times(key, times, card)
@@ -564,7 +580,8 @@ def traced_times(torch) -> dict:
     traces = []
     out = {"self_attend": time_self_attend(torch, g, dev, traces),
            "self_attend_q8": time_self_attend_q8(torch, g, dev, traces),
-           "k3": time_cross_attend_q8(torch, g, dev, traces)}
+           "k3": time_cross_attend_q8(torch, g, dev, traces),
+           "k2": time_mha_encoder(torch, g, dev, traces)}
     audio = [torch.randn((GROUP, 480_000), generator=g, device=dev) * 0.1 for _ in range(2)]
     k1 = {}
     traces.append((k1, lambda i: mel.log_mel_frames(audio[i % 2], 128), 20, "log_mel_kernel", 1))
@@ -572,6 +589,35 @@ def traced_times(torch) -> dict:
         times["device_ms"] = device_ms(torch, fn, iters, kernel, per_call)
     out["log_mel_device_ms"] = k1["device_ms"]
     out["k3"] = {form: t["device_ms"] for form, t in out["k3"].items()}
+    return out
+
+
+def time_mha_encoder(torch, g, dev, traces) -> dict:
+    """K2 and SDPA on the same inputs: the head-split views of one
+    [B, 1500, 3·20·64] projection at B = 32 (the main path's group) and
+    B = 2, and the split form (B = 1, the last 750 query rows over all 1500
+    keys); event time and host µs per call now, device time from the traces
+    queued in `traces`. Returns {shape: {"kernel": figures, "library": ...}}."""
+    import torch.nn.functional as F
+
+    from whisperkit_tpu_torch.models.whisper import _split_heads
+    from whisperkit_tpu_torch.ops import attention
+
+    h, s = 20, 1500
+    inputs = {}
+    for b in (GROUP, 2):
+        x = torch.randn((b, s, 3 * h * 64), generator=g, device=dev).to(torch.bfloat16)
+        inputs[f"b{b}"] = [_split_heads(x[..., i * h * 64 : (i + 1) * h * 64], h) for i in range(3)]
+    q, k, v = (torch.randn((1, h, s, 64), generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    inputs["split"] = [q[:, :, s // 2 :], k, v]
+    out = {}
+    for shape, qkv in inputs.items():
+        iters = 20 if shape == f"b{GROUP}" else 50
+        out[shape] = {
+            "kernel": launch_times(torch, lambda i, t=qkv: attention.mha_encoder(*t), iters, traces,
+                                   "mha_encoder_bf16_kernel"),
+            "library": launch_times(torch, lambda i, t=qkv: F.scaled_dot_product_attention(*t), iters, traces),
+        }
     return out
 
 
@@ -757,6 +803,7 @@ def check_mha_encoder(torch, g, dev, card) -> dict:
             "plain_ms": cuda_ms(torch, lambda i: attention.mha_encoder_reference(*views), 3),
             "library_ms": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(*views), 10),
             **bound(4 * b * h * s * 64 * 2, 4 * b * h * s * s * 64, "bf16"),
+            "exp_bound_ms": b * h * s * s / PEAK_EXP_PER_S * 1e3,
         }
         del x, views
     # the split form (the sequence-parallel encoder at tp = 2): B=1, the
@@ -773,13 +820,14 @@ def check_mha_encoder(torch, g, dev, card) -> dict:
     if not max(worst_split) <= 1.0 or not bool(torch.isfinite(out.float()).all()):
         fail(f"mha_encoder split form (queries {sq}, keys {s}): worst row at {worst_split} of its limit")
     if not torch.equal(out, attention.mha_encoder(q, k, v)[:, :, s - sq :]):
-        say("  (the split form's rows are not bit-equal to the same rows of the full launch)")
+        fail("mha_encoder split form: its rows are not bit-equal to the same rows of the full launch")
     split = {
         "max_abs_err": max_abs(torch, out, ref), "worst_row": max(worst_split), "queries": sq, "keys": s,
         "ms": cuda_ms(torch, lambda i: attention.mha_encoder(q_half, k, v), 10),
         "plain_ms": cuda_ms(torch, lambda i: attention.mha_encoder_reference(q_half, k, v), 3),
         "library_ms": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(q_half, k, v), 10),
         **bound((2 * sq + 2 * s) * h * 64 * 2, 4 * h * sq * s * 64, "bf16"),
+        "exp_bound_ms": h * sq * s / PEAK_EXP_PER_S * 1e3,
     }
     say(f"phase 3 mha_encoder bf16 split form B=1 queries {sq} keys {s}: worst row {max(worst_split):.3f} of its "
         f"limit (per kind {[round(w, 3) for w in worst_split]}), max_abs_err {split['max_abs_err']:.3e} | kernel "
@@ -804,7 +852,7 @@ def check_mha_encoder(torch, g, dev, card) -> dict:
             f" | bound {t['bound_ms']:.4f} ms ({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it)"
             f" | {card}")
     say(f"phase 3 mha_encoder faults at B=2 (worst row / limit per kind): {json.dumps(faults)}")
-    return {"max_abs_err": err, **times[GROUP], "split": split}
+    return {"max_abs_err": err, **times[GROUP], "b2": times[2], "split": split}
 
 
 def check_self_attend(torch, g, dev, card) -> tuple[float, str]:

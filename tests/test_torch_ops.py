@@ -238,11 +238,28 @@ def test_k2_limit_passes_the_tiled_algorithm(k2_faults):
         ("skip_last_tile", "peaked_last_tile"),
         ("pad_scored_zero", "near_flat"),
         ("double_scale", "peaked_first_tile"),
+        ("stale_stage", "peaked_last_tile"),
+        ("stale_stage", "near_flat"),
     ],
 )
 def test_k2_limit_fails_each_fault(k2_faults, fault, kind):
     """Each altered form exceeds the limit on the row kind built to show it."""
     assert k2_faults[fault][kind] > 1.0, k2_faults[fault]
+
+
+def test_k2_tiled_model_takes_the_kernels_tile_and_order():
+    """The model runs the kernel's key tile (BLOCK_K) and ring depth: with
+    no more key tiles than stages there is no earlier stage to read, so
+    the stale-stage fault is the unaltered algorithm; with more it is not."""
+    g = torch.Generator().manual_seed(2)
+    q, k, v = k2_check.check_inputs(1, 2, attention.BLOCK_K * attention.STAGES - 28, g, "cpu")
+    tiled = k2_check.mha_encoder_tiled(q, k, v)
+    torch.testing.assert_close(tiled, k2_check.mha_encoder_tiled(q, k, v, attention.BLOCK_K), rtol=0, atol=0)
+    torch.testing.assert_close(k2_check.mha_encoder_tiled(q, k, v, fault="stale_stage"), tiled, rtol=0, atol=0)
+    assert float(k2_check.excess(tiled, attention.mha_encoder_reference(q, k, v)).max()) <= 1.0
+    q, k, v = k2_check.check_inputs(1, 2, attention.BLOCK_K * (attention.STAGES + 1), g, "cpu")
+    assert not torch.equal(k2_check.mha_encoder_tiled(q, k, v, fault="stale_stage"),
+                           k2_check.mha_encoder_tiled(q, k, v))
 
 
 def test_k2_check_inputs_put_the_max_where_each_row_kind_says():
@@ -260,6 +277,73 @@ def test_k2_check_inputs_put_the_max_where_each_row_kind_says():
 def test_k2_row_limit_is_two_bf16_ulps():
     ref = torch.tensor([[0.75, -0.1], [1.0, 0.5], [-3.0, 2.0]])
     assert k2_check.row_limit(ref)[:, 0].tolist() == [2 * 2.0**-8, 2 * 2.0**-7, 2 * 2.0**-6]
+
+
+# K2's tensor maps (ops/attention.py::tensor_map_args, the C side's encode_map)
+
+
+def _projection_views(b, s, h):
+    x = torch.zeros((b, s, 3 * h * 64), dtype=torch.bfloat16)
+    return [_split_heads(x[..., i * h * 64 : (i + 1) * h * 64], h) for i in range(3)]
+
+
+def test_tensor_map_args_of_the_head_split_views():
+    """The encoder's q/k/v: head-split views of one [B, S, 3·H·64]
+    projection, rows 3·H·64 elements apart, heads 64, batch rows S rows."""
+    b, s, h = 2, 1500, 20
+    for i, view in enumerate(_projection_views(b, s, h)):
+        args = attention.tensor_map_args("q", view, attention.BLOCK_Q)
+        assert args.dims == (64, s, h, b)
+        assert args.strides == (3 * h * 64 * 2, 64 * 2, s * 3 * h * 64 * 2)
+        assert args.box == (64, attention.BLOCK_Q, 1, 1)
+
+
+def test_tensor_map_args_of_the_split_forms_query_rows_and_a_contiguous_tensor():
+    """The sequence-parallel launch's q[:, :, 750:] (a base 750 rows in, one
+    batch row: its stride is the packed one) and a contiguous tensor."""
+    q = torch.zeros((1, 20, 1500, 64), dtype=torch.bfloat16)
+    args = attention.tensor_map_args("q", q[:, :, 750:], attention.BLOCK_Q)
+    assert args.dims == (64, 750, 20, 1)
+    assert args.strides == (128, 1500 * 128, 20 * 1500 * 128)
+    k = torch.zeros((2, 3, 70, 64), dtype=torch.bfloat16)
+    args = attention.tensor_map_args("k", k, attention.BLOCK_K)
+    assert args == attention.TensorMapArgs((64, 70, 3, 2), (128, 70 * 128, 3 * 70 * 128), (64, attention.BLOCK_K, 1, 1))
+
+
+@pytest.mark.parametrize("layout, message", [
+    ("odd_row_stride", "row stride of 130 bytes"),
+    ("odd_head_stride", "head stride of 1288 bytes"),
+    ("misaligned_base", "16-byte aligned"),
+    ("head_dim_32", "head dimension must be 64"),
+])
+def test_tensor_map_args_refuse_what_tma_refuses(layout, message):
+    """Strides that are not multiples of 16 bytes, a base off a 16-byte
+    boundary, a head dim other than 64: TMA cannot load them, the wrapper
+    raises before any launch (here through `_check_cuda` with the device
+    checks stood aside, as on the card)."""
+    if layout == "odd_row_stride":
+        t = torch.zeros((1, 2, 10, 65), dtype=torch.bfloat16)[..., :64]
+    elif layout == "odd_head_stride":
+        t = torch.zeros(2000, dtype=torch.bfloat16).as_strided((1, 2, 10, 64), (0, 644, 64, 1))
+    elif layout == "misaligned_base":
+        t = torch.zeros(2 * 10 * 64 + 8, dtype=torch.bfloat16)[1 : 1 + 2 * 10 * 64].view(1, 2, 10, 64)
+    else:
+        t = torch.zeros((1, 2, 10, 32), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=message):
+        attention.tensor_map_args("k", t, attention.BLOCK_K)
+
+
+def test_mha_encoder_wrapper_checks_the_tensor_maps(monkeypatch):
+    """On CUDA tensors (the device checks stood aside) the bf16 wrapper
+    holds q, k and v to TMA's layout rules; float32 keeps its own kernel's."""
+    monkeypatch.setattr(_build, "check_cuda", lambda *_, **__: None)
+    q, k, v = (torch.zeros((1, 2, 10, 64), dtype=torch.bfloat16) for _ in range(3))
+    attention._check_cuda(q, k, v)
+    bad = torch.zeros(2 * 10 * 64 + 8, dtype=torch.bfloat16)[1 : 1 + 2 * 10 * 64].view(1, 2, 10, 64)
+    with pytest.raises(ValueError, match="v: the base must be 16-byte aligned"):
+        attention._check_cuda(q, k, bad)
+    f32 = [torch.zeros((1, 2, 10, 64)) for _ in range(3)]
+    attention._check_cuda(*f32)
 
 
 # ---------------------------------------------------------------------------

@@ -290,6 +290,22 @@ def test_generate_loop_with_left_pads_matches_jax(trees, jax_f32_cache):
     np.testing.assert_array_equal(_port_loop(tp, alone)[0][0], tc[0])
 
 
+def test_generate_loop_ending_inside_a_segment_matches_jax_length_and_cache(trees, jax_f32_cache):
+    """Step caps that leave every row done at frame 7, well inside the port's
+    first segment of 16: `length` is JAX's 7 (the frames stepped until every
+    row was done), and the final KV within TOL of JAX's, whose slots past
+    that frame were never written."""
+    tp, jp, _ = trees
+    a = dict(_loop_args(8), cap=np.array([5, 7]))
+    jc, jn, jout = _jax_loop(jp, a, n=20)
+    tc, tn, tout = _port_loop(tp, a, n=20)
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(tn, jn)
+    assert tout.length == int(jout.length) == 7
+    for t, j in zip(tout.kv, jout.kv):
+        np.testing.assert_allclose(_t(t), _j(j), atol=TOL)
+
+
 @pytest.mark.parametrize("scheme", ["w8a16", "w4a16"])
 def test_quantized_loop_matches_jax(quantized, jax_f32_cache, scheme):
     """The loop over W8A16 and W4A16 trees (every linear quantized): codes

@@ -13,7 +13,10 @@ host loop over frames that never reads the device within a segment: the
 frame's tensors (codes, done, counts) stay on the device, and the host
 reads `done` once per segment. `tts_generate_loop` runs segments of
 `SEGMENT_FRAMES` until every row is done, which gives the same codes as
-one long segment: a done row only ever emits EOS frames.
+one long segment: a done row only ever emits EOS frames. The frames a
+segment steps after every row is done are then taken back: the returned
+`length` counts the frames up to the one that left every row done, as
+JAX's loop does, and the cache slots the later frames wrote are zeroed.
 
 Sampling is JAX's: top-k, then argmax(top_vals / max(T, 1e-4) + g) with
 Gumbel noise g, which is what `jax.random.categorical` computes; the noise
@@ -241,7 +244,23 @@ def tts_generate_loop(
         if bool(state.done.all()):
             break
     n_frames = (codes[:, :, 0] != CODEC_EOS).sum(dim=1)
-    return TTSLoopOutput(codes=codes, n_frames=n_frames, kv=state.kv, length=state.step)
+    length = int(_frames_until_done(codes[:, :state.step, 0], state.step_cap))
+    # JAX's loop stops at the frame that leaves every row done; the frames
+    # stepped after it within the segment wrote slots JAX leaves at zero
+    for cache in state.kv:
+        cache[:, :, :, state.bos_slot + 1 + length:] = 0
+    return TTSLoopOutput(codes=codes, n_frames=n_frames, kv=state.kv, length=length)
+
+
+def _frames_until_done(code0: torch.Tensor, step_cap: torch.Tensor) -> torch.Tensor:
+    """code0 [B, N] of the frames stepped → 0-d count of the frames JAX's
+    `while_loop` steps: up to and including the first frame after which
+    every row is done (an EOS so far, or the row's step cap reached), else N."""
+    n = code0.shape[1]
+    frame = torch.arange(1, n + 1, device=code0.device)
+    done = ((code0 == CODEC_EOS).cumsum(dim=1) > 0) | (frame[None, :] >= step_cap[:, None])
+    all_done = torch.cat([done.all(dim=0), torch.ones(1, dtype=torch.bool, device=code0.device)])
+    return (all_done.int().argmax() + 1).clamp(max=n)
 
 
 @torch.inference_mode()

@@ -4,9 +4,9 @@
 [B, H, Sk, 64] in bf16 or f32 (Sq = Sk = 1500 in the encoder; Sq < Sk in
 its sequence-parallel mode, where each rank holds its own query rows and
 all the keys). For CUDA tensors it launches the hand-written kernel in
-csrc/mha_encoder.cu (bf16: tensor cores; f32: the scalar kernel); for CPU
-tensors it runs `mha_encoder_reference`, the plain torch version of the
-same math and rounding points:
+csrc/mha_encoder.cu (bf16: TMA loads and warp-specialised wgmma; f32: the
+scalar kernel); for CPU tensors it runs `mha_encoder_reference`, the plain
+torch version of the same math and rounding points:
 
   * q is scaled by dh^-0.5 and rounded to q's dtype before the score dot
     (Whisper's dh^-0.25 on both q and k, folded into q);
@@ -17,11 +17,15 @@ same math and rounding points:
 q/k/v may be any views whose last dimension is contiguous (the head-split
 views of the projections). The result is a [B, H, Sq, 64] view of memory
 laid out [B, Sq, H, 64], so that merging the heads back is a view too.
+The bf16 kernel loads each of q, k, v through a TMA tensor map of the
+view itself (`tensor_map_args`), so their bases and strides must be
+multiples of 16 bytes; the wrapper raises otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +44,46 @@ def mha_encoder_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return (probs.float() @ v.float()).to(q.dtype)
 
 
+# the bf16 kernel's tiles (csrc/mha_encoder.cu): query rows per block, keys
+# per K/V tile, depth of the K/V ring
+BLOCK_Q, BLOCK_K, STAGES = 128, 128, 2
+
+
+class TensorMapArgs(NamedTuple):
+    """What csrc/mha_encoder.cu's `encode_map` passes to
+    cuTensorMapEncodeTiled for one of q, k, v [B, H, rows, 64]."""
+
+    dims: tuple  # (64, rows, H, B), innermost first
+    strides: tuple  # bytes between rows, heads, batch rows
+    box: tuple  # (64, box rows, 1, 1): one copy lands this many rows
+
+
+def tensor_map_args(name: str, t: torch.Tensor, box_rows: int) -> TensorMapArgs:
+    """The tensor-map arguments of the bf16 view `t` [B, H, rows, 64], as
+    the C side encodes them: a dimension of size 1 takes the packed stride
+    (torch gives it any stride; its coordinate is always 0). Raises
+    ValueError on a layout TMA refuses: a head dim other than 64 or not
+    contiguous, a base or a stride that is not a positive multiple of 16
+    bytes below 2^40, a dimension past 2^32."""
+    b, h, rows, dh = t.shape
+    if dh != 64 or t.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dimension must be 64 and contiguous, got shape "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the base must be 16-byte aligned for TMA (address {t.data_ptr():#x})")
+    size = t.element_size()
+    row = dh * size if rows == 1 else t.stride(2) * size
+    head = row * rows if h == 1 else t.stride(1) * size
+    batch = head * h if b == 1 else t.stride(0) * size
+    for what, stride in (("row", row), ("head", head), ("batch", batch)):
+        if stride <= 0 or stride % 16 or stride >= 2**40:
+            raise ValueError(f"{name}: a {what} stride of {stride} bytes; TMA takes positive multiples of "
+                             "16 bytes below 2^40")
+    if max(b, h, rows) > 2**32:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} has a dimension past 2^32")
+    return TensorMapArgs((dh, rows, h, b), (row, head, batch), (dh, box_rows, 1, 1))
+
+
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"mha_encoder takes float32 or bfloat16, got {q.dtype}")
@@ -52,9 +96,8 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"and k {tuple(k.shape)}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
-        # the bf16 kernel copies rows in 16-byte pieces
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])):
-            raise ValueError(f"{name}: rows must start on 16-byte boundaries")
+        if q.dtype == torch.bfloat16:
+            tensor_map_args(name, t, BLOCK_Q if name == "q" else BLOCK_K)
     if q.shape[-1] != 64:
         raise ValueError(f"mha_encoder takes head dim 64, got {q.shape[-1]}")
 

@@ -23,11 +23,15 @@ padding fault) is ~2 ulps.
 Run as a script, this builds the same inputs on the CPU at the shape at
 which phase 3 of `chip_smoke.py` repeats the table (B=2 H=20 S=1500) and
 reports, for the plain tiled form of the kernel's algorithm
-(`mha_encoder_tiled`) and for four altered forms, the worst row's error
-in units of its limit, per row kind. The unaltered form must stay within 1; each altered one must
-exceed it on some kind: no rescale of the accumulator when the max moves,
-the ragged last tile skipped, the padding keys of the last tile scored 0
-instead of -inf, the dh^-0.5 scale applied twice.
+(`mha_encoder_tiled`: the kernel's key tile and its order of the online
+softmax) and for five altered forms, the worst row's error in units of
+its limit, per row kind. The unaltered form must stay within 1; each
+altered one must exceed it on some kind: no rescale of the accumulator
+when the max moves, the ragged last tile skipped, the padding keys of the
+last tile scored 0 instead of -inf, the dh^-0.5 scale applied twice, and
+key tile t computed on the K and V of tile t - STAGES (a consumer that
+missed its wait on the stage's full barrier and read what the ring held
+before).
 """
 
 from __future__ import annotations
@@ -37,9 +41,10 @@ from typing import Optional
 
 import torch
 
-from whisperkit_tpu_torch.ops.attention import mha_encoder_reference
+from whisperkit_tpu_torch.ops.attention import BLOCK_K, STAGES, mha_encoder_reference
 
-FAULTS = ("no_rescale", "skip_last_tile", "pad_scored_zero", "double_scale")
+FAULTS = ("no_rescale", "skip_last_tile", "pad_scored_zero", "double_scale", "stale_stage")
+LOG2E = 1.4426950408889634
 ROW_KINDS = ("peaked_last_tile", "peaked_first_tile", "near_flat")
 BATCH, HEADS, SEQ, SEED = 2, 20, 1500, 0
 
@@ -73,40 +78,59 @@ def excess(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return ((out.float() - ref.float()).abs().amax(dim=-1, keepdim=True) / row_limit(ref))[..., 0]
 
 
-def mha_encoder_tiled(q, k, v, tile: int = 128, fault: Optional[str] = None) -> torch.Tensor:
-    """The kernel's algorithm in plain torch: keys in tiles of `tile`, an
-    online softmax in float32, the unnormalised probability rounded to v's
-    dtype before P·V, the output divided by the row sum at the end.
-    `fault` names one of FAULTS to alter it."""
+def mha_encoder_tiled(q, k, v, tile: int = BLOCK_K, fault: Optional[str] = None) -> torch.Tensor:
+    """The bf16 kernel's algorithm in plain torch, in its order: keys in
+    tiles of `tile`; scores of the unscaled q, the scale dh^-0.5 (a power
+    of two: the same numbers as scaling q first) in the exponent's factor;
+    per tile the row max, the rescale factor exp2((m - m_new) log2e scale)
+    and p = exp2(s log2e scale - m_new log2e scale) in float32; each of the
+    four threads that share a row keeps the sum of its own columns (column
+    pairs 2tq, 2tq + 1 of every 8, added pair by pair in column order) and
+    the four shares are added at the end as the quad's shuffles add them;
+    the unnormalised p rounded to v's dtype before P·V, the output divided
+    by the row sum. `fault` names one of FAULTS to alter it."""
     if fault not in (None, *FAULTS):
         raise ValueError(f"unknown fault {fault!r}")
     scale = q.shape[-1] ** -0.5
-    qs = (q.float() * scale).to(q.dtype).float()
+    factor = torch.tensor(scale * LOG2E, dtype=torch.float32)
     if fault == "double_scale":
-        qs = (qs * scale).to(q.dtype).float()
+        factor = factor * scale
+    qf = q.float()
     s_len = k.shape[2]
     m = torch.full(q.shape[:-1] + (1,), float("-inf"), device=q.device)
-    l = torch.zeros_like(m)
+    shares = torch.zeros(q.shape[:-1] + (4,), device=q.device)  # per thread of the row's quad
     o = torch.zeros(q.shape, device=q.device)
-    for t0 in range(0, s_len, tile):
-        kt, vt = k[:, :, t0 : t0 + tile].float(), v[:, :, t0 : t0 + tile].float()
-        pad = tile - kt.shape[2]
-        if pad and fault == "skip_last_tile":
+    for t, t0 in enumerate(range(0, s_len, tile)):
+        n = min(tile, s_len - t0)
+        src = t0 - STAGES * tile if fault == "stale_stage" and t >= STAGES else t0
+        kt, vt = k[:, :, src : src + n].float(), v[:, :, src : src + n].float()
+        if n < tile and fault == "skip_last_tile":
             break
-        scores = qs @ kt.transpose(-1, -2)
-        if pad and fault == "pad_scored_zero":  # zero-filled keys left unmasked
-            scores = torch.cat([scores, scores.new_zeros(scores.shape[:-1] + (pad,))], -1)
-            vt = torch.cat([vt, vt.new_zeros(vt.shape[:2] + (pad, vt.shape[3]))], 2)
+        scores = qf @ kt.transpose(-1, -2)
+        pad = tile - n
+        if pad:
+            if fault == "pad_scored_zero":  # zero-filled keys left unmasked
+                scores = torch.cat([scores, scores.new_zeros(scores.shape[:-1] + (pad,))], -1)
+                vt = torch.cat([vt, vt.new_zeros(vt.shape[:2] + (pad, vt.shape[3]))], 2)
+            else:
+                scores = torch.cat([scores, scores.new_full(scores.shape[:-1] + (pad,), float("-inf"))], -1)
+                vt = torch.cat([vt, vt.new_zeros(vt.shape[:2] + (pad, vt.shape[3]))], 2)
         m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(scores - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
+        corr = torch.exp2((m - m_new) * factor)
+        p = torch.exp2(scores * factor - m_new * factor)
+        # the thread tq of a row holds columns 8j + 2tq and 8j + 2tq + 1
+        pairs = p.reshape(p.shape[:-1] + (tile // 8, 4, 2))
+        tile_share = torch.zeros_like(shares)
+        for j in range(tile // 8):
+            tile_share = tile_share + (pairs[..., j, :, 0] + pairs[..., j, :, 1])
+        shares = shares * corr + tile_share
         o = (o if fault == "no_rescale" else o * corr) + p.to(v.dtype).float() @ vt
         m = m_new
+    l = (shares[..., 0:1] + shares[..., 1:2]) + (shares[..., 2:3] + shares[..., 3:4])
     return (o / l).to(q.dtype)
 
 
-def fault_table(q, k, v, tile: int = 128) -> dict:
+def fault_table(q, k, v, tile: int = BLOCK_K) -> dict:
     """{form: {row kind: worst row's error / its limit}} for the unaltered
     tiled form ("tiled") and each fault, against mha_encoder_reference."""
     ref = mha_encoder_reference(q, k, v)
