@@ -100,10 +100,14 @@ Phases, one line each; any failure exits non-zero:
      generate of a four-sentence paragraph (four chunks, one batch) with
      the CLI's defaults in bf16, W8A16 and W4A16, one warm pass then one
      timed: frames, ms_per_step, real-time ratio, stage seconds, peak
-     memory, weight bytes; stream_blocks' first block; the prompt cache;
-     launches and device busy per frame from
-     `python -m whisperkit_tpu_torch.tools.profile_tts` in a child
-     process; the 1.7b variant on one generate with an instruction
+     memory, weight bytes, the frame graph's captures and replays;
+     stream_blocks' first block; the prompt cache; device and host
+     launches, device busy and idle per frame, eager and as the frame's
+     graph, from `python -m whisperkit_tpu_torch.tools.profile_tts` in a
+     child process; the 1.7b variant on one generate with an instruction.
+     The runs whose sampling logits are recorded (against the CPU, the
+     prompt-cache miss) run their frames eagerly; the others replay the
+     frame's CUDA graph
  20. the TTS entry points: phase 19's bf16 tree written as a Qwen3-TTS
      folder (tools/checkpoint.write_qwen3_tts_checkpoint), loaded through
      TTSPipeline.from_pretrained with every leaf equal, and
@@ -142,7 +146,9 @@ Phases, one line each; any failure exits non-zero:
      over 1500 keys) against the replicated one; (e) diarization with
      phase 16's published models and TTS 0.6b (MESH_TTS_FRAMES frames, T 0
      and 0.9) at dp 2: the RTTM and embeddings, the codes under a gap
-     rule. The mesh runs' launches are the path `mesh`, per device too;
+     rule; then TTS at dp 2, TTS_GRAPH_FRAMES frames, T 0 and 0.9: the
+     frame's graph (a capture per device thread) bit-equal to the mesh's
+     eager frames. The mesh runs' launches are the path `mesh`, per device too;
      (a) prints the decode graph's captures and replays per device (each
      dp thread captures its own), (b) that tp decodes eagerly.
      `python3 chip_smoke.py --mesh-only` runs phases 1, 2 and 24 alone
@@ -153,10 +159,18 @@ Phases, one line each; any failure exits non-zero:
      which must compact and capture once more per compaction. Tokens,
      log-probabilities, `done` and the alignment buffer bit-equal, the
      kernels' launches equal (the graph's counted through its replays)
+ 26. the TTS frame's CUDA graph (decoding/tts_loop.py) against the eager
+     frames (`cuda_graph=False`), TTS_GRAPH_FRAMES frames a run, T 0 and
+     0.9 from one seed: tts_generate_loop on the paragraph's four rows
+     (two left-padded) with phase 19's bf16, W8A16 and W4A16 trees; bf16
+     stream_blocks (batch 1, blocks of 25); a bf16 prompt-cache hit.
+     Codes, n_frames, length and the final KV cache bit-equal, one
+     capture a loop or stream and a replay for every later frame
 Phases 21-23 run after phase 15, while phase 4's tree and phase 13's
 pipeline are on the card (and TF32 is off, as in phases 1-15), then phases
 16-20 run; phases 25 and 24's Whisper part run after phase 12, on phase
-4's and phase 6's trees, 24's part (e) after phase 20.
+4's and phase 6's trees, 26 after phase 19 on its trees, 24's part (e)
+after phase 20.
 
 The pipelines' greedy and sampled decode loops replay a CUDA graph of the
 step on the card (phases 4, 6, 9, 11, 14, 21-24); a launch inside the
@@ -1070,9 +1084,9 @@ def time_self_attend_q8(torch, g, dev, traces) -> dict:
 
 
 def graph_stats(by_device: bool = False) -> dict:
-    """The decode step's CUDA graph since the last reset
-    (decoding/graph.py): captures, replays and the captures' host seconds,
-    summed over the devices, or per device."""
+    """The CUDA graphs of decoding/graph.py (the decode step's, the TTS
+    frame's) since the last reset: captures, replays and the captures'
+    host seconds, summed over the devices, or per device."""
     from whisperkit_tpu_torch.decoding import graph
 
     if by_device:
@@ -2680,9 +2694,18 @@ class TTSSpy:
     """Within the block: the codes and waveform of each vocoder call of the
     TTS pipeline (whole-utterance and streamed), and the logits of every
     sampling call, code0 then the 15 heads, frame by frame (a clone per
-    call, [B, V] on the device)."""
+    call, [B, V] on the device). A replay of the frame's CUDA graph makes
+    no Python call, so with `eager` (which the logits need) the pipeline's
+    frame loops run eagerly (`cuda_graph=False`): the recorded runs are
+    references. Without it the frames replay their graph and only the
+    vocoder's codes and waveforms are read."""
+
+    def __init__(self, eager: bool = False):
+        self.eager = eager
 
     def __enter__(self):
+        import functools
+
         from whisperkit_tpu_torch.decoding import tts_loop
         from whisperkit_tpu_torch.models import qwen3_tts
         from whisperkit_tpu_torch.pipelines import tts
@@ -2706,9 +2729,15 @@ class TTSSpy:
                 return fn(logits, *args, **kwargs)
             return wrapped
 
+        def eagerly(fn):
+            return functools.partial(fn, cuda_graph=False)
+
+        wraps = [(tts, "speech_decoder_forward", vocoder), (tts, "code2wav_decode_block", vocoder)]
+        if self.eager:
+            wraps += [(tts_loop, "sample_topk", sampler), (qwen3_tts, "sample_topk", sampler),
+                      (tts, "tts_generate_loop", eagerly), (tts, "tts_generate_segment", eagerly)]
         self.saved = []
-        for module, name, wrap in ((tts, "speech_decoder_forward", vocoder), (tts, "code2wav_decode_block", vocoder),
-                                   (tts_loop, "sample_topk", sampler), (qwen3_tts, "sample_topk", sampler)):
+        for module, name, wrap in wraps:
             self.saved.append((module, name, getattr(module, name)))
             setattr(module, name, wrap(getattr(module, name)))
         return self
@@ -2718,9 +2747,10 @@ class TTSSpy:
             setattr(module, name, orig)
 
 
-def tts_spied(torch, pipe, text, options, device: str = "cuda") -> tuple:
-    """(result, spy) of one `pipe.generate`."""
-    with TTSSpy() as spy:
+def tts_spied(torch, pipe, text, options, device: str = "cuda", eager: bool = True) -> tuple:
+    """(result, spy) of one `pipe.generate`; with `eager`, its frames run
+    eagerly and the spy holds every sampling call's logits."""
+    with TTSSpy(eager) as spy:
         result = pipe.generate(text, options)
     sync(torch, device)
     return result, spy
@@ -2763,8 +2793,10 @@ def phase_tts_card_vs_cpu(torch, card: str, dims) -> dict:
     TTS_LOGIT_LIMIT, the card's vocoder on the CPU's codes within
     TTS_WAVE_LIMIT of the CPU's waveform; each limit must fail the same
     run with TF32 on (the vocoder without its guard, its `__wrapped__`).
-    Then, on the card, stream_blocks (blocks of 25) against generate of
-    the same text, and a prompt-cache hit against a miss, codes equal and
+    These runs' frames are eager (`cuda_graph=False`): the spy records
+    every sampling call's logits. Then, on the card, stream_blocks (blocks
+    of 25) against generate of the same text, both on the frame's graph,
+    and a prompt-cache hit (graph) against a miss (eager), codes equal and
     audio within TTS_STREAM_TOL."""
     import dataclasses
 
@@ -2818,7 +2850,7 @@ def phase_tts_card_vs_cpu(torch, card: str, dims) -> dict:
 
     # streamed blocks and the prompt cache, on the card
     stream_opts = dataclasses.replace(options, max_new_tokens=TTS_STREAM_FRAMES)
-    whole, whole_spy = tts_spied(torch, card_pipe, text, stream_opts)
+    whole, whole_spy = tts_spied(torch, card_pipe, text, stream_opts, eager=False)
     with TTSSpy() as block_spy:
         blocks = [b for b in card_pipe.stream_blocks(text, stream_opts, block_frames=25)]
     streamed = np_concat(blocks)
@@ -2827,7 +2859,7 @@ def phase_tts_card_vs_cpu(torch, card: str, dims) -> dict:
     hit_opts = dataclasses.replace(options, use_prompt_cache=True, instruction=TTS_INSTRUCTION)
     miss, miss_spy = tts_spied(torch, card_pipe, text, dataclasses.replace(hit_opts, use_prompt_cache=False))
     card_pipe.build_prompt_cache(hit_opts)
-    hit, hit_spy = tts_spied(torch, card_pipe, text, hit_opts)
+    hit, hit_spy = tts_spied(torch, card_pipe, text, hit_opts, eager=False)
     if not (same_codes and stream_err <= TTS_STREAM_TOL and [len(b) for b in blocks] == [25 * 1920] * 2):
         fail(f"{label}: stream_blocks {[len(b) for b in blocks]} samples, codes equal {same_codes}, max err "
              f"{stream_err:.3g} against generate (limit {TTS_STREAM_TOL})")
@@ -2861,9 +2893,12 @@ def tts_timed(torch, pipe, text, options) -> dict:
     after), peak memory reset before it."""
     import dataclasses
 
+    from whisperkit_tpu_torch.decoding import graph
+
     pipe.generate(text, dataclasses.replace(options, max_new_tokens=4))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    graph.reset_stats()
     t0 = time.perf_counter()
     result = pipe.generate(text, options)
     torch.cuda.synchronize()
@@ -2874,7 +2909,7 @@ def tts_timed(torch, pipe, text, options) -> dict:
     return {"wall": wall, "frames": t.frames, "chunks": t.chunks, "ms_per_step": t.ms_per_step,
             "rtr": t.real_time_ratio, "tokenize_s": t.tokenize_seconds, "generate_s": t.generate_seconds,
             "vocode_s": t.vocode_seconds, "audio_s": len(result.audio) / 24_000,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "graph": graph_stats(by_device=True)}
 
 
 def say_tts_run(label, run, weight_bytes, card) -> None:
@@ -2882,7 +2917,8 @@ def say_tts_run(label, run, weight_bytes, card) -> None:
         f"{run['wall']:.3f} s | ms_per_step {run['ms_per_step']:.2f} (generate s over the frames of all rows) | "
         f"real-time ratio {run['rtr']:.3f} | "
         f"tokenize {run['tokenize_s']:.4f} s, generate {run['generate_s']:.3f} s, vocode {run['vocode_s']:.3f} s | "
-        f"peak {run['peak_gib']:.2f} GiB, weights {weight_bytes} bytes ({weight_bytes / 2**30:.3f} GiB) | {card}")
+        f"peak {run['peak_gib']:.2f} GiB, weights {weight_bytes} bytes ({weight_bytes / 2**30:.3f} GiB) | frame "
+        f"graph by device {json.dumps(run['graph'])} | {card}")
 
 
 def phase_tts(torch, card: str, dims) -> dict:
@@ -2890,11 +2926,13 @@ def phase_tts(torch, card: str, dims) -> dict:
     with SEED) and its weights quantized to W8A16 and to W4A16: generate of
     profile_tts.PARAGRAPH (four sentence chunks, one batch) with the CLI's
     defaults (temperature 0.9, top-k 50, penalty 1.05, 245 frames at most),
-    one warm pass then one timed; stream_blocks (blocks of 25) timed to its
-    first block; a prompt-cache hit against a miss; then, in a child
-    process, `python -m whisperkit_tpu_torch.tools.profile_tts`: launches
-    and device busy per frame; and the 1.7b pipeline in bf16 on one short
-    generate with an instruction."""
+    one warm pass then one timed, the frames on their CUDA graph (its
+    captures and replays reported); stream_blocks (blocks of 25) timed to
+    its first block; a prompt-cache hit against a miss; then, in a child
+    process, `python -m whisperkit_tpu_torch.tools.profile_tts`: device
+    and host launches, device busy and idle per frame, eager and as the
+    graph (whose host launches must be single digits); and the 1.7b
+    pipeline in bf16 on one short generate with an instruction."""
     import dataclasses
 
     from whisperkit_tpu_torch.ops.quant import quantized_size_bytes
@@ -2915,7 +2953,7 @@ def phase_tts(torch, card: str, dims) -> dict:
     # streaming: time to the first block of 25 frames, at temperature 0
     sentence = PARAGRAPH.split(". ")[0] + "."
     stream_opts = GenerationOptions(temperature=0.0, chunking_strategy="none", max_new_tokens=50)
-    whole, whole_spy = tts_spied(torch, bf16, sentence, stream_opts)
+    whole, whole_spy = tts_spied(torch, bf16, sentence, stream_opts, eager=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first, blocks = None, []
@@ -2956,15 +2994,25 @@ def phase_tts(torch, card: str, dims) -> dict:
         fail(f"{label} profile: exit {proc.returncode}: {proc.stderr[-2000:]}")
     profiles = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
     for prof in profiles:
-        parts = ", ".join(f"{k} {v['launches']:.0f} launches / {v['device_busy_ms']:.3f} ms busy"
-                          for k, v in prof["parts"].items())
-        say(f"{label} 0.6b {prof['config']} trace (B={prof['batch']}): "
-            f"{prof['launches_per_frame']:.1f} launches and {prof['device_busy_ms']:.3f} ms device busy per frame, "
+        if prof["loop"] == "eager":
+            parts = ", ".join(f"{k} {v['launches']:.0f} launches / {v['device_busy_ms']:.3f} ms busy"
+                              for k, v in prof["parts"].items())
+            extra = f"{parts} | vocoder wall {prof['vocoder_wall_ms']:.1f} ms"
+        else:
+            extra = (f"whole segments {', '.join(f'{w:.2f}' for w in prof['segment_call_ms'])} ms a frame | capture "
+                     f"{prof['capture_s']:.3f} s, instantiate {prof['instantiate_s']:.3f} s")
+        say(f"{label} 0.6b {prof['config']} {prof['loop']} trace (B={prof['batch']}): "
+            f"{prof['launches_per_frame']:.1f} device launches, {prof['host_launches_per_frame']:.1f} host launches "
+            f"and {prof['device_busy_ms']:.3f} ms device busy per frame, "
             f"frame wall {', '.join(f'{w:.2f}' for w in prof['frame_ms_unprofiled'])} ms, idle "
-            f"{prof['idle_share']:.3f} | {parts} | vocoder wall {prof['vocoder_wall_ms']:.1f} ms | {card}")
+            f"{prof['idle_share']:.3f} | {extra} | {card}")
         say(f"  top: {json.dumps(prof['top'][:6])}")
-    if len(profiles) != 3:
+    if len(profiles) != 6:
         fail(f"{label} profile: {len(profiles)} lines: {proc.stdout[-2000:]}")
+    graphed = [p for p in profiles if p["loop"] == "graph"]
+    if any(p["host_launches_per_frame"] >= 10 for p in graphed):
+        fail(f"{label} profile: the graph's host launches per frame are not single digits: "
+             f"{[p['host_launches_per_frame'] for p in graphed]}")
     say(f"{label} profile child: {time.perf_counter() - t0:.1f} s")
 
     # 1.7b, bf16: one short generate with an instruction
@@ -3040,6 +3088,201 @@ def phase_tts_entry(torch, card: str, pipe, folder: Path) -> dict:
         f"device probe, load, generate, WAV) | {n} samples at {rate} Hz = {ref.timings.frames} frames x 1920, "
         f"equal to the in-process pipeline's | {card}")
     return {"bytes": n_bytes, "write_s": write_s, "load_s": load_s, "cli_wall": wall, "cli_samples": n}
+
+
+# --- phase 26: the TTS frame's CUDA graph against the eager frame loop -------
+
+# frames of each graph-against-eager run: a capture, then replays across
+# two of tts_generate_loop's segments of 16; the stream's run: two blocks
+# of 25 and 5, its replays across both
+TTS_GRAPH_FRAMES = 20
+TTS_GRAPH_STREAM_FRAMES = 30
+
+
+@contextlib.contextmanager
+def tts_calls(name: str, eager: bool):
+    """Within the block, every call of pipelines.tts's `name`
+    (`tts_generate_loop` or `tts_generate_segment`, from the mesh's threads
+    too) recorded as (keywords, output), run with `cuda_graph=not eager`."""
+    from whisperkit_tpu_torch.pipelines import tts
+
+    orig, calls = getattr(tts, name), []
+
+    def wrapped(*args, **kwargs):
+        out = orig(*args, **kwargs, cuda_graph=not eager)
+        calls.append((kwargs, out))
+        return out
+
+    setattr(tts, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(tts, name, orig)
+
+
+def loop_mismatches(torch, a, b) -> list:
+    """The fields of two TTSLoopOutputs that are not bit-equal."""
+    bad = [k for k in ("codes", "n_frames") if not torch.equal(getattr(a, k).cpu(), getattr(b, k).cpu())]
+    if a.length != b.length:
+        bad.append("length")
+    if not all(torch.equal(x, y) for x, y in zip(a.kv, b.kv)):
+        bad.append("kv")
+    return bad
+
+
+def frames_stepped(length: int, frames: int) -> int:
+    """The frames tts_generate_loop steps when every row is done after
+    `length`: to the end of that frame's segment."""
+    from whisperkit_tpu_torch.decoding.tts_loop import SEGMENT_FRAMES
+
+    return min(frames, -(-length // SEGMENT_FRAMES) * SEGMENT_FRAMES)
+
+
+def check_graph_counts(label, eager_stats: dict, graph_stats_: dict, captures: int, stepped: int) -> None:
+    """Fail unless the eager run made no graph and the graph run made
+    `captures` (one per loop) and replayed every later frame."""
+    got = {k: sum(v[k] for v in graph_stats_.values()) for k in ("captures", "replays")}
+    if eager_stats or got != {"captures": captures, "replays": stepped - captures}:
+        fail(f"{label}: eager graphs {eager_stats}; graph run {got}, want {captures} captures and "
+             f"{stepped - captures} replays")
+
+
+def tts_graph_pair(torch, run) -> dict:
+    """`run(eager)` for eager then graph, each timed (the device synced),
+    with the graphs' stats by device."""
+    from whisperkit_tpu_torch.decoding import graph
+
+    out = {}
+    for form in ("eager", "graph"):
+        graph.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run(form == "eager")
+        torch.cuda.synchronize()
+        out[form] = (result, time.perf_counter() - t0, graph_stats(by_device=True))
+    return out
+
+
+def padded_rows(pipe, options) -> tuple:
+    """What `generate` hands the frame loop for profile_tts.PARAGRAPH's
+    four chunks, TTS_INSTRUCTION on the first and third: (prompt embeds,
+    pads, trailing text, step caps), the other two rows left-padded."""
+    import dataclasses
+
+    import torch
+
+    from whisperkit_tpu_torch.tools.profile_tts import PARAGRAPH
+
+    chunks = pipe.chunker.chunk(PARAGRAPH, options.target_chunk_size, options.min_chunk_size)
+    tracks = [pipe._chunk_tracks(c, dataclasses.replace(options, instruction=TTS_INSTRUCTION if i % 2 == 0 else None))
+              for i, c in enumerate(chunks)]
+    embeds, pad = pipe._embed_tracks([(t, c) for t, c, _, _ in tracks])
+    trailing = pipe._trailing_array([tr for _, _, tr, _ in tracks])
+    caps = torch.tensor([cap for _, _, _, cap in tracks], device=pipe.device)
+    return embeds, pad, trailing, caps
+
+
+def phase_tts_graph(torch, card: str, bf16) -> dict:
+    """Phase 26: the TTS frame as a CUDA graph (decoding/tts_loop.py,
+    captured at a loop's first frame and replayed for every later one)
+    against the same frames run eagerly (`cuda_graph=False`), each run
+    TTS_GRAPH_FRAMES frames, at temperature 0 and at the CLI's 0.9 with
+    one seed: (a) `tts_generate_loop` on profile_tts.PARAGRAPH's four
+    rows, two of them left-padded (`padded_rows`), with phase 19's bf16
+    tree and its W8A16 and W4A16 quantizations; (b) bf16 `stream_blocks`
+    (batch 1, TTS_GRAPH_STREAM_FRAMES frames in blocks of 25): its
+    segments' codes, the blocks' samples, the frames stepped and the
+    cache; (c) bf16 `generate` on a prompt-cache
+    hit: the loop's output and the audio. Codes, n_frames, `length` and
+    the final KV cache bit-equal; one capture per loop or stream, a replay
+    for every later frame (graph.stats_by_device)."""
+    import numpy as np
+
+    from whisperkit_tpu_torch.decoding.tts_loop import _frames_until_done, tts_generate_loop
+    from whisperkit_tpu_torch.models.qwen3_tts import CODEC_EOS
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions, TTSPipeline
+    from whisperkit_tpu_torch.tools.profile_tts import PARAGRAPH
+
+    label = "phase 26 TTS graph"
+    frames = TTS_GRAPH_FRAMES
+    sentence = PARAGRAPH.split(". ")[0] + "."
+    walls = {}
+    for scheme in ("bf16", "w8a16", "w4a16"):
+        pipe = bf16 if scheme == "bf16" else TTSPipeline(bf16.dims, params=bf16.params, quantize=scheme,
+                                                         device="cuda")
+        for temperature in (0.0, 0.9):
+            options = GenerationOptions(temperature=temperature, max_new_tokens=frames)
+            embeds, pad, trailing, caps = padded_rows(pipe, options)
+            pair = tts_graph_pair(torch, lambda eager: tts_generate_loop(
+                pipe.params, embeds, pipe._scalars(options), dims=pipe.dims, max_new_tokens=frames,
+                top_k=options.top_k, prompt_pad=pad, trailing_text=trailing, step_cap=caps, cuda_graph=not eager))
+            (eager, t_eager, s_eager), (graphed, t_graph, s_graph) = pair["eager"], pair["graph"]
+            where = f"{label} (a) {scheme} T={temperature}"
+            bad = loop_mismatches(torch, eager, graphed)
+            if bad:
+                fail(f"{where}: the graph's {bad} differ from the eager loop's")
+            check_graph_counts(where, s_eager, s_graph, 1, frames_stepped(graphed.length, frames))
+            walls[f"loop_{scheme}_{temperature}"] = (t_eager, t_graph)
+            say(f"{where}: tts_generate_loop, B={embeds.shape[0]} (pads {pad.tolist()}), {frames} frames: codes, "
+                f"n_frames {graphed.n_frames.tolist()}, length {graphed.length} and the cache bit-equal to the eager "
+                f"loop's | eager {t_eager:.3f} s, graph {t_graph:.3f} s | graph by device {json.dumps(s_graph)} | "
+                f"{card}")
+        del pipe
+
+    for temperature in (0.0, 0.9):
+        # (b) stream_blocks, batch 1
+        stream_opts = GenerationOptions(temperature=temperature, chunking_strategy="none",
+                                        max_new_tokens=TTS_GRAPH_STREAM_FRAMES)
+
+        def stream(eager):
+            with tts_calls("tts_generate_segment", eager) as calls:
+                blocks = list(bf16.stream_blocks(sentence, stream_opts, block_frames=25))
+            codes = torch.cat([c for _, (c, _) in calls], dim=1)
+            return blocks, codes, calls[-1][1][1]
+
+        pair = tts_graph_pair(torch, stream)
+        (eager, t_eager, s_eager), (graphed, t_graph, s_graph) = pair["eager"], pair["graph"]
+        where = f"{label} (b) bf16 stream_blocks T={temperature}"
+        (blocks_e, codes_e, st_e), (blocks_g, codes_g, st_g) = eager, graphed
+        lengths = [int(_frames_until_done(c[:, :, 0], st.step_cap)) for c, st in ((codes_e, st_e), (codes_g, st_g))]
+        same = (len(blocks_e) == len(blocks_g) and all(np.array_equal(x, y) for x, y in zip(blocks_e, blocks_g))
+                and torch.equal(codes_e, codes_g) and st_e.step == st_g.step and lengths[0] == lengths[1]
+                and all(torch.equal(x, y) for x, y in zip(st_e.kv, st_g.kv)))
+        if not same:
+            fail(f"{where}: blocks {[len(b) for b in blocks_g]} against {[len(b) for b in blocks_e]}, frames "
+                 f"{st_g.step} against {st_e.step}, lengths {lengths}: not bit-equal to the eager stream")
+        check_graph_counts(where, s_eager, s_graph, 1, st_g.step)
+        walls[f"stream_{temperature}"] = (t_eager, t_graph)
+        say(f"{where}: {len(blocks_g)} blocks of 25 frames at most, {st_g.step} frames stepped, n_frames "
+            f"{int((codes_g[0, :, 0] != CODEC_EOS).sum())}, length {lengths[1]}: codes, samples and cache bit-equal "
+            f"to the eager stream's | eager {t_eager:.3f} s, graph {t_graph:.3f} s | graph by device "
+            f"{json.dumps(s_graph)} | {card}")
+
+        # (c) a prompt-cache hit
+        hit_opts = GenerationOptions(temperature=temperature, max_new_tokens=frames, voice="serena",
+                                     instruction=TTS_INSTRUCTION, use_prompt_cache=True)
+        bf16.build_prompt_cache(hit_opts)
+
+        def hit(eager):
+            with tts_calls("tts_generate_loop", eager) as calls:
+                result = bf16.generate(PARAGRAPH, hit_opts)
+            return result, calls
+
+        pair = tts_graph_pair(torch, hit)
+        ((res_e, calls_e), t_eager, s_eager), ((res_g, calls_g), t_graph, s_graph) = pair["eager"], pair["graph"]
+        where = f"{label} (c) bf16 prompt-cache hit T={temperature}"
+        (kw, out_g), (_, out_e) = calls_g[0], calls_e[0]
+        bad = loop_mismatches(torch, out_e, out_g)
+        if not kw["cached_len"] or bad or not np.array_equal(res_e.audio, res_g.audio):
+            fail(f"{where}: cached_len {kw['cached_len']}, the graph's {bad} (audio equal "
+                 f"{np.array_equal(res_e.audio, res_g.audio)}) differ from the eager loop's")
+        check_graph_counts(where, s_eager, s_graph, 1, frames_stepped(out_g.length, frames))
+        walls[f"hit_{temperature}"] = (t_eager, t_graph)
+        say(f"{where}: generate, {res_g.timings.chunks} chunks after a cached prefix of {kw['cached_len']} "
+            f"positions, {frames} frames: codes, n_frames, length {out_g.length}, cache and audio bit-equal to the "
+            f"eager run's | eager {t_eager:.3f} s, graph {t_graph:.3f} s | graph by device {json.dumps(s_graph)} | "
+            f"{card}")
+    return {"walls": walls}
 
 
 # ---------------------------------------------------------------------------
@@ -3814,10 +4057,12 @@ def phase_mesh_speech(torch, card: str, audio, pyannote_folder: Path, tts_params
     audio, the RTTM equal and the L2-normalised embeddings within
     EMBED_LIMIT; Qwen3-TTS 0.6b bf16 (phase 19's weights), the paragraph's
     four chunks, MESH_TTS_FRAMES frames: at temperature 0 and at the CLI's
-    0.9 with one seed, the codes under the gap rules of tts_mesh_divergence
-    (BF16_GAP_TOL: bf16 logits at two batch sizes; sampled, the two codes'
-    scores under the one-device run's recorded noise; exact equality
-    reported)."""
+    0.9 with one seed, the mesh's codes (its frames on the graph) against
+    the one-device run's (eager, spied) under the gap rules of
+    tts_mesh_divergence (BF16_GAP_TOL: bf16 logits at two batch sizes;
+    sampled, the two codes' scores under the one-device run's recorded
+    noise; exact equality reported); then the mesh's frame graph against
+    its eager frames, TTS_GRAPH_FRAMES frames at T 0 and 0.9, bit-equal."""
     import dataclasses
 
     import numpy as np
@@ -3877,31 +4122,22 @@ def phase_mesh_speech(torch, card: str, audio, pyannote_folder: Path, tts_params
         finally:
             tts_module.SharedDraws = shared_draws
         noise = made[-1]._draws
-        # each mesh cell's loop, known by its rows' trailing text (the cells
-        # run in threads: their calls start and end in any order)
-        loop_calls, loop = [], tts_module.tts_generate_loop
-
-        def recorded(*args, **kwargs):
-            out = loop(*args, **kwargs)
-            loop_calls.append((kwargs["trailing_text"].cpu(), out))
-            return out
-
-        tts_module.tts_generate_loop = recorded
-        try:
+        # each mesh cell's loop (its frames on the graph), known by its
+        # rows' trailing text (the cells run in threads: their calls start
+        # and end in any order)
+        with tts_calls("tts_generate_loop", eager=False) as loop_calls:
             t0 = time.perf_counter()
             ours = mesh_pipe_.generate(PARAGRAPH, options)
             for d in sorted(set(devs)):
                 torch.cuda.synchronize(d)
             t_mesh = time.perf_counter() - t0
-        finally:
-            tts_module.tts_generate_loop = loop
         ref_codes = spy.codes[0]
         ref_trailing = [tuple(row) for row in mesh_pipe_._trailing_array(
             [tr for _, _, tr, _ in (mesh_pipe_._chunk_tracks(c, options) for c in mesh_pipe_.chunker.chunk(
                 PARAGRAPH, options.target_chunk_size, options.min_chunk_size))]).tolist()]
         by_row = {}
-        for trailing, out in loop_calls:
-            for row, codes in zip(trailing.tolist(), out.codes):
+        for kwargs, out in loop_calls:
+            for row, codes in zip(kwargs["trailing_text"].tolist(), out.codes):
                 by_row.setdefault(tuple(row), codes.to(devices[0]))
         if len(ref_trailing) != ref_codes.shape[0] or any(t not in by_row for t in ref_trailing):
             fail(f"phase 24 (e) TTS: the mesh's rows do not cover the {ref_codes.shape[0]} chunks")
@@ -3917,6 +4153,31 @@ def phase_mesh_speech(torch, card: str, audio, pyannote_folder: Path, tts_params
             f"{t_mesh:.3f} s (one device {t_one:.3f} s) | {card}")
         tts[str(temperature)] = {"equal_chunks": equal, "generate_s": ours.timings.generate_seconds,
                                  "one_device_generate_s": ref.timings.generate_seconds}
+
+    # the frame's graph on the mesh (one capture per device thread) against
+    # the mesh's eager frames, TTS_GRAPH_FRAMES frames
+    for temperature in (0.0, 0.9):
+        options = dataclasses.replace(base, temperature=temperature, max_new_tokens=TTS_GRAPH_FRAMES)
+
+        def mesh_loops(eager):
+            with tts_calls("tts_generate_loop", eager) as calls:
+                mesh_pipe_.generate(PARAGRAPH, options)
+            for d in sorted(set(devs)):
+                torch.cuda.synchronize(d)
+            return {tuple(kw["trailing_text"].flatten().tolist()): out for kw, out in calls}
+
+        pair = tts_graph_pair(torch, mesh_loops)
+        (eager, t_eager, s_eager), (graphed, t_graph, s_graph) = pair["eager"], pair["graph"]
+        where = f"phase 24 (e) TTS graph, dp 2, T={temperature}"
+        bad = {i: loop_mismatches(torch, eager[k], graphed[k]) for i, k in enumerate(graphed) if k in eager}
+        if len(graphed) != 2 or set(graphed) != set(eager) or any(bad.values()):
+            fail(f"{where}: {len(graphed)} cells; the graph's fields that differ from the eager mesh's, by cell: {bad}")
+        check_graph_counts(where, s_eager, s_graph, 2,
+                           sum(frames_stepped(o.length, TTS_GRAPH_FRAMES) for o in graphed.values()))
+        say(f"{where}, {TTS_GRAPH_FRAMES} frames: each cell's codes, n_frames, length "
+            f"{[o.length for o in graphed.values()]} and cache bit-equal to the eager mesh's | eager {t_eager:.3f} s, "
+            f"graph {t_graph:.3f} s | graph by device {json.dumps(s_graph)} | {card}")
+        tts[f"graph_{temperature}"] = {"eager_s": t_eager, "graph_s": t_graph, "graph": s_graph}
     return {"diarize_wall": wall_mesh, "diarize_one_device_wall": wall_one, "embedding_err": emb_err, "tts": tts}
 
 
@@ -4042,6 +4303,7 @@ def main() -> None:
         phases["tts_check"] = phase_tts_card_vs_cpu(torch, card, TTS_VARIANTS["0.6b"])
         phases["tts"] = phase_tts(torch, card, TTS_VARIANTS["0.6b"])
         tts_pipe = phases["tts"].pop("pipe")
+        phases["tts_graph"] = phase_tts_graph(torch, card, tts_pipe)
         phases["tts_entry"] = phase_tts_entry(torch, card, tts_pipe, root / "tts")
         tts_counts = dict(_build.launches)
         if any(tts_counts.values()):

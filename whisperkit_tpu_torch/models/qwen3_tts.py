@@ -24,10 +24,13 @@ stacked too. `params_from_numpy` carries a JAX tree across.
 Every function computes what its JAX namesake does, with the same rounding
 points: f32 norms, rotary and attention scores, casts back to the
 activation dtype where JAX casts. The KV caches are written in place at
-their slot (`pos_offset`); attention reads keys [0, pos_offset + T), the
-ones the causal mask leaves open. None of this runs in a Pallas kernel in
-the JAX package: the products are `torch.matmul`, the vocoder `F.conv1d`
-and `F.conv_transpose1d`. Code2Wav's float32 is IEEE float32 on the card
+their slot (`pos_offset`); at an int slot attention reads keys
+[0, pos_offset + T), the ones the causal mask leaves open. The backbone
+also takes its slot as a 0-d tensor on the device (the TTS frame loop's
+step, which a CUDA graph replays): it then writes K/V by `index_copy_` and
+attends the whole cache under the mask, as JAX does at every slot. None
+of this runs in a Pallas kernel in the JAX package: the products are
+`torch.matmul`, the vocoder `F.conv1d` and `F.conv_transpose1d`. Code2Wav's float32 is IEEE float32 on the card
 whatever the process's TF32 flags (`core.device.ieee_float32` on its entry
 points; cuDNN's TF32, on by default, moves the samples by ~7e-4); the
 backbone and code predictor run in bfloat16, or in float32 at the
@@ -39,7 +42,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
@@ -443,8 +446,8 @@ def _qwen3_layers(
     blocks: Params,  # stacked [L, ...] block params
     x: torch.Tensor,  # [B, T, D]
     positions: torch.Tensor,  # [B, T] rotary positions
-    mask: torch.Tensor,  # [.., .., T, pos_offset + T] additive f32
-    pos_offset: int,  # cache slot of x[:, 0]
+    mask: torch.Tensor,  # [.., .., T, keys attended] additive f32
+    pos_offset: Union[int, torch.Tensor],  # cache slot of x[:, 0], an int or a 0-d int64 tensor
     kv_k: torch.Tensor,  # [L, B, KVH, S, Dh], written in place
     kv_v: torch.Tensor,
     *,
@@ -461,11 +464,17 @@ def _qwen3_layers(
     optional per-head q/k norms, keys repeated per query head, f32 scores
     and softmax) → SwiGLU, with optional LayerScale residuals. Each layer
     writes its K/V at slots [pos_offset, pos_offset + T) of its cache and
-    attends keys [0, pos_offset + T). Returns x after the last layer."""
+    attends keys [0, pos_offset + T), or, at a tensor slot, every key of
+    the cache. Returns x after the last layer."""
     b, t, _ = x.shape
     h, kvh, dh = n_head, n_kv_head, head_dim
     rep = h // kvh
-    end = pos_offset + t
+    at_tensor = isinstance(pos_offset, torch.Tensor)
+    if at_tensor:
+        slots = pos_offset + torch.arange(t, device=x.device)
+        end = kv_k.shape[3]
+    else:
+        end = pos_offset + t
     cos, sin = _rope_angles(positions, rope_theta, dh)
     for li in range(kv_k.shape[0]):
         bp = _layer(blocks, li)
@@ -478,8 +487,12 @@ def _qwen3_layers(
             k = rms_norm(k, bp["knorm"], rms_eps)
         q = _rope(q, cos, sin)
         k = _rope(k, cos, sin)
-        kv_k[li, :, :, pos_offset:end] = k.transpose(1, 2)
-        kv_v[li, :, :, pos_offset:end] = v.transpose(1, 2)
+        if at_tensor:
+            kv_k[li].index_copy_(2, slots, k.transpose(1, 2))
+            kv_v[li].index_copy_(2, slots, v.transpose(1, 2))
+        else:
+            kv_k[li, :, :, pos_offset:end] = k.transpose(1, 2)
+            kv_v[li, :, :, pos_offset:end] = v.transpose(1, 2)
         # each KV head repeated for its `rep` query heads: [B, H, S, Dh]
         kfull = kv_k[li, :, :, None, :end].expand(b, kvh, rep, end, dh).reshape(b, h, end, dh)
         vfull = kv_v[li, :, :, None, :end].expand(b, kvh, rep, end, dh).reshape(b, h, end, dh)
@@ -520,7 +533,7 @@ def init_code_kv_cache(
 def code_decoder_forward(
     params: Params,
     embeds: torch.Tensor,  # [B, T, D] input embeddings (text+codec tracks)
-    pos_offset: int,  # cache slot of embeds[:, 0]
+    pos_offset: Union[int, torch.Tensor],  # cache slot of embeds[:, 0]: an int, or a 0-d int64 tensor
     kv_k: torch.Tensor,
     kv_v: torch.Tensor,
     dims: Qwen3TTSDims,
@@ -533,7 +546,11 @@ def code_decoder_forward(
     Reference: Qwen3CodeDecoder.swift `decode(inputEmbeds:cache:state:)`.
     Left padding shifts the rotary positions (`rope_offset`) without moving
     cache slots; a pad slot is hidden from every other query but still
-    attends to itself, so its activations stay finite."""
+    attends to itself, so its activations stay finite. At a tensor slot
+    (JAX's traced `pos_offset`) the keys attended are the whole cache, as
+    in JAX (`whisperkit_tpu/models/qwen3_tts.py` `code_decoder_forward`);
+    at an int slot they stop at the last query, which the mask closes
+    past anyway."""
     b, t, _ = embeds.shape
     dev = embeds.device
     steps = torch.arange(t, device=dev)[None, :]
@@ -541,11 +558,12 @@ def code_decoder_forward(
         positions = (pos_offset + steps).expand(b, t)
     else:
         positions = torch.clamp_min(rope_offset[:, None] + steps, 0)
-    mask = _causal_mask(pos_offset, t, dev)[None, None]
+    n_keys = kv_k.shape[3] if isinstance(pos_offset, torch.Tensor) else pos_offset + t
+    key_pos = torch.arange(n_keys, device=dev)[None, :]
+    query_pos = pos_offset + torch.arange(t, device=dev)[:, None]
+    mask = torch.where(key_pos <= query_pos, 0.0, -math.inf)[None, None]
     if key_invalid is not None:
-        end = pos_offset + t
-        is_self = torch.arange(end, device=dev)[None, :] == (pos_offset + torch.arange(t, device=dev))[:, None]
-        inv = key_invalid[:, None, None, :end] & ~is_self[None, None]
+        inv = key_invalid[:, None, None, :n_keys] & (key_pos != query_pos)[None, None]
         mask = mask + torch.where(inv, -math.inf, 0.0)
     x = _qwen3_layers(
         params["blocks"], embeds, positions, mask, pos_offset, kv_k, kv_v,

@@ -48,6 +48,7 @@ from whisperkit_tpu_torch.decoding.tts_loop import (
     tts_generate_segment,
     tts_prefill,
     tts_prefill_state,
+    tts_release,
 )
 from whisperkit_tpu_torch.models.qwen3_tts import (
     C2W_CONTEXT_FRAMES,
@@ -654,14 +655,18 @@ class TTSPipeline:
         streams through a Code2WavCache, sample for sample the
         whole-utterance decode. The text streams as ONE chunk (batch 1);
         blocks are at least C2W_CONTEXT_FRAMES frames, as in the JAX
-        package, where smaller ones would compile a vocoder shape per block."""
+        package, where smaller ones would compile a vocoder shape per block.
+        On CUDA every block's frames replay the one CUDA graph of a frame
+        that the stream's first frame captured; it is freed when the stream
+        ends or is closed."""
         options = options or GenerationOptions()
         block_frames = max(block_frames, C2W_CONTEXT_FRAMES)
         text_track, codec_track, trailing, cap = self._chunk_tracks(text, options)
         embeds, pad = self._embed_tracks([(text_track, codec_track)])
         step_cap = torch.tensor([min(cap, options.max_new_tokens)], dtype=torch.int64, device=self.device)
-        # +block_frames headroom: the last segment may overrun max_new_tokens
-        max_seq = len(text_track) + options.max_new_tokens + 1 + block_frames
+        # generate's cache length for the same text: the frames attend the
+        # whole cache, so equal lengths give generate's codes bit for bit
+        max_seq = len(text_track) + options.max_new_tokens + 1
         scalars = self._scalars(options)
         state = tts_prefill_state(
             self.params, embeds, self._trailing_array([trailing]), step_cap, scalars.generator,
@@ -672,23 +677,25 @@ class TTSPipeline:
             dtype=self.params["c2w"]["ln_f"].dtype, device=self.device,
         )
         produced = 0
-        while produced < options.max_new_tokens:
-            n = min(block_frames, options.max_new_tokens - produced)
-            codes, state = tts_generate_segment(
-                self.params, state, scalars, dims=self.dims, n_frames=block_frames, top_k=options.top_k,
-            )
-            codes = codes[:, :n]
-            valid = int((codes[0, :, 0] != CODEC_EOS).sum())
-            if valid == 0:
-                break
-            wave, voc_cache = code2wav_decode_block(
-                self.params["c2w"], codes[:, :valid], voc_cache, self.dims.c2w,
-                ctx_frames=min(produced, C2W_CONTEXT_FRAMES),
-            )
-            yield wave[0].float().cpu().numpy()
-            produced += valid
-            if bool(state.done.all()) or valid < n:
-                break
+        try:
+            while produced < options.max_new_tokens:
+                n = min(block_frames, options.max_new_tokens - produced)
+                codes, state = tts_generate_segment(
+                    self.params, state, scalars, dims=self.dims, n_frames=n, top_k=options.top_k,
+                )
+                valid = int((codes[0, :, 0] != CODEC_EOS).sum())
+                if valid == 0:
+                    break
+                wave, voc_cache = code2wav_decode_block(
+                    self.params["c2w"], codes[:, :valid], voc_cache, self.dims.c2w,
+                    ctx_frames=min(produced, C2W_CONTEXT_FRAMES),
+                )
+                yield wave[0].float().cpu().numpy()
+                produced += valid
+                if bool(state.done.all()) or valid < n:
+                    break
+        finally:
+            tts_release(state)  # the frame's graph, captured once for the whole stream
 
 
 # Variant presets (reference: Qwen3Config.swift:25-83 — 0.6b on every
