@@ -45,15 +45,16 @@ Phases, one line each; any failure exits non-zero:
      head takes the probs form (launch counts), and each segment's words
      are in order and inside it; the alignment buffer's transfer timed
  10. beam search, beam 5, on 60 s of the audio under the serving preset
-     (the raw bf16 cross-KV, K4 over B·K rows): tokens and scores printed
+     (the raw bf16 cross-KV, K4 over B·K rows): tokens and scores printed;
+     the steps replay two CUDA graphs (one per parity of the position)
  11. segmented decode on the 600 s run's 32-row group, with an EOT bias
      chosen from an unbiased run's margins so that rows end at different
      steps: the decode must compact; its tokens against the uncompacted
      decode's with the same bias; then an early-stop flag, set before the
      run, stops every window after its first segment
  12. speculative decoding at batch 1 on 30 s of the audio, a random
-     distil-large-v3 draft: its tokens against the same pipeline's
-     without the draft
+     distil-large-v3 draft, the rounds replaying a CUDA graph of one
+     round: its tokens against the same pipeline's without the draft
  13. the checkpoint: phase 4's tree written as an HF folder
      (tools/checkpoint.py) with ALIGNMENT_HEADS and a byte-level vocab in
      a temporary directory, loaded by WhisperPipeline(WhisperConfig(
@@ -166,14 +167,23 @@ Phases, one line each; any failure exits non-zero:
      stream_blocks (batch 1, blocks of 25); a bf16 prompt-cache hit.
      Codes, n_frames, length and the final KV cache bit-equal, one
      capture a loop or stream and a replay for every later frame
+ 27. beam search's and speculative decoding's CUDA graphs against their
+     eager loops (`cuda_graph=False`): beam 5 on phase 10's group with no
+     bias and with phase 11's EOT bias; speculative on phase 12's first
+     window with its random draft and with the target as its own draft
+     (the accept path: more than one token a target pass). Tokens,
+     log-probs, sums, `length` bit-equal, launches equal, captures (two
+     for beam, one for speculative) and a replay per later step or round
 Phases 21-23 run after phase 15, while phase 4's tree and phase 13's
 pipeline are on the card (and TF32 is off, as in phases 1-15), then phases
-16-20 run; phases 25 and 24's Whisper part run after phase 12, on phase
-4's and phase 6's trees, 26 after phase 19 on its trees, 24's part (e)
-after phase 20.
+16-20 run; phases 25, 27 and 24's Whisper part run after phase 12, on
+phase 4's and phase 6's trees, 26 after phase 19 on its trees, 24's part
+(e) after phase 20. The line before the card's prints the script's
+seconds.
 
 The pipelines' greedy and sampled decode loops replay a CUDA graph of the
-step on the card (phases 4, 6, 9, 11, 14, 21-24); a launch inside the
+step on the card (phases 4, 6, 9, 11, 14, 21-24), beam search and
+speculative decoding theirs (10, 12); a launch inside the
 graph is counted once per replay, so every path's counts are the eager
 loop's. Runs that record each step's logits (phases 11, 12, 14, 15, 24's
 references: `StepLogits`) decode eagerly.
@@ -208,6 +218,7 @@ import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+START = time.perf_counter()
 SEED = 0
 # published dense peaks of one H100 SXM (the bound of each kernel)
 PEAK_BYTES_PER_S = 3.35e12
@@ -1524,9 +1535,12 @@ def phase_beam(torch, card: str, pipe, audio) -> dict:
     options = dataclasses.replace(pipeline_options(GROUP), beam_size=5)
     with Spy(pipeline_module, "beam_decode_loop") as beams:
         result, wall, counts = timed_transcribe(torch, pipe, clip, options)
+    g = graph_stats()
     check_launches(label, counts, ("log_mel", "mha_encoder", "self_attend"), ("self_attend",),
                    ("cross_attend_q8", "cross_attend_q8_probs", "self_attend_q8"), pipe.dims.n_text_layer)
     check_segments(label, result.segments)
+    if not g["replays"] or g["captures"] != 2 * len(beams.calls):
+        fail(f"{label}: {len(beams.calls)} beam searches did not run on their two graphs each: {g}")
     lines = []
     for out in beams.calls:
         for r in range(out.tokens.shape[0]):
@@ -1535,9 +1549,9 @@ def phase_beam(torch, card: str, pipe, audio) -> dict:
     b = beams.calls[0].tokens.shape[0]
     say(f"{label}: 60 s audio, {len(beams.calls)} group(s) of {b} windows × 5 beams = {5 * b} rows, "
         f"{len(result.segments)} segments | wall {wall:.3f} s (one pass), decode loop "
-        f"{result.timings.decoding_loop:.3f} s | launches {json.dumps(counts)} | {card}")
+        f"{result.timings.decoding_loop:.3f} s | launches {json.dumps(counts)} | {say_graph(g)} | {card}")
     say(f"  {label} hypotheses: " + "; ".join(lines))
-    return {"counts": counts, "wall": wall, "rows": 5 * b}
+    return {"counts": counts, "wall": wall, "rows": 5 * b, "decode_loop": result.timings.decoding_loop, "graph": g}
 
 
 def phase_segmented(torch, card: str, pipe, audio) -> dict:
@@ -1656,6 +1670,9 @@ def phase_speculative(torch, card: str, pipe, audio) -> dict:
         _, wall_plain, _ = timed_transcribe(torch, pipe, clip, options)
     with Spy(pipeline_module, "speculative_decode_loop") as spec:
         result, wall, counts = timed_transcribe(torch, spec_pipe, clip, options)
+    g = graph_stats()
+    if not g["replays"] or g["captures"] != len(spec.calls):
+        fail(f"{label}: {len(spec.calls)} speculative decodes did not run on one graph each: {g}")
     check_launches(label, counts, ("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"), ("cross_attend_q8",),
                    ("self_attend_q8", "cross_attend_q8_probs"), dims.n_text_layer)
     check_segments(label, result.segments)
@@ -1664,27 +1681,33 @@ def phase_speculative(torch, card: str, pipe, audio) -> dict:
     if counts["self_attend"] != rounds * (k + 1) * draft_dims.n_text_layer:
         fail(f"{label}: {counts['self_attend']} draft K4 launches for {rounds} rounds of {k + 1} steps on "
              f"{draft_dims.n_text_layer} layers")
-    committed = sum(int(out.length) - 3 for out in spec.calls)
+    committed = sum(int(out.length) - 3 for out in spec.calls)  # rounds: every one run, after a stop too
     same = divergences(f"{label}, first window vs the pipeline without the draft", spec.calls[0].tokens,
                        plain.calls[0].tokens, rec.gaps, 3)
     say(f"{label}: 30 s audio, windows {len(spec.calls)} (without the draft {len(plain.calls)}), "
         f"{len(result.segments)} segments | {committed} tokens in {rounds} rounds ({committed / max(rounds, 1):.3f} "
-        f"per target pass) | wall {wall:.3f} s, without the draft {wall_plain:.3f} s (with the step recorder), both "
-        f"one pass | launches {json.dumps(counts)} | {card}")
-    return {"counts": counts, "wall": wall, "wall_plain": wall_plain, "rounds": rounds, "same": same}
+        f"per target pass) | wall {wall:.3f} s (decode loop {result.timings.decoding_loop:.3f} s), without the "
+        f"draft {wall_plain:.3f} s (with the step recorder), both one pass | launches {json.dumps(counts)} | "
+        f"{say_graph(g)} | {card}")
+    return {"counts": counts, "wall": wall, "wall_plain": wall_plain, "rounds": rounds, "same": same,
+            "decode_loop": result.timings.decoding_loop, "graph": g, "draft": (draft, draft_dims)}
 
 
 def group_mel(pipe, audio, options):
-    """The mel of the first 32-window group that pipe.transcribe decodes
-    (its length-sorted VAD chunks, zero windows padding the group to
-    GROUP rows, as the pipeline pads a partial group)."""
+    """The mel of the first group that pipe.transcribe decodes on one
+    device (its length-sorted VAD chunks, zero windows padding the group
+    to the power-of-two bucket of the chunks, at most GROUP rows, as the
+    pipeline pads a partial group)."""
+    import math
+
     import numpy as np
 
     chunks = pipe._vad_chunks(audio, options)
-    order = sorted(range(len(chunks)), key=lambda i: len(chunks[i].audio_samples))[:GROUP]
+    rows = min(GROUP, 1 << max(0, math.ceil(math.log2(len(chunks)))))
+    order = sorted(range(len(chunks)), key=lambda i: len(chunks[i].audio_samples))[:rows]
     windows = [audio[c.seek_offset_index : c.seek_offset_index + min(len(c.audio_samples), 480_000)]
                for c in (chunks[i] for i in order)]
-    windows += [np.zeros(480_000, np.float32)] * (GROUP - len(windows))
+    windows += [np.zeros(480_000, np.float32)] * (rows - len(windows))
     return pipe._mel_batch(windows)
 
 
@@ -1808,6 +1831,149 @@ def phase_decode_graph(torch, card: str, bf16_pipe, w8_params, audio, eot_bias: 
         out[key] = {"equal": equal, "eager_wall": eager["wall"], "graph_wall": graphed["wall"], "graph": g,
                     "launches": {k: b for k, (_, b) in kernels.items()}, "compactions": graphed["compactions"]}
         del runs, eager, graphed, pre, ck, cv
+    return out
+
+
+def timed_graph_pair(torch, run) -> dict:
+    """run(cuda_graph) once eagerly and once on the graph, each with the
+    launch and graph counts set to 0 just before it and read just after:
+    {"eager" | "graph": {"out", "wall", "counts", "graph"}}."""
+    from whisperkit_tpu_torch.decoding import graph
+    from whisperkit_tpu_torch.ops import _build
+
+    runs = {}
+    for mode in ("eager", "graph"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        graph.reset_stats()
+        t0 = time.perf_counter()
+        out = run(mode == "graph")
+        torch.cuda.synchronize()
+        runs[mode] = {"out": out, "wall": time.perf_counter() - t0, "counts": dict(_build.launches),
+                      "graph": graph_stats()}
+    return runs
+
+
+def check_graph_pair(label, runs, equal: dict, captures: int, steps: int, card: str, extra: str = "") -> dict:
+    """Fail unless every field of `equal` holds, the launches are the
+    eager run's, the eager run made no graph and the graph run made
+    `captures` captures and `steps - captures` replays; print the line."""
+    from whisperkit_tpu_torch.ops import _build
+
+    eager, graphed = runs["eager"], runs["graph"]
+    kernels = {k: (eager["counts"][k], graphed["counts"][k]) for k in _build.KERNELS
+               if eager["counts"][k] or graphed["counts"][k]}
+    g = graphed["graph"]
+    say(f"{label}: bit-equal {json.dumps(equal)} | walls eager {eager['wall']:.3f} s, graph {graphed['wall']:.3f} s "
+        f"| {say_graph(g)} | launches (eager, graph) {json.dumps(kernels)}{extra} | {card}")
+    if not all(equal.values()):
+        fail(f"{label}: the graph's decode differs from the eager loop's: {equal}")
+    if any(a != b for a, b in kernels.values()):
+        fail(f"{label}: launches differ between the eager loop and the graph: {kernels}")
+    if eager["graph"]["captures"] or g["captures"] != captures or g["replays"] != steps - captures:
+        fail(f"{label}: {steps} steps or rounds, eager {eager['graph']}, graph {g} (expected {captures} captures)")
+    return {"equal": equal, "eager_wall": eager["wall"], "graph_wall": graphed["wall"], "graph": g,
+            "launches": {k: b for k, (_, b) in kernels.items()}}
+
+
+def phase_search_graphs(torch, card: str, pipe, draft_params, draft_dims, audio, eot_bias: float) -> dict:
+    """Phase 27: beam search's CUDA graphs (one per parity of the position)
+    and speculative decoding's (one round) against their eager loops
+    (`cuda_graph=False`). Beam 5 on phase 10's group (the first 60 s, its
+    VAD windows padded to the pipeline's power-of-two bucket, the raw bf16
+    cross-KV), with no bias and with phase 11's EOT bias: tokens, token
+    log-probs, sums, no_speech_prob and `length` bit-equal, K4's launches
+    equal, two captures and a replay for every later step with a decoder
+    (K4's launches over the layers). Speculative on phase 12's first VAD
+    window (of the first 30 s; bf16, int8 cross-KV) with its random
+    distil-large-v3 draft, and with the target as its own draft
+    (the draft reading the same int8 cross-KV): tokens, log-probs,
+    `length` and the rounds that committed bit-equal, K3's and K4's
+    launches equal, one capture and a replay for every later round (K3's
+    launches: one verify pass a round, plus the self-draft's k + 1 steps);
+    the self-draft must commit more than one token a target pass."""
+    import dataclasses
+
+    from whisperkit_tpu_torch.decoding import beam, loop, speculative
+    from whisperkit_tpu_torch.pipelines.whisper import MAX_TOKEN_CONTEXT
+    from whisperkit_tpu_torch.tools.workload import pipeline_options
+
+    label = "phase 27 search graphs"
+    dims, sp = pipe.dims, pipe.tokenizer.special
+    n_layer = dims.n_text_layer
+    out = {}
+
+    # beam search on phase 10's group
+    options = dataclasses.replace(pipeline_options(GROUP), beam_size=5)
+    mel = group_mel(pipe, audio[: 60 * 16_000], options)
+    with torch.inference_mode():
+        _, ck, cv = loop.encode_window(pipe.params, mel, dims)
+    base, sot_index = pipe._build_prompt(options, "en")
+    prompt = torch.tensor([base] * mel.shape[0], dtype=torch.long, device=pipe.device)
+    max_new = min(options.sample_length, MAX_TOKEN_CONTEXT - prompt.shape[1])
+    suppress = pipe._suppress_bias(options)
+    for case, bias in (("no bias", 0.0), ("EOT bias", eot_bias)):
+        biased = suppress.clone()
+        biased[sp.eot] += bias
+
+        def run(cuda_graph):
+            return beam.beam_decode_loop(
+                pipe.params, ck, cv, prompt, biased, pipe._decode_scalars(options, 0.0, 0).max_initial_timestamp_index,
+                dims=dims, special=sp, sample_begin=prompt.shape[1], max_new_tokens=max_new, beam_size=5,
+                sot_index=sot_index, use_timestamp_rules=True, suppress_blank=options.suppress_blank,
+                length_penalty=options.length_penalty, cuda_graph=cuda_graph,
+            )
+
+        runs = timed_graph_pair(torch, run)
+        e, g = runs["eager"]["out"], runs["graph"]["out"]
+        equal = {f: torch.equal(getattr(e, f), getattr(g, f))
+                 for f in ("tokens", "token_logprobs", "sum_logprob", "no_speech_prob")}
+        equal["length"] = e.length == g.length
+        steps = runs["eager"]["counts"]["self_attend"] // n_layer  # steps with a decoder
+        out[f"beam, {case}"] = check_graph_pair(
+            f"{label} beam 5, {mel.shape[0]} windows x 5 beams, {case}", runs, equal, 2, steps, card,
+            f" | length {g.length} of {prompt.shape[1] + max_new}, {steps} steps with a decoder")
+    del ck, cv
+
+    # speculative decoding on phase 12's first window
+    options = pipeline_options(1)
+    clip = audio[: 30 * 16_000]
+    first = pipe._vad_chunks(clip, options)[0]
+    mel = pipe._mel_batch([clip[first.seek_offset_index : first.seek_offset_index + min(len(first.audio_samples),
+                                                                                     480_000)]])
+    with torch.inference_mode():
+        _, ck, cv = loop.encode_window(pipe.params, mel, dims, quantize_kv=True)
+        _, dck, dcv = loop.encode_window(draft_params, mel, draft_dims)
+    base, sot_index = pipe._build_prompt(options, "en")
+    prompt = torch.tensor([base], dtype=torch.long, device=pipe.device)
+    max_new = min(options.sample_length, MAX_TOKEN_CONTEXT - prompt.shape[1])
+    k = speculative.DRAFT_K
+    for case, draft, d_dims, d_kv in (("random distil-large-v3 draft", draft_params, draft_dims, (dck, dcv)),
+                                     ("the target as its own draft", pipe.params, dims, (ck, cv))):
+        def run(cuda_graph):
+            return speculative.speculative_decode_loop(
+                pipe.params, draft, ck, cv, *d_kv, prompt, pipe._suppress_bias(options),
+                pipe._decode_scalars(options, 0.0, 0), dims=dims, draft_dims=d_dims, special=sp,
+                sample_begin=prompt.shape[1], max_new_tokens=max_new, sot_index=sot_index,
+                use_timestamp_rules=True, suppress_blank=options.suppress_blank, return_state=True,
+                cuda_graph=cuda_graph,
+            )
+
+        runs = timed_graph_pair(torch, run)
+        (e, est), (g, gst) = runs["eager"]["out"], runs["graph"]["out"]
+        equal = {"tokens": torch.equal(e.tokens, g.tokens), "token_logprobs": torch.equal(e.token_logprobs,
+                 g.token_logprobs), "length": e.length == g.length, "rounds": est.rounds == gst.rounds}
+        verify_per_round = 1 + ((k + 1) if draft is pipe.params else 0)
+        rounds = runs["eager"]["counts"]["cross_attend_q8"] // n_layer - 1 - (1 if draft is pipe.params else 0)
+        rounds //= verify_per_round  # every round run, the ones after the stop too (less the prefills)
+        committed = g.length - prompt.shape[1]
+        per_pass = committed / max(gst.rounds, 1)
+        out[f"speculative, {case}"] = {**check_graph_pair(
+            f"{label} speculative, {case}", runs, equal, 1, rounds, card,
+            f" | {committed} tokens in {gst.rounds} committing rounds ({per_pass:.3f} per target pass), {rounds} "
+            f"rounds run"), "tokens_per_pass": per_pass}
+        if draft is pipe.params and per_pass <= 1:
+            fail(f"{label}: the target as its own draft committed {per_pass:.3f} tokens a target pass")
     return out
 
 
@@ -4266,6 +4432,10 @@ def main() -> None:
     }
     phases["decode_graph"] = phase_decode_graph(torch, card, bf16["pipe"], w8_params, bf16["audio"],
                                                 phases["segmented"]["bias"])
+    draft, draft_dims = phases["speculative"].pop("draft")
+    phases["search_graphs"] = phase_search_graphs(torch, card, bf16["pipe"], draft, draft_dims, bf16["audio"],
+                                                  phases["segmented"]["bias"])
+    del draft
     # phase 24's Whisper part runs here, on phase 4's and phase 6's trees
     phases["mesh"] = phase_mesh(torch, card, bf16["pipe"], w8_params, bf16["audio"])
     del w8_params
@@ -4318,7 +4488,8 @@ def main() -> None:
               "server": phases["server"]["counts"], "diarize_conv": phases["diarize_conv"]["counts"],
               "streaming": phases["streaming"]["counts"], "tts": tts_counts, "eval": phases["eval"]["counts"],
               "loadgen": phases["loadgen"]["counts"], "profile": phases["operations"]["counts"],
-              "mesh": phases["mesh"]["counts"]}
+              "mesh": phases["mesh"]["counts"], "beam": phases["beam"]["counts"],
+              "speculative": phases["speculative"]["counts"]}
     kernels = [
         {
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
@@ -4329,6 +4500,7 @@ def main() -> None:
         }
         for key, source, replaces, path in KERNEL_TABLE
     ]
+    say(f"total: chip_smoke.py took {time.perf_counter() - START:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

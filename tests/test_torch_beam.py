@@ -207,3 +207,18 @@ def test_pipeline_beam_rung_then_sampled_fallback(jparams):
     ))
     assert res.segments
     assert torch_pipe.timings.total_decoding_fallbacks >= 1
+
+
+@pytest.mark.parametrize("eot_bias, jax_length", [(2.5, 25), (6.0, 4)])
+def test_beam_length_matches_jax(jparams, tparams, cross, eot_bias, jax_length):
+    """`length` is JAX's: the position after the step that left every
+    window done, not the next stop check's (beam 3, 30 new tokens, no
+    timestamp rules, an EOT bias that ends both windows early)."""
+    suppress = np.zeros(V, np.float32)
+    suppress[SP.eot] = eot_bias
+    out, ref = _run_both(jparams, tparams, cross, 3, suppress, max_new=30, use_timestamp_rules=False,
+                         suppress_blank=False)
+    assert int(ref.length) == jax_length
+    assert out.length == int(ref.length)
+    np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref.tokens))
+    np.testing.assert_allclose(out.sum_logprob.numpy(), np.asarray(ref.sum_logprob), rtol=1e-4, atol=1e-4)

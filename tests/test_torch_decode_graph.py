@@ -129,7 +129,8 @@ def test_decoder_forward_at_a_tensor_position_is_bit_equal(tparams, cross, q8_se
     cross-KV, once at the int position and once at a 0-d tensor position
     (the decode loop's form: pos_embed by index_select, the cache by
     index_copy_, the alignment into a staging row): logits, caches and
-    alignment row bit-equal in float32."""
+    alignment row bit-equal in float32; then two tokens at each kind of
+    position, bit-equal too."""
     _, tc = cross["q8"]
     b = 2
     tc = tuple({k: v[:, :b] for k, v in part.items()} for part in tc)
@@ -157,8 +158,14 @@ def test_decoder_forward_at_a_tensor_position_is_bit_equal(tparams, cross, q8_se
     if heads is not None:
         assert capture[1]["align_out"].abs().sum() > 0
         assert torch.equal(capture[0]["align_out"], capture[1]["align_out"])
-    with pytest.raises(ValueError, match="one token per row"):
-        model.decoder_forward(tparams, toks[:, 4:], torch.tensor(4), *caches[1], *tc, DIMS)
+    # T > 1 at a tensor position (speculative decoding's verify pass): the
+    # slots pos + [0, T) and the causal mask over the whole cache, on the
+    # device, give the int position's logits and caches
+    two = model.decoder_forward(tparams, toks[:, 4:], torch.tensor(4), *caches[1], *tc, DIMS)
+    assert torch.equal(two, model.decoder_forward(tparams, toks[:, 4:], 4, *caches[0], *tc, DIMS))
+    for a, c in zip(caches[0], caches[1]):
+        for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(c)):
+            assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------

@@ -479,7 +479,8 @@ def test_decode_loop_early_stop_matches_jax(jparams, tparams, cross, interval):
     """A first-token floor of 0 ends every row at its first step. JAX's
     loop stops there; the port sees it at its next stop check, and the
     buffers are the same whatever the interval, because finished rows keep
-    emitting EOT with log-probability 0."""
+    emitting EOT with log-probability 0; `length` is JAX's, the position
+    after the step that left every row done."""
     suppress = filters.suppress_tokens_bias(V, [])
     jc, tc = cross["raw"]
     ref = _jax_loop(jparams, jc, suppress, first_threshold=0.0)
@@ -487,7 +488,7 @@ def test_decode_loop_early_stop_matches_jax(jparams, tparams, cross, interval):
     np.testing.assert_array_equal(out.tokens.numpy(), np.asarray(ref.tokens))
     np.testing.assert_array_equal(out.token_logprobs.numpy(), np.asarray(ref.token_logprobs))
     assert int(ref.length) == 4
-    assert out.length == 3 + interval
+    assert out.length == int(ref.length)
 
 
 def test_prefill_is_reusable_across_rungs(tparams, cross):

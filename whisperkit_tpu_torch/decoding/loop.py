@@ -13,7 +13,9 @@ eagerly. The host counts positions, draws the sampler's noise into a
 buffer before each step, and reads `done` only every `stop_check_interval`
 steps to stop early once every row has finished. Stopping late is exact,
 because a finished row keeps emitting EOT with log-probability 0, which is
-what the EOT-filled token buffer already holds.
+what the EOT-filled token buffer already holds; the step keeps on the
+device the position after the step that left every row done, which is
+where JAX's loop stops, and the loops return it as `length`.
 
 Batching: every function is batched over B windows, with a per-row `done`
 mask for heterogeneous finish times.
@@ -72,7 +74,7 @@ AlignmentHeads = Optional[Sequence[Sequence[int]]]
 class DecodeLoopOutput(NamedTuple):
     tokens: torch.Tensor  # [B, TOTAL] (prompt + sampled, EOT-padded)
     token_logprobs: torch.Tensor  # [B, TOTAL] f32 (0 in the prompt region)
-    length: int  # final write position
+    length: int  # final write position: after the step that left every row done, else where the loop stopped
     no_speech_prob: torch.Tensor  # [B] f32
     alignment: Optional[torch.Tensor] = None  # [TOTAL, B, A, 1500] f32, with alignment heads
 
@@ -197,6 +199,7 @@ class _Decode:
     align: Optional[torch.Tensor]  # [TOTAL, B, A, 1500] with alignment heads
     pos: int  # next write position, as the host counts it
     pos_dev: torch.Tensor  # the same, 0-d int64 on the device: what the step reads
+    length: torch.Tensor  # 0-d int64: the position after the step that left every row done, else TOTAL
     noise_u: Optional[torch.Tensor]  # [B, top_k] uniform draws for the step, temperature > 0
     align_stage: Optional[torch.Tensor]  # [1, B, A, 1500]: the step's alignment row
     use_graph: bool  # replay a CUDA graph of the step
@@ -242,7 +245,8 @@ def _start(
         torch.zeros((b, total), dtype=torch.float32, device=dev), torch.zeros((b,), dtype=torch.bool, device=dev),
         # a copy: the step writes it in place, and the prefill serves every rung
         prefill.last_logits.clone(), mask_row, align, sample_begin,
-        torch.tensor(sample_begin, dtype=torch.long, device=dev), noise_u,
+        torch.tensor(sample_begin, dtype=torch.long, device=dev), torch.tensor(total, dtype=torch.long, device=dev),
+        noise_u,
         None if align is None else torch.zeros_like(align[:1]), use_graph,
     )
     return st, prefill
@@ -279,6 +283,7 @@ def _step(st: _Decode, forward: bool) -> None:
     st.tokens.index_copy_(1, at, token[:, None])
     st.token_logprobs.index_copy_(1, at, logprob[:, None])
     st.done.copy_(stop | (token == sp.eot))
+    st.length.copy_(torch.where(st.done.all(), torch.minimum(st.length, pos + 1), st.length))
 
     if forward:
         st.mask_row.index_fill_(1, at, 0.0)
@@ -317,6 +322,12 @@ def _advance(st: _Decode, end: int, stop_check_interval: int) -> None:
         else:
             st.graph.replay()
         st.pos += 1
+
+
+def _length(st: _Decode) -> int:
+    """JAX's `length`: the position after the step that left every row
+    done, or where the loop stopped (the budget, a cancellation)."""
+    return min(st.pos, int(st.length))
 
 
 def _release(st: _Decode) -> None:
@@ -366,7 +377,7 @@ def decode_loop(
     _advance(st, st.total, stop_check_interval)
     _release(st)
     return DecodeLoopOutput(
-        st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, gather_alignment(params, st.align),
+        st.tokens, st.token_logprobs, _length(st), prefill.no_speech_prob, gather_alignment(params, st.align),
     )
 
 
@@ -499,11 +510,11 @@ def decode_loop_segmented(
 
     if banked is None:  # never compacted
         return DecodeLoopOutput(
-            st.tokens, st.token_logprobs, st.pos, prefill.no_speech_prob, gather_alignment(params, st.align),
+            st.tokens, st.token_logprobs, _length(st), prefill.no_speech_prob, gather_alignment(params, st.align),
         )
     banked = _bank(banked, st, [(i, r) for i, r in enumerate(rows) if r is not None], b0)
     return DecodeLoopOutput(
-        banked.tokens, banked.token_logprobs, st.pos, prefill.no_speech_prob,
+        banked.tokens, banked.token_logprobs, _length(st), prefill.no_speech_prob,
         gather_alignment(params, banked.align),
     )
 

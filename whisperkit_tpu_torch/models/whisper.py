@@ -354,7 +354,7 @@ def _q8_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def _self_kv_write(cache, new: torch.Tensor, pos) -> None:
     """Write one layer's new K/V rows [B,H,T,Dh] into its cache at
     positions [pos, pos+T), quantizing on write when the cache is the int8
-    {"q8", "scale"} form. `pos` is an int, or for T == 1 a 0-d int64
+    {"q8", "scale"} form. `pos` is an int, or the T slots as a 1-d int64
     tensor on the cache's device (written by `index_copy_`, so a CUDA
     graph of the step writes wherever the position then points).
 
@@ -367,7 +367,7 @@ def _self_kv_write(cache, new: torch.Tensor, pos) -> None:
     for key, rows in parts.items():
         dst = cache if key is None else cache[key]
         if isinstance(pos, torch.Tensor):
-            dst.index_copy_(2, pos.view(1), rows)
+            dst.index_copy_(2, pos, rows)
         else:
             dst[:, :, pos : pos + t] = rows
 
@@ -600,7 +600,7 @@ def _self_attend_step(q, kk, vv, mask_row):
 def decoder_forward(
     params: Params,
     tokens: torch.Tensor,  # [B, T] int
-    pos_offset,  # position of tokens[:, 0]: an int, or for T == 1 a 0-d int64 tensor
+    pos_offset,  # position of tokens[:, 0]: an int, or a 0-d int64 tensor on the device
     kv_k,  # [L, B, H, S, Dh] or int8 {"q8", "scale"}, written in place
     kv_v,
     cross_k,  # [L, B, H, 1500, Dh] or int8 {"q8", "scale"}
@@ -631,13 +631,15 @@ def decoder_forward(
     after), which the caller may pass in (`mask_row`, [1, S] float32) to
     avoid rebuilding it.
 
-    At T == 1 `pos_offset` may be a 0-d int64 tensor on the tokens'
-    device (the decode loop's device-side position, as JAX's traced
-    `pos`): then no host int slices `pos_embed` (`index_select`) or the
-    cache (`index_copy_`), so a CUDA graph of the step replays at every
-    position. The decode loop gives it its own mask row and, with
-    alignment heads, a [1, B, A, frames] staging `align_out` that it
-    copies to the position's row itself.
+    `pos_offset` may be a 0-d int64 tensor on the tokens' device (the
+    decode loop's device-side position, as JAX's traced `pos`): then no
+    host int slices `pos_embed` (`index_select` at pos_offset + [0, T)) or
+    the cache (`index_copy_` at those T slots), and the masks are built on
+    the device, so a CUDA graph of the step replays at every position. The
+    decode loop gives the T == 1 step its own mask row and, with alignment
+    heads, a [1, B, A, frames] staging `align_out` that it copies to the
+    position's row itself; at T > 1 (speculative decoding's verify pass)
+    the causal mask covers the whole cache, as at an int position.
     """
     dec = params["decoder"]
     tp = params.get("tp")
@@ -646,12 +648,12 @@ def decoder_forward(
     s_max = (kv_k["q8"] if isinstance(kv_k, dict) else kv_k).shape[3]
     dev = tokens.device
 
-    on_device = isinstance(pos_offset, torch.Tensor)
-    if on_device and t != 1:
-        raise ValueError(f"a tensor position takes one token per row, got {t}")
+    kv_at = pos_offset  # the K/V rows' place: an int, or with a tensor position the T slots, [T] int64
+    if isinstance(pos_offset, torch.Tensor):
+        kv_at = pos_offset.view(1) if t == 1 else pos_offset + torch.arange(t, device=dev)
     x = dec["token_embed"][tokens]
-    if on_device:
-        pos = dec["pos_embed"].index_select(0, pos_offset.view(1))
+    if isinstance(kv_at, torch.Tensor):
+        pos = dec["pos_embed"].index_select(0, kv_at)
     else:
         pos = dec["pos_embed"][pos_offset : pos_offset + t]
     x = (x + pos[None]).to(dec["token_embed"].dtype)
@@ -683,8 +685,8 @@ def decoder_forward(
         kk, vv = _layer(kv_k, li), _layer(kv_v, li)
         h = layer_norm(x, bp["attn_ln"])
         q = _split_heads(dense(h, bp["attn"]["q"]), n_head)
-        _self_kv_write(kk, _split_heads(dense(h, bp["attn"]["k"]), n_head), pos_offset)
-        _self_kv_write(vv, _split_heads(dense(h, bp["attn"]["v"]), n_head), pos_offset)
+        _self_kv_write(kk, _split_heads(dense(h, bp["attn"]["k"]), n_head), kv_at)
+        _self_kv_write(vv, _split_heads(dense(h, bp["attn"]["v"]), n_head), kv_at)
         if t == 1:
             attn = _self_attend_step(q, kk, vv, mask_row)
         else:

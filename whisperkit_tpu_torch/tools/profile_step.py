@@ -60,6 +60,28 @@ quantize_self_kv=True)`). Each runs twice: the eager loop
                       [name (first 70 characters), count in the trace,
                       ms per step]
 
+Beam search and speculative decoding, bf16 serving: a beam step of
+phase 10's 4 windows × BEAM = 20 rows over the raw bf16 cross-KV (the
+pipeline's beam encode), STEPS steps at positions START .. START + STEPS
+- 1 of a 224-key cache, and ROUNDS speculative rounds at batch 1 with a
+random distil-large-v3 draft (`init_params(SEED + 1)`) over the int8
+cross-KV, draft_k 4, from position START. Each runs eagerly ("loop":
+"eager", the step or round function called in a host loop) and as
+replays of its CUDA graphs ("loop": "graph": one per parity for beam,
+one for the round), each call from the same position. One JSON line
+each, per step or round:
+
+  wall_ms             three calls after a warm-up one, host clock, the
+                      device synced before and after
+  device_busy_ms, idle_share  the union of the device intervals in a
+                      trace of one more call, and 1 - busy / the mean wall
+  launches_per_step, host_launches_per_step, port_kernels, top  as above
+  capture_s, instantiate_s  graph only, per capture
+  reorder_ms          beam only: device ms of the step's self-KV gather
+                      by beam (K and V, [32, 20, 20, 224, 64] bf16 each),
+                      alone, by CUDA events, beside its bound (read and
+                      write of both caches over 3.35 TB/s)
+
 Every wall is taken before the first trace: once a `torch.profiler`
 session has run, each later launch of the process costs the host more
 (`tools/launch_cost.py`). The card's name and power limit (`nvidia-smi`)
@@ -84,6 +106,9 @@ BATCH, STEPS, START, SEED = 32, 32, 191, 0
 # the decode step's attention kernels, by the name of their device activity
 STEP_KERNELS = {"self_attend": "self_attend_kernel", "self_attend_q8": "self_attend_q8_kernel",
                 "cross_attend_q8": "cross_attend_q8_kernel"}
+# beam search: windows and beams (phase 10's 60 s group); speculative
+# decoding: rounds a call, draft tokens a round
+BEAM_WINDOWS, BEAM, ROUNDS, DRAFT_K = 4, 5, 16, 4
 # the card's memory rate, for K5's bound (the H100's published 3.35 TB/s)
 PEAK_BYTES_PER_S = 3.35e12
 # the host's runtime calls that put work on the device, by their name in a trace
@@ -180,6 +205,14 @@ def _walls(fn, per: float = 1.0) -> list:
     return walls
 
 
+def _long_prompt(pipe, options, start: int, rows: int):
+    """The prompt of `start` tokens (SOT sequence, then text) for `rows`
+    rows, and its sot index."""
+    base, sot_index = pipe._build_prompt(options, "en")
+    prompt = base + list(range(1000, 1000 + start - len(base)))
+    return torch.tensor([prompt] * rows, dtype=torch.long, device=pipe.device), sot_index
+
+
 def decode_runner(pipe, mel, steps: int, start: int, cuda_graph: bool):
     """A call that runs `decode_loop` for `steps` steps after a prompt of
     `start` tokens (prefilled once here), and one that replays a graph of
@@ -191,9 +224,7 @@ def decode_runner(pipe, mel, steps: int, start: int, cuda_graph: bool):
     sp = pipe.tokenizer.special
     options = DecodingOptions(language="en", first_token_log_prob_threshold=None)
     _, ck, cv = pipe._encode(mel, options)
-    base, sot_index = pipe._build_prompt(options, "en")
-    prompt = base + list(range(1000, 1000 + start - len(base)))  # text tokens
-    prompt_arr = torch.tensor([prompt] * mel.shape[0], dtype=torch.long, device=pipe.device)
+    prompt_arr, sot_index = _long_prompt(pipe, options, start, mel.shape[0])
     kwargs = dict(
         dims=pipe.dims, special=sp, sample_begin=start, max_new_tokens=steps + 1,
         sot_index=sot_index,
@@ -224,6 +255,126 @@ def decode_runner(pipe, mel, steps: int, start: int, cuda_graph: bool):
         decode._advance(st, start + 1 + steps, 16)
 
     return loop, replays
+
+
+def beam_runners(pipe, mel):
+    """(eager, replays, reorder) calls of STEPS beam steps of BEAM beams
+    over `mel`'s windows from position START (each call resets the
+    position, the mask row and `done`); `reorder` runs the step's two
+    gathers of the self-KV cache alone."""
+    from whisperkit_tpu_torch.core.configurations import DecodingOptions
+    from whisperkit_tpu_torch.decoding import beam
+    from whisperkit_tpu_torch.decoding.graph import StepGraph
+    from whisperkit_tpu_torch.decoding.loop import encode_window
+
+    options = DecodingOptions(language="en", beam_size=BEAM, first_token_log_prob_threshold=None)
+    _, ck, cv = encode_window(pipe.params, mel, pipe.dims)  # raw: the pipeline's beam encode
+    prompt, sot_index = _long_prompt(pipe, options, START, mel.shape[0])
+    scalars = pipe._decode_scalars(options, 0.0, 0)
+
+    def state(cuda_graph):
+        st, _ = beam._start(
+            pipe.params, ck, cv, prompt, pipe._suppress_bias(options), scalars.max_initial_timestamp_index,
+            dims=pipe.dims, special=pipe.tokenizer.special, sample_begin=START, max_new_tokens=STEPS + 1,
+            beam_size=BEAM, sot_index=sot_index, use_timestamp_rules=True, suppress_blank=options.suppress_blank,
+            length_penalty=None, cuda_graph=cuda_graph,
+        )
+        return st
+
+    def reset(st):
+        st.pos_dev.fill_(START)
+        st.mask_row[:, START:] = float("-inf")
+        st.done.zero_()
+
+    eager_st, graph_st = state(False), state(True)
+
+    def eager():
+        reset(eager_st)
+        for i in range(STEPS):
+            beam._step(eager_st, True, i % 2)
+
+    graphs = [StepGraph(lambda p=p: beam._step(graph_st, True, p), pipe.device) for p in (0, 1)]
+
+    def replays():
+        reset(graph_st)
+        for i in range(STEPS):
+            graphs[i % 2].replay()
+
+    rows = torch.arange(mel.shape[0] * BEAM, device=pipe.device).flip(0)
+
+    def reorder():
+        for src, dst in ((eager_st.kv_k[0], eager_st.kv_k[1]), (eager_st.kv_v[0], eager_st.kv_v[1])):
+            torch.index_select(src, 1, rows, out=dst)
+
+    return eager, replays, reorder
+
+
+def spec_runners(pipe, draft, draft_dims, mel):
+    """(eager, replays) calls of ROUNDS speculative rounds over `mel`'s one
+    window from position START (each call resets the position and
+    `done`)."""
+    from whisperkit_tpu_torch.core.configurations import DecodingOptions
+    from whisperkit_tpu_torch.decoding import speculative
+    from whisperkit_tpu_torch.decoding.graph import StepGraph
+    from whisperkit_tpu_torch.decoding.loop import encode_window, prefill_window
+
+    options = DecodingOptions(language="en", first_token_log_prob_threshold=None)
+    _, ck, cv = pipe._encode(mel, options)  # int8 under the serving preset
+    _, dck, dcv = encode_window(draft, mel, draft_dims)
+    prompt, sot_index = _long_prompt(pipe, options, START, 1)
+    sp = pipe.tokenizer.special
+    max_new = 224 - START
+    width = START + max_new + DRAFT_K + 1
+    headroom = dict(special=sp, sample_begin=START, max_new_tokens=max_new + DRAFT_K + 1, sot_index=sot_index)
+
+    def state():
+        pre = prefill_window(pipe.params, ck, cv, prompt, dims=pipe.dims, **headroom)
+        dpre = prefill_window(draft, dck, dcv, prompt, dims=draft_dims, **headroom)
+        tokens = torch.full((1, width), sp.eot, dtype=torch.long, device=pipe.device)
+        tokens[:, :START] = prompt
+        return speculative._Spec(
+            pipe.params, draft, ck, cv, dck, dcv, pipe._suppress_bias(options), pipe._decode_scalars(options, 0.0, 0),
+            pipe.dims, draft_dims, sp, START, START + max_new, DRAFT_K, True, options.suppress_blank, pre.kv_k,
+            pre.kv_v, dpre.kv_k, dpre.kv_v, tokens, torch.zeros((1, width), device=pipe.device),
+            torch.tensor(START, device=pipe.device), prompt[:, -1].clone(),
+            torch.zeros((1,), dtype=torch.bool, device=pipe.device), torch.zeros((), dtype=torch.long, device=pipe.device),
+        )
+
+    def reset(st):
+        st.pos.fill_(START)
+        st.done.zero_()
+
+    eager_st, graph_st = state(), state()
+
+    def eager():
+        reset(eager_st)
+        for _ in range(ROUNDS):
+            speculative._round(eager_st)
+
+    g = StepGraph(lambda: speculative._round(graph_st), pipe.device)
+
+    def replays():
+        reset(graph_st)
+        for _ in range(ROUNDS):
+            g.replay()
+
+    return eager, replays
+
+
+def profile_reorder(reorder, cache_bytes: int) -> dict:
+    """The beam step's self-KV gather alone: device ms a step by CUDA
+    events over 20 calls after a warm-up one (each call's two gathers take
+    far longer on the card than their launches on the host), and its
+    bound (each of the two caches read and written once)."""
+    reorder()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(20):
+        reorder()
+    end.record()
+    end.synchronize()
+    return {"reorder_ms": start.elapsed_time(end) / 20, "reorder_bound_ms": 4 * cache_bytes / PEAK_BYTES_PER_S * 1e3}
 
 
 def profile_decode(loop, steps: int, k5: dict | None = None) -> dict:
@@ -315,11 +466,38 @@ def main() -> None:
                 profile_decode, steps=STEPS,
                 k5=dict(first_pos=START + 1, cache_len=START + STEPS + 1, rows=rows) if k5 else None)))
             jobs.append((None, loop, STEPS, None))  # the whole call's wall, beside the replays'
+        # beam search and speculative decoding on the bf16 tree
+        pipe = WhisperPipeline(WhisperConfig(compute_options=ComputeOptions.serving(), load=False),
+                               dims=dims, params=params, device="cuda")
+        draft_dims = VARIANT_DIMS["distil-large-v3"]
+        draft = init_params(SEED + 1, draft_dims, torch.bfloat16, "cuda")
+        cache_bytes = dims.n_text_layer * BEAM_WINDOWS * BEAM * dims.n_text_head * (START + STEPS + 1) * 64 * 2
+        for search in ("beam", "speculative"):
+            graph.reset_stats()
+            if search == "beam":
+                eager, replays, reorder = beam_runners(pipe, pipe._mel_batch(audio[:BEAM_WINDOWS]))
+                head, per = {"search": "beam", "rows": BEAM_WINDOWS * BEAM, "positions": [START, START + STEPS - 1]}, STEPS
+            else:
+                eager, replays = spec_runners(pipe, draft, draft_dims, pipe._mel_batch(audio[:1]))
+                head, per = {"search": "speculative", "rows": 1, "draft_k": DRAFT_K, "from": START}, ROUNDS
+            (stats,) = graph.stats_by_device.values()
+            per_capture = {k: stats[k] / stats["captures"] for k in ("capture_s", "instantiate_s")}
+            profile = functools.partial(profile_decode, steps=per)
+            jobs.append(({**head, "loop": "eager"}, eager, per, profile))
+            if search == "beam":
+                profile = (lambda fn, p=profile, r=reorder: {**p(fn), **profile_reorder(r, cache_bytes)})
+            jobs.append(({**head, "loop": "graph", "captures": stats["captures"], **per_capture}, replays, per,
+                         profile))
         # every wall before the first trace: once a profiler session has run,
         # each later launch of the process costs the host more
         walls = [_walls(fn, per) for _, fn, per, _ in jobs]
         for i, ((head, fn, per, profile), wall) in enumerate(zip(jobs, walls)):
             if head is None:
+                continue
+            if "search" in head:
+                traced = profile(fn)
+                idle = 1 - traced["device_busy_ms"] / (sum(wall) / len(wall))
+                print(json.dumps({**head, "wall_ms": wall, "idle_share": idle, **traced}), flush=True)
                 continue
             key = "wall_ms" if "encode" in head else "step_ms_unprofiled"
             extra = {"decode_call_ms": walls[i + 1]} if head.get("loop") == "graph" else {}
