@@ -136,22 +136,34 @@ Phases, one line each; any failure exits non-zero:
  24. the mesh (whisperkit_tpu_torch/parallel/) over every visible card from
      two on, else over two replicas of cuda:0 (correctness and overhead,
      not scaling), each run against the same tree on one device in this
-     process: (a) dp 2, serving(quantization="w8a16") on the 600 s audio
-     (from four cards also dp 2 x tp 2), every chunk's tokens under the
-     top-2-gap rule, wall, peak and launches per device; (b) tp 2, bf16
-     serving with ALIGNMENT_HEADS and word timestamps on 60 s: tokens under
-     the gap rule, the one-device tokens' word timings teacher-forced
-     through both within MESH_WORD_TOL, one decoder step's logits within
-     phase 5's limit; (c) the W8A8 encoder at tp 2 against the unsharded
-     one; (d) the sequence-parallel encoder at tp 2 (K2 with 750 queries
-     over 1500 keys) against the replicated one; (e) diarization with
-     phase 16's published models and TTS 0.6b (MESH_TTS_FRAMES frames, T 0
-     and 0.9) at dp 2: the RTTM and embeddings, the codes under a gap
-     rule; then TTS at dp 2, TTS_GRAPH_FRAMES frames, T 0 and 0.9: the
-     frame's graph (a capture per device thread) bit-equal to the mesh's
-     eager frames. The mesh runs' launches are the path `mesh`, per device too;
-     (a) prints the decode graph's captures and replays per device (each
-     dp thread captures its own), (b) that tp decodes eagerly.
+     process: (0) the tp group's device all-reduce (csrc/tp_all_reduce.cu,
+     tools/tp_collective_check.py) bit-equal to the rank-ordered fold at
+     tp 2 and 4 on every type and shape the port reduces, 1,000 eager
+     calls, 100 replays of a graph of 96 calls (timed: the kernels line's
+     figures), a peer that never arrives and a peer that fails each
+     raising GroupAborted, a collective after reset; (a) dp 2,
+     serving(quantization="w8a16") on the 600 s audio (from four cards also
+     dp 2 x tp 2), every chunk's tokens under the top-2-gap rule, wall,
+     peak and launches per device; (b) tp 2, bf16 serving with
+     ALIGNMENT_HEADS and word timestamps on 60 s, every rank's decode on
+     its own CUDA graph: tokens under the gap rule, the one-device tokens'
+     word timings teacher-forced through both within MESH_WORD_TOL, one
+     decoder step's logits within phase 5's limit; the same run with the
+     ranks' steps eager, bit-equal (tokens, log-probs, length, the
+     gathered alignment, launches), a capture on each rank and a replay
+     for every later step, no host barrier wait between replays; beam 5 at
+     tp 2 on the clip, graph against eager the same way; a decode step at
+     B = 32 on one device and on each rank (wall, busy per stream); (c)
+     the W8A8 encoder at tp 2 against the unsharded one; (d) the
+     sequence-parallel encoder at tp 2 (K2 with 750 queries over 1500
+     keys) against the replicated one; (e) diarization with phase 16's
+     published models and TTS 0.6b (MESH_TTS_FRAMES frames, T 0 and 0.9)
+     at dp 2: the RTTM and embeddings, the codes under a gap rule; then
+     TTS at dp 2, TTS_GRAPH_FRAMES frames, T 0 and 0.9: the frame's graph
+     (a capture per device thread) bit-equal to the mesh's eager frames.
+     The mesh runs' launches are the path `mesh`, per device too; (a)
+     prints the decode graph's captures and replays per device (each mesh
+     thread captures its own).
      `python3 chip_smoke.py --mesh-only` runs phases 1, 2 and 24 alone
  25. the decode loop's CUDA graph (decoding/graph.py) against the eager
      loop (`cuda_graph=False`) on phase 4's 32-window group, encoded and
@@ -288,7 +300,7 @@ def device_ms(torch, fn, iters: int, kernel: str | None = None, per_call: int = 
 
     fn(0)
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace may come back short of activities: take another
+    for _ in range(5):  # a trace may come back short of activities: take another
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i)
@@ -298,7 +310,7 @@ def device_ms(torch, fn, iters: int, kernel: str | None = None, per_call: int = 
             events = [e for e in events if kernel in e.name]
         if events and (kernel is None or len(events) == iters * per_call):
             return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / (iters * per_call)
-    fail(f"three traces of {iters} calls held {len(events)} device activities"
+    fail(f"five traces of {iters} calls held {len(events)} device activities"
          + (f" named {kernel!r}" if kernel else ""))
 
 
@@ -3958,35 +3970,317 @@ def mesh_run(torch, pipe, audio, options, counts: dict) -> tuple:
     return result, windows, wall, {d: torch.cuda.max_memory_allocated(d) for d in devices}, by_device
 
 
+def phase_collective(torch, card: str) -> dict:
+    """Phase 24 (0): the tp group's device all-reduce (csrc/tp_all_reduce.cu)
+    on the layout's devices (every card from tp on, else replicas of
+    cuda:0), through whisperkit_tpu_torch/tools/tp_collective_check.py:
+    bit-equal to the rank-ordered fold at tp 2 and 4 (bf16 and f32 at the
+    decoder's shape, f32 alignment rows, f64 and max for W8A8, the
+    encoder's 123 MB in chunks); 1,000 eager calls; a graph of 96 calls
+    per rank replayed 100 times (three replays held bit-equal, then timed:
+    the kernel's device ms per call); a rank that never arrives and a rank
+    that fails, each making its peer raise GroupAborted, and a collective
+    after each reset; the host barrier form it replaced, timed. → phase
+    3's fields for the kernels line, and the checks' figures."""
+    from whisperkit_tpu_torch.tools import tp_collective_check as tc
+
+    t0 = time.perf_counter()
+    try:
+        checks = {"bit_equal": [tc.check_bit_equal(2), tc.check_bit_equal(4)], "eager": tc.check_eager(2),
+                  "graph": tc.check_graph(2), "abort": tc.check_abort(2), "host_form": tc.time_host_form(2)}
+    except AssertionError as e:
+        fail(f"phase 24 (0) the device all-reduce: {e}")
+    plain_ms = tc.time_plain(2)
+    for check in checks["bit_equal"]:
+        say(f"phase 24 (0) all-reduce at tp {check['tp']} on {check['layout']}: bit-equal to the rank-ordered "
+            f"fold in every case {json.dumps(check['cases'])} | {card}")
+    eager, graph, abort, host = checks["eager"], checks["graph"], checks["abort"], checks["host_form"]
+    say(f"phase 24 (0) all-reduce, tp 2, 32 x 1 x 1280 bf16 on {graph['layout']}: {eager['calls']} eager calls "
+        f"bit-equal, {eager['host_us_per_call']:.1f} us of host a call | graph of {graph['calls_per_graph']} calls, "
+        f"{graph['replays']} replays: {graph['ms'] * 1e3:.2f} us of device a call (bound {graph['bound_ms'] * 1e3:.3f} "
+        f"us, {graph['bound_by']}) | plain version {plain_ms * 1e3:.2f} us | the host barrier form it replaced "
+        f"{host['host_us_per_call']:.1f} us a call, {host['host_waits_per_call']:.0f} waits a rank | {card}")
+    say(f"phase 24 (0) all-reduce faults: a peer that never arrives raised GroupAborted after "
+        f"{abort['raised_after_s']:.3f} s (timeout {abort['timeout_s']} s); a failing peer ended the wait after "
+        f"{abort['abort_ended_wait_after_s']:.3f} s; bit-equal after each reset {abort['bit_equal_after_reset']} "
+        f"| {time.perf_counter() - t0:.1f} s | {card}")
+    kernel = {"max_abs_err": 0.0, "ms": graph["ms"], "plain_ms": plain_ms, "bound_ms": graph["bound_ms"],
+              "bound_by": graph["bound_by"], "library_ms": None, "layout": graph["layout"],
+              "eager_host_us": eager["host_us_per_call"], "host_form_us": host["host_us_per_call"]}
+    return {"kernel": kernel, **checks}
+
+
+class RankGraphs:
+    """Within the `with` block, per mesh thread: the decode steps that ran
+    eagerly with a decoder (`_step(forward=True)` of `module`, the loop or
+    beam search: in a graph run, a capture's warm-up and its recording),
+    the captures and replays of decoding/graph.StepGraph, and the tp
+    group's host barrier waits, in order; each thread's rank from the
+    trees its `_advance` runs on. `by_rank()` sums them per rank;
+    `waits_between_replays` counts the waits a thread made between two of
+    its replays with no capture between (a replayed stretch)."""
+
+    def __init__(self, module):
+        import threading
+
+        from whisperkit_tpu_torch.decoding import graph
+        from whisperkit_tpu_torch.parallel import group
+
+        self.module, self.graph, self.group, self.threading = module, graph, group, threading
+        self.events: dict[int, list] = {}
+        self.rank: dict[int, int] = {}
+
+    def _log(self, what: str) -> None:
+        self.events.setdefault(self.threading.get_ident(), []).append(what)
+
+    def __enter__(self):
+        spy, step_graph, tp_group = self, self.graph.StepGraph, self.group.TPGroup
+        self.saved = (self.module._advance, self.module._step, step_graph.__init__, step_graph.replay, tp_group._wait)
+        advance, step, init, replay, wait = self.saved
+
+        def advance_(st, *args, **kwargs):
+            spy.rank[spy.threading.get_ident()] = st.params["tp"].rank
+            return advance(st, *args, **kwargs)
+
+        def step_(st, forward, *args, **kwargs):
+            if forward:
+                spy._log("s")
+            return step(st, forward, *args, **kwargs)
+
+        def init_(self_, *args, **kwargs):
+            init(self_, *args, **kwargs)
+            spy._log("c")
+
+        def replay_(self_):
+            replay(self_)
+            spy._log("r")
+
+        def wait_(self_, r):
+            spy._log("w")
+            return wait(self_, r)
+
+        self.module._advance, self.module._step = advance_, step_
+        step_graph.__init__, step_graph.replay, tp_group._wait = init_, replay_, wait_
+        return self
+
+    def __exit__(self, *exc):
+        self.module._advance, self.module._step = self.saved[:2]
+        self.graph.StepGraph.__init__, self.graph.StepGraph.replay, self.group.TPGroup._wait = self.saved[2:]
+
+    def by_rank(self) -> dict:
+        out = {}
+        for tid, events in self.events.items():
+            if tid not in self.rank:
+                continue
+            per = out.setdefault(self.rank[tid], {"eager_steps": 0, "captures": 0, "replays": 0, "waits": 0,
+                                                  "waits_between_replays": 0})
+            for e in events:
+                per[{"s": "eager_steps", "c": "captures", "r": "replays", "w": "waits"}[e]] += 1
+            last, pending = None, 0
+            for e in events:
+                if e == "w":
+                    pending += 1
+                    continue
+                if e == "r" and last == "r":
+                    per["waits_between_replays"] += pending
+                last, pending = (e if e in "rc" else last), 0
+        return out
+
+
+def check_rank_graphs(label, graphed: dict, eager: dict, tp: int, captures_each: int) -> None:
+    """Fail unless every rank of the graph run captured and replayed, made
+    no host wait inside a replayed stretch, and ran as many steps with a
+    decoder as the eager run's (each the warm-up of a capture, which a
+    capture records again, or a replay), and the eager run captured none."""
+    bad = []
+    if sorted(graphed) != list(range(tp)) or sorted(eager) != list(range(tp)):
+        bad.append(f"ranks {sorted(graphed)} (graph), {sorted(eager)} (eager)")
+    for r in range(tp):
+        g, e = graphed.get(r, {}), eager.get(r, {})
+        if not g.get("captures") or g["captures"] % captures_each or not g.get("replays"):
+            bad.append(f"rank {r} captured {g.get('captures')}, replayed {g.get('replays')}")
+        if g.get("waits_between_replays"):
+            bad.append(f"rank {r} waited on the host {g['waits_between_replays']} times between replays")
+        if e.get("captures") or g.get("captures", 0) + g.get("replays", 0) != e.get("eager_steps"):
+            bad.append(f"rank {r}: {g.get('captures')} captures + {g.get('replays')} replays against "
+                       f"{e.get('eager_steps')} eager steps ({e.get('captures')} captures in the eager run)")
+    if bad:
+        fail(f"{label}: " + "; ".join(bad))
+
+
+def same_outputs(torch, ours: list, ref: list, fields) -> bool:
+    """Whether each output of `ours` equals one of `ref` in every field
+    (tensors bit for bit), one for one (a rank's calls in any order)."""
+    def equal(a, b) -> bool:
+        for f in fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+                if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor) and torch.equal(x, y.to(x.device))):
+                    return False
+            elif x != y:
+                return False
+        return True
+
+    left = list(ref)
+    for a in ours:
+        hit = next((i for i, b in enumerate(left) if equal(a, b)), None)
+        if hit is None:
+            return False
+        left.pop(hit)
+    return not left
+
+
+def stream_busy_ms(prof, path: Path) -> dict:
+    """Per CUDA stream of a torch.profiler trace: the union of its device
+    activities' intervals (ms) and the tp all-reduce's kernel time (ms)."""
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    path.unlink()
+    spans: dict = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        key = f"device {e['args'].get('device')} stream {e['args'].get('stream')}"
+        spans.setdefault(key, []).append((e["ts"], e["ts"] + e["dur"], "tp_all_reduce" in e.get("name", "")))
+    out = {}
+    for key, iv in spans.items():
+        busy, cur_s, cur_e = 0.0, None, None
+        for a, b, _ in sorted(iv):
+            if cur_e is None or a > cur_e:
+                busy += 0.0 if cur_e is None else cur_e - cur_s
+                cur_s, cur_e = a, b
+            else:
+                cur_e = max(cur_e, b)
+        busy += 0.0 if cur_e is None else cur_e - cur_s
+        out[key] = {"busy_ms": busy / 1e3, "all_reduce_ms": sum(b - a for a, b, ar in iv if ar) / 1e3,
+                    "activities": len(iv)}
+    return out
+
+
+# the tp step's timing: a prompt of TP_STEP_START tokens, then TP_STEPS
+# replays of the step's graph from the next position (profile_step's
+# decode point: a 224-key self-KV cache)
+TP_STEP_START, TP_STEPS = 112, 50
+
+
+def tp_step_times(torch, one, mesh_pipe, mel) -> dict:
+    """A decode step at B = mel rows on one device (`one`'s tree) and on
+    each rank of the tp mesh pipeline, each as its CUDA graph replayed
+    TP_STEPS times from the position after a prompt of TP_STEP_START
+    tokens: host-clock ms per step (three rounds after a warm one, each
+    rank's stream synced before and after; the ranks' rounds run
+    together), and each stream's device busy per step from a
+    torch.profiler trace of one more round (on replicas of one card the
+    ranks' streams share its memory and SMs)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisperkit_tpu_torch.core.configurations import DecodingOptions
+    from whisperkit_tpu_torch.decoding import loop
+
+    sp = one.tokenizer.special
+    options = DecodingOptions(language="en", first_token_log_prob_threshold=None)
+    base, sot_index = one._build_prompt(options, "en")
+    prompt = base + list(range(1000, 1000 + TP_STEP_START - len(base)))
+    kwargs = dict(dims=one.dims, special=sp, sample_begin=TP_STEP_START, max_new_tokens=TP_STEPS + 2,
+                  sot_index=sot_index)
+    rest = dict(top_k=options.top_k, use_timestamp_rules=not options.without_timestamps,
+                suppress_blank=options.suppress_blank, cuda_graph=True, alignment_heads=None,
+                quantize_self_kv=False)
+
+    def ready(tree, dev):
+        """The decode after its first step (eager, then captured)."""
+        with torch.inference_mode():
+            _, ck, cv = loop.encode_window(tree, mel.to(dev), one.dims, quantize_kv=True)
+            p = torch.tensor([prompt] * mel.shape[0], dtype=torch.long, device=dev)
+            pre = loop.prefill_window(tree, ck, cv, p, **kwargs)
+            st, _ = loop._start(tree, ck, cv, p, one._suppress_bias(options).to(dev),
+                                one._decode_scalars(options, 0.0, 0), pre, **kwargs, **rest)
+            loop._advance(st, TP_STEP_START + 1, 1_000_000)
+        return st
+
+    def replays(st) -> None:
+        with torch.inference_mode():
+            st.pos_dev.fill_(TP_STEP_START + 1)
+            st.mask_row[:, TP_STEP_START + 1 :] = float("-inf")
+            for _ in range(TP_STEPS):
+                st.graph.replay()
+
+    def rounds(st, n: int) -> list:
+        walls = []
+        for _ in range(n):
+            torch.cuda.current_stream().synchronize()
+            t0 = time.perf_counter()
+            replays(st)
+            torch.cuda.current_stream().synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / TP_STEPS)
+        return walls
+
+    def traced(run) -> dict:
+        with tempfile.TemporaryDirectory(prefix="whisperkit-smoke-") as tmp:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            per = stream_busy_ms(prof, Path(tmp) / "trace.json")
+        top = sorted(per.items(), key=lambda kv: -kv[1]["busy_ms"])
+        return {k: {x: y / TP_STEPS if x != "activities" else y for x, y in v.items()} for k, v in top
+                if v["activities"] >= TP_STEPS}
+
+    out = {}
+    st = ready(one.params, one.device)
+    rounds(st, 1)
+    out["one_device"] = {"wall_ms": rounds(st, 3), "busy": traced(lambda: replays(st))}
+    loop._release(st)
+    del st
+    plan, trees = mesh_pipe._mesh(), mesh_pipe._mesh_trees[0]
+    states = plan.run(lambda g, r: ready(trees[r], plan.cells()[g][r]))[0]
+    plan.run(lambda g, r: rounds(states[r], 1))
+    walls = plan.run(lambda g, r: rounds(states[r], 3))[0]
+    busy = traced(lambda: plan.run(lambda g, r: replays(states[r])))
+    plan.run(lambda g, r: loop._release(states[r]))
+    out["tp"] = {"wall_ms_by_rank": walls, "busy": busy}
+    return out
+
+
 def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
     """Phase 24, Whisper over the dcn x dp x tp mesh (parallel/), each run
     against the same tree on one device in this process:
     (a) dp = 2, serving(quantization="w8a16") on the 600 s audio: every
         chunk's tokens under the top-2-gap rule, wall, peak per device,
         launches per device; with four cards or more also dp = 2 x tp = 2;
+    (0) the device all-reduce (phase_collective);
     (b) tp = 2, bf16 serving, ALIGNMENT_HEADS, word timestamps on the first
-        60 s (K3's probs form on each rank's heads): tokens under the gap
-        rule; the gathered alignment buffer against one device's before
-        each row's first differing token (mesh_alignment); the word timings of the one-device run's tokens, teacher-
-        forced through both in float32 (mesh_words_teacher_forced), within
-        MESH_WORD_TOL; one teacher-forced decoder step's logits within
-        phase 5's bf16 limit (2^-4 of the largest logit), the ranks'
-        bit-equal;
+        60 s (K3's probs form on each rank's heads), each rank's decode on
+        its CUDA graph: tokens under the gap rule; the gathered alignment
+        buffer against one device's before each row's first differing
+        token (mesh_alignment); the word timings of the one-device run's
+        tokens, teacher-forced through both in float32
+        (mesh_words_teacher_forced), within MESH_WORD_TOL; one
+        teacher-forced decoder step's logits within phase 5's bf16 limit
+        (2^-4 of the largest logit), the ranks' bit-equal; the same run
+        with every rank's steps eager, bit-equal, and beam 5 the same way
+        (RankGraphs, check_rank_graphs); a step at B = 32 timed on one
+        device and on each rank (tp_step_times);
     (c) W8A8 at tp = 2: the encoder of 4 windows against the unsharded one,
         within JAX's test limit (rtol 3e-2, atol 6e-2; the ranks sum exact
         integer accumulators, so it is expected bit-equal);
     (d) the sequence-parallel encoder at tp = 2 (K2 with 750 queries over
         1500 keys), batch 1 at large-v3, against the replicated one within
         2^-4 of the largest output.
-    The mesh runs' launches make the path `mesh`: K1-K4 and K3's probs form
-    must all launch, and K2, K3 and K4 on every mesh device."""
+    The mesh runs' launches make the path `mesh`: K1-K4, K3's probs form and
+    the all-reduce must all launch, and K2, K3, K4 and the all-reduce on
+    every mesh device."""
     import dataclasses
 
     import numpy as np
 
     from whisperkit_tpu_torch.core.configurations import ComputeOptions, WhisperConfig
+    from whisperkit_tpu_torch.decoding import beam, loop
     from whisperkit_tpu_torch.decoding.loop import encode_window, prefill_window
     from whisperkit_tpu_torch.models import whisper as model
+    from whisperkit_tpu_torch.ops import _build
     from whisperkit_tpu_torch.parallel.mesh import make_mesh, shard_params_replicated
     from whisperkit_tpu_torch.parallel.sharding import encoder_seq_sharding, shard_whisper_params
     from whisperkit_tpu_torch.pipelines import whisper as pipeline_module
@@ -3997,7 +4291,7 @@ def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
     say(f"phase 24 mesh: devices {layout}: {devices} | {card}")
     dims = bf16_pipe.dims
     counts = {"total": {}, "by_device": {}}
-    out = {"layout": layout}
+    out = {"layout": layout, "collective": phase_collective(torch, card)}
     options = pipeline_options(GROUP)
 
     def config(**co):
@@ -4024,9 +4318,9 @@ def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
             f"{ref_wall:.3f} s, eager: with the step recorder) | {len(result.segments)} segments, {same} of "
             f"{len(ref_windows)} chunks equal | peak per device "
             f"{json.dumps({d: round(b / 2**30, 2) for d, b in peaks.items()})} GiB | launches per device "
-            f"{json.dumps(by_device)} | decode graph per device (each dp thread captures its own; tp runs eagerly) "
+            f"{json.dumps(by_device)} | decode graph per device (each mesh thread captures its own) "
             f"{json.dumps(graphs)} | {card}")
-        if plan.tp == 1 and not all(graphs.get(str(torch.device(d)), {}).get("replays") for d in devs):
+        if not all(graphs.get(str(torch.device(d)), {}).get("replays") for d in devs):
             fail(f"{label}: a device's decode replayed no CUDA graph: {graphs}")
         out[key] = {"wall": wall, "one_device_wall": ref_wall, "same": same, "chunks": len(ref_windows),
                     "peak_gib": {d: b / 2**30 for d, b in peaks.items()}, "launches_by_device": by_device,
@@ -4046,13 +4340,40 @@ def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
         ref, ref_windows, gaps, teacher.decodes = one_device_reference(torch, one, clip, words_options)
     pipe = WhisperPipeline(config(tp_size=2, dp_size=1), dims=dims, params=bf16_pipe.params, device=devices[:2],
                            alignment_heads=ALIGNMENT_HEADS)
-    with DecodeCalls() as mesh_calls:
+    group = pipe._mesh().groups[0]
+    waits0 = group.host_waits
+    with DecodeCalls() as mesh_calls, RankGraphs(loop) as ranks_graph:
         result, windows, wall, peaks, by_device = mesh_run(torch, pipe, clip, words_options, counts)
-    # tp decodes eagerly: its all-reduces are host barriers between the ranks' threads
-    if graph_stats()["captures"]:
-        fail(f"{label}: the tp decode captured a CUDA graph: {graph_stats()}")
-    say(f"{label}: the decode loop ran eagerly, as tp does (its all-reduces are host barriers between the ranks' "
-        f"threads, parallel/group.py, which a CUDA graph cannot hold)")
+    graphed = {"graph": graph_stats(), "waits": group.host_waits - waits0, "counts": dict(_build.launches)}
+    # the same run with every rank's steps eager (`cuda_graph=False`'s path)
+    graphs_on = loop._graphs_on
+    loop._graphs_on = lambda device: False
+    try:
+        waits0 = group.host_waits
+        with DecodeCalls() as eager_calls, RankGraphs(loop) as ranks_eager:
+            eager_result, eager_windows, eager_wall, _, _ = mesh_run(torch, pipe, clip, words_options,
+                                                                     {"total": {}, "by_device": {}})
+        eager = {"graph": graph_stats(), "waits": group.host_waits - waits0, "counts": dict(_build.launches)}
+    finally:
+        loop._graphs_on = graphs_on
+    fields = ("tokens", "token_logprobs", "length", "no_speech_prob", "alignment")
+    equal = {"windows": windows == eager_windows,
+             "decodes": same_outputs(torch, mesh_calls.calls, eager_calls.calls, fields),
+             "launches": graphed["counts"] == eager["counts"]}
+    rank_graph, rank_eager = ranks_graph.by_rank(), ranks_eager.by_rank()
+    replays = sum(v["replays"] for v in rank_graph.values())
+    say(f"{label}, graph against eager (each rank's steps eager): bit-equal {json.dumps(equal)} over "
+        f"{len(mesh_calls.calls)} decodes (tokens, log-probs, length, no-speech, gathered alignment) | wall graph "
+        f"{wall:.3f} s, eager {eager_wall:.3f} s | per rank (graph) {json.dumps(rank_graph)} | per rank (eager) "
+        f"{json.dumps(rank_eager)} | host barrier waits: graph run {graphed['waits']}, eager run {eager['waits']}; "
+        f"inside replayed stretches {sum(v['waits_between_replays'] for v in rank_graph.values())} over {replays} "
+        f"replays | launches {json.dumps(graphed['counts'])} | {card}")
+    if not all(equal.values()):
+        fail(f"{label}: the tp decode on its graphs differs from the eager tp decode: {equal}; launches graph "
+             f"{graphed['counts']}, eager {eager['counts']}")
+    check_rank_graphs(label, rank_graph, rank_eager, 2, 1)
+    if eager_result.text != result.text:
+        fail(f"{label}: the eager tp run's text differs from the graph run's")
     check_segments(label, result.segments)
     same = hold_windows(label, windows, ref_windows, gaps)
     gathered = mesh_alignment(torch, label, teacher.decodes, list(zip(mesh_calls.calls, mesh_calls.begins)),
@@ -4088,14 +4409,50 @@ def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
         f"{json.dumps(by_device)} | {card}")
     if not err <= tol or not ranks_equal:
         fail(f"{label}: teacher-forced logits {err:.3e} from one device's (limit {tol:.3e}), ranks equal {ranks_equal}")
-    out["b"] = {"wall": wall, "same": same, "words": n_words, "words_exact": exact, "word_worst_s": worst,
+    out["b"] = {"wall": wall, "eager_wall": eager_wall, "graph_vs_eager": equal, "ranks": rank_graph,
+                "ranks_eager": rank_eager, "host_waits": graphed["waits"], "host_waits_eager": eager["waits"],
+                "same": same, "words": n_words, "words_exact": exact, "word_worst_s": worst,
                 "teacher_align_err": words["align_err"], **gathered,
                 "step_err": err, "step_tol": tol, "launches_by_device": by_device}
+
+    # (b) beam 5 at tp 2 on the clip's windows: the graphs against eager
+    label = "phase 24 (b) beam 5, tp 2, bf16 serving, 60 s"
+    beam_options = dataclasses.replace(options, beam_size=5)
+    runs = {}
+    graphs_on = beam._graphs_on
+    try:
+        for mode in ("graph", "eager"):
+            beam._graphs_on = graphs_on if mode == "graph" else (lambda device: False)
+            with Spy(pipeline_module, "beam_decode_loop") as beams, RankGraphs(beam) as ranks:
+                res, wins, w, _, _ = mesh_run(torch, pipe, clip, beam_options,
+                                              counts if mode == "graph" else {"total": {}, "by_device": {}})
+            runs[mode] = {"result": res, "windows": wins, "wall": w, "calls": beams.calls, "ranks": ranks.by_rank(),
+                          "counts": dict(_build.launches), "graph": graph_stats()}
+    finally:
+        beam._graphs_on = graphs_on
+    g, e = runs["graph"], runs["eager"]
+    equal_b = {"windows": g["windows"] == e["windows"],
+               "decodes": same_outputs(torch, g["calls"], e["calls"],
+                                       ("tokens", "token_logprobs", "sum_logprob", "length", "no_speech_prob")),
+               "launches": g["counts"] == e["counts"]}
+    say(f"{label}: graph against eager bit-equal {json.dumps(equal_b)} over {len(g['calls'])} searches | wall graph "
+        f"{g['wall']:.3f} s, eager {e['wall']:.3f} s | per rank (graph) {json.dumps(g['ranks'])} | per rank (eager) "
+        f"{json.dumps(e['ranks'])} | {say_graph(g['graph'])} | launches {json.dumps(g['counts'])} | {card}")
+    if not all(equal_b.values()):
+        fail(f"{label}: the tp beam search on its graphs differs from the eager one: {equal_b}")
+    check_rank_graphs(label, g["ranks"], e["ranks"], 2, 2)
+    check_segments(label, g["result"].segments)
+    out["b_beam"] = {"graph_wall": g["wall"], "eager_wall": e["wall"], "equal": equal_b, "ranks": g["ranks"]}
+    del runs, g, e
+
+    # (b) a decode step at B = 32 on one device and on each tp rank
+    steps = tp_step_times(torch, bf16_pipe, pipe, group_mel(bf16_pipe, audio, options))
+    say(f"phase 24 (b) decode step at B = {GROUP}, S = {TP_STEP_START + TP_STEPS + 2} keys, graph replays: one device "
+        f"{json.dumps(steps['one_device'])} | tp 2 on {layout}: {json.dumps(steps['tp'])} | {card}")
+    out["b_step"] = steps
     del pipe, one, trees
 
     # (c) W8A8 at tp = 2: the encoder of 4 windows
-    from whisperkit_tpu_torch.ops import _build
-
     plan = make_mesh(dp=1, tp=2, devices=devices[:2])
     trees = shard_whisper_params(plan, w8_params)[0]
     mel4 = bf16_pipe._mel_batch([audio[i * 480_000 : (i + 1) * 480_000] for i in range(4)])
@@ -4139,11 +4496,21 @@ def phase_mesh(torch, card: str, bf16_pipe, w8_params, audio) -> dict:
     out["d"] = {"max_abs": err_d, "tol": tol_d}
     del replicas, encs, ref_enc, mel4
 
+    # the mesh runs' cached blocks go back to the card: later phases start
+    # children (CLI, profiles) that need room for their own contexts
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total_bytes = torch.cuda.mem_get_info()
+    out["card_free_gib_after"] = free / 2**30
     total = counts["total"]
     require_mesh_launches("phase 24", counts["by_device"],
-                          ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend"),
-                          ("mha_encoder", "cross_attend_q8", "self_attend"))
-    say(f"phase 24 mesh launches (the path `mesh`): {json.dumps(total)} | per device {json.dumps(counts['by_device'])}")
+                          ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend",
+                           "tp_all_reduce"),
+                          ("mha_encoder", "cross_attend_q8", "self_attend", "tp_all_reduce"))
+    say(f"phase 24 mesh launches (the path `mesh`): {json.dumps(total)} | per device {json.dumps(counts['by_device'])} "
+        f"| card memory free after the phase {free / 2**30:.2f} of {total_bytes / 2**30:.2f} GiB")
     out["counts"] = dict(total)
     out["counts_by_device"] = counts["by_device"]
     return out
@@ -4359,6 +4726,8 @@ KERNEL_TABLE = (
      "whisperkit_tpu/ops/attention_decode.py:191", "bf16"),
     ("self_attend_q8", "whisperkit_tpu_torch/csrc/attention_decode.cu",
      "whisperkit_tpu/ops/attention_decode.py:216", "int8"),
+    # no pl.pallas_call: the psums that XLA inserts from the tp shardings
+    ("tp_all_reduce", "whisperkit_tpu_torch/csrc/tp_all_reduce.cu", "whisperkit_tpu/parallel/sharding.py:13", "mesh"),
 )
 
 
@@ -4439,6 +4808,7 @@ def main() -> None:
     # phase 24's Whisper part runs here, on phase 4's and phase 6's trees
     phases["mesh"] = phase_mesh(torch, card, bf16["pipe"], w8_params, bf16["audio"])
     del w8_params
+    kernel_results["tp_all_reduce"] = phases["mesh"]["collective"]["kernel"]
     # phases 13-15 share one temporary folder: the checkpoint, the WAVs and
     # the CLI's reports; it is deleted when they end
     with tempfile.TemporaryDirectory(prefix="whisperkit-smoke-") as tmp:

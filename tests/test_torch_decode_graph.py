@@ -259,6 +259,9 @@ def fake_cuda(monkeypatch):
         def wait_stream(self, _):
             pass
 
+        def synchronize(self):
+            pass
+
     class Lib:
         def __getattr__(self, name):
             return lambda *args: 0
@@ -267,6 +270,7 @@ def fake_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda _: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "stream", lambda _: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *_: Stream())
+    monkeypatch.setattr(torch.cuda, "default_stream", lambda *_: Stream())
     monkeypatch.setattr(torch.cuda, "Stream", Stream)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
     _build.reset_launches()

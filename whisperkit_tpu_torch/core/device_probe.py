@@ -45,6 +45,8 @@ def probe_backend(timeout_s: float = 90.0) -> str:
             "pass --device cpu to run on the host"
         ) from e
     if proc.returncode != 0:
-        tail = (proc.stderr or "").strip().splitlines()[-1:]
+        lines = (proc.stderr or "").strip().splitlines()
+        # the error's own line (torch ends a CUDA error with a hint line)
+        tail = [line for line in lines if "Error" in line][-1:] or lines[-1:]
         raise DeviceUnavailable(f"the CUDA device failed to initialise: {' '.join(tail)}")
     return proc.stdout.strip()

@@ -18,10 +18,11 @@ step does: the position lives on the device (a 0-d int64 tensor), and the
 step writes the tokens, log-probabilities, beam scores, the finished set,
 `done`, the mask row, the last logits and `length` in place. On CUDA the
 first step with a decoder runs eagerly and is then captured as a CUDA
-graph (`decoding/graph.py`), which the later positions replay; on the CPU,
-with `cuda_graph=False` and under tensor parallelism the same `_step` runs
-eagerly. The host counts positions and reads the `done` mask every
-`stop_check_interval` steps. Stopping late is exact: a finished window's
+graph (`decoding/graph.py`), which the later positions replay, on every
+tp rank its own (the step's all-reduces are device kernels); on the CPU
+and with `cuda_graph=False` the same `_step` runs eagerly. The host
+counts positions and reads the `done` mask every `stop_check_interval`
+steps. Stopping late is exact: a finished window's
 rows are frozen, and `length` is the position after the step that left
 every window done, where JAX's loop stops.
 
@@ -46,7 +47,9 @@ import torch
 
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
 from whisperkit_tpu_torch.decoding.graph import StepGraph
-from whisperkit_tpu_torch.models.whisper import WhisperDims, decoder_forward, init_kv_cache, local_heads
+from whisperkit_tpu_torch.models.whisper import (
+    WhisperDims, check_group, decoder_forward, init_kv_cache, local_heads, rank_captured,
+)
 from whisperkit_tpu_torch.text.tokenizer import SpecialTokens
 
 NEG = -1e9
@@ -228,7 +231,9 @@ def _advance(st: _Beam, stop_check_interval: int) -> None:
     parity runs eagerly and is captured, and the later ones replay."""
     while st.pos < st.total:
         if st.pos > st.sample_begin and (st.pos - st.sample_begin) % stop_check_interval == 0:
-            if bool(st.done.all()):  # the loop's one host sync, every K steps
+            all_done = bool(st.done.all())  # the loop's one host sync, every K steps
+            check_group(st.params)
+            if all_done:
                 return
         forward = st.pos + 1 < st.total
         parity = (st.pos - st.sample_begin) % 2
@@ -237,6 +242,7 @@ def _advance(st: _Beam, stop_check_interval: int) -> None:
         elif st.graphs[parity] is None:
             # runs this position, then captures it
             st.graphs[parity] = StepGraph(lambda p=parity: _step(st, True, p), st.tokens.device)
+            rank_captured(st.params)
         else:
             st.graphs[parity].replay()
         st.pos += 1
@@ -284,8 +290,7 @@ def _start(
     beam_lp = torch.tensor([0.0] + [NEG] * (k - 1), dtype=torch.float32, device=dev).repeat(b)  # [B*K]
     mask_row = torch.full((1, total), float("-inf"), dtype=torch.float32, device=dev)
     mask_row[:, :sample_begin] = 0.0
-    # tensor parallelism stays eager: its all-reduces are host barriers
-    use_graph = cuda_graph and _graphs_on(dev) and params.get("tp") is None
+    use_graph = cuda_graph and _graphs_on(dev)
     st = _Beam(
         params, cross_k_b, cross_v_b, suppress_bias, max_initial_timestamp_index, dims, special, sample_begin,
         total, k, use_timestamp_rules, suppress_blank, length_penalty, (kv_k, kv_k1), (kv_v, kv_v1), tokens,
@@ -357,4 +362,6 @@ def beam_decode_loop(
     finally:
         _release(st)
     tokens, token_logprobs, sum_logprob = _best(st)
-    return BeamDecodeOutput(tokens, token_logprobs, sum_logprob, int(st.length), no_speech_prob)
+    length = int(st.length)
+    check_group(params)
+    return BeamDecodeOutput(tokens, token_logprobs, sum_logprob, length, no_speech_prob)

@@ -10,17 +10,27 @@ launch from the host where the eager step makes a few thousand.
 `StepGraph(step, device)` runs `step` once eagerly on its capture stream
 (the warm-up: cuBLAS's workspace for that stream and each launcher's
 one-time attribute calls happen outside the capture), then captures it
-into a graph with a private memory pool. `replay()` runs the captured
-step on the device's current stream and counts its kernels' launches
-(`ops/_build.recording`); `stats_by_device` counts captures and replays.
-A capture error raises: there is no eager
-fallback on the card. A graph lives for one decode call, so it never
-outlives the buffers it froze; `close()` frees its pool.
+into a graph with a private memory pool. The capture stream is the
+thread's current stream (a mesh rank's own, parallel/mesh.py, so a rank
+keeps one stream), or a stream of the thread's own where that is the
+device's default stream, which no capture may use. `replay()` runs the
+captured step on the device's current stream and counts its kernels'
+launches (`ops/_build.recording`); `stats_by_device` counts captures and
+replays. A capture error raises: there is no eager fallback on the card.
+A graph lives for one decode call, so it never outlives the buffers it
+froze; `close()` frees its pool.
 
 Captures run one at a time in the process (a mesh runs one decode thread
 per device), each in "thread_local" mode: the mesh's other threads may
 call capture-unsafe APIs meanwhile, which the default "global" mode
-refuses.
+refuses. Under tensor parallelism every rank captures its own step: the
+warm-up runs outside the lock, so its all-reduces meet the peers'
+warm-ups on the device while another rank captures; the capture records
+the all-reduce launches without running them (the group's device
+sequence does not move), and a rank's replays then wait on the device for
+its peers' replays, with no host barrier. The loops then call
+`TPRank.captured`, so that ranks that share a device replay only once
+every rank has captured.
 """
 
 from __future__ import annotations
@@ -71,8 +81,11 @@ class StepGraph:
     def __init__(self, step: Callable[[], None], device: torch.device):
         self.device = torch.device(device)
         self.graph = torch.cuda.CUDAGraph()
-        stream = _capture_stream(self.device)
         current = torch.cuda.current_stream(self.device)
+        # the thread's current stream, unless it is the device's default
+        stream = current
+        if current.cuda_stream == torch.cuda.default_stream(self.device).cuda_stream:
+            stream = _capture_stream(self.device)
         with torch.cuda.device(self.device):
             stream.wait_stream(current)
             with torch.cuda.stream(stream):
@@ -102,4 +115,9 @@ class StepGraph:
         _add(self.device, replays=1)
 
     def close(self) -> None:
+        """Free the graph and its pool once its launches have finished: a
+        tp rank's replays may still wait on the device for a peer's, and
+        destroying their graph then could hold this thread until they end
+        while the peer's thread needs the interpreter to launch its own."""
+        torch.cuda.current_stream(self.device).synchronize()
         self.graph.reset()

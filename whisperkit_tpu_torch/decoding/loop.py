@@ -7,11 +7,15 @@ traced `pos`), and the step writes the tokens, log-probabilities, `done`
 mask, mask row, caches and alignment row at it, in place. On CUDA the
 first step runs eagerly and is then captured as a CUDA graph
 (`decoding/graph.py`), which every later position replays: one launch
-from the host instead of a few thousand. On the CPU, with
-`cuda_graph=False`, and under tensor parallelism the same `_step` runs
-eagerly. The host counts positions, draws the sampler's noise into a
-buffer before each step, and reads `done` only every `stop_check_interval`
-steps to stop early once every row has finished. Stopping late is exact,
+from the host instead of a few thousand. Under tensor parallelism each
+rank captures and replays its own graph: the step's all-reduces are
+device kernels (parallel/group.py) that meet the peers' in device memory,
+and every rank's logits are the same bits, so the ranks decide alike. On
+the CPU and with `cuda_graph=False` the same `_step` runs eagerly. The
+host counts positions, draws the sampler's noise into a buffer before
+each step, and reads `done` only every `stop_check_interval` steps to stop
+early once every row has finished (under tp it then checks that the
+group's device collectives did not fail). Stopping late is exact,
 because a finished row keeps emitting EOT with log-probability 0, which is
 what the EOT-filled token buffer already holds; the step keeps on the
 device the position after the step that left every row done, which is
@@ -42,6 +46,7 @@ from whisperkit_tpu_torch.decoding.sampler import sample_token
 from whisperkit_tpu_torch.parallel.mesh import RowDraws, gumbel_from_uniform, uniform
 from whisperkit_tpu_torch.models.whisper import (
     WhisperDims,
+    check_group,
     compute_cross_kv,
     compute_cross_kv_quantized,
     decoder_forward,
@@ -49,6 +54,7 @@ from whisperkit_tpu_torch.models.whisper import (
     gather_alignment,
     init_kv_cache,
     local_heads,
+    rank_captured,
 )
 
 
@@ -171,6 +177,11 @@ def prefill_window(
     return PrefillState(kv_k, kv_v, logits[:, -1], no_speech_prob, align)
 
 
+def _graphs_on(device: torch.device) -> bool:
+    """Whether decode steps on `device` run as CUDA graphs: on a card."""
+    return device.type == "cuda"
+
+
 @dataclasses.dataclass
 class _Decode:
     """One decode's state between host checkpoints: the loop's inputs that
@@ -236,9 +247,7 @@ def _start(
     noise_u = None
     if scalars.temperature > 0:
         noise_u = torch.zeros((b, top_k), dtype=torch.float32, device=dev)
-    # tensor parallelism stays eager: its all-reduces are host barriers
-    # between the ranks' threads (parallel/group.py), which no graph holds
-    use_graph = cuda_graph and dev.type == "cuda" and params.get("tp") is None
+    use_graph = cuda_graph and _graphs_on(dev)
     st = _Decode(
         params, cross_k, cross_v, suppress_bias, scalars, dims, special, sample_begin, total, top_k,
         use_timestamp_rules, suppress_blank, alignment_heads, prefill.kv_k, prefill.kv_v, tokens,
@@ -310,7 +319,9 @@ def _advance(st: _Decode, end: int, stop_check_interval: int) -> None:
     eagerly and is captured, and every later one replays the capture."""
     while st.pos < end:
         if st.pos > st.sample_begin and (st.pos - st.sample_begin) % stop_check_interval == 0:
-            if bool(st.done.all()):  # the loop's one host sync, every K steps
+            all_done = bool(st.done.all())  # the loop's one host sync, every K steps
+            check_group(st.params)
+            if all_done:
                 return
         if st.noise_u is not None:  # the step's noise, in the eager sampler's draw order
             st.noise_u.copy_(uniform(st.scalars.generator, st.noise_u.shape, st.noise_u.device))
@@ -319,6 +330,7 @@ def _advance(st: _Decode, end: int, stop_check_interval: int) -> None:
             _step(st, forward)
         elif st.graph is None:
             st.graph = StepGraph(lambda: _step(st, True), st.tokens.device)  # runs this position, then captures
+            rank_captured(st.params)
         else:
             st.graph.replay()
         st.pos += 1
@@ -327,7 +339,9 @@ def _advance(st: _Decode, end: int, stop_check_interval: int) -> None:
 def _length(st: _Decode) -> int:
     """JAX's `length`: the position after the step that left every row
     done, or where the loop stopped (the budget, a cancellation)."""
-    return min(st.pos, int(st.length))
+    length = min(st.pos, int(st.length))
+    check_group(st.params)
+    return length
 
 
 def _release(st: _Decode) -> None:
@@ -493,6 +507,7 @@ def decode_loop_segmented(
     for seg in range(n_segments):
         _advance(st, min(st.pos + segment_tokens, st.total), stop_check_interval)
         done = st.done.tolist()
+        check_group(st.params)
         if all(done):
             break
         if should_stop is not None and should_stop():

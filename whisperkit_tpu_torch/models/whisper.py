@@ -306,12 +306,39 @@ def local_heads(params: Params, n_head: int) -> int:
     return n_head if tp is None else n_head // tp.size
 
 
+def check_group(params: Params) -> None:
+    """Under tp, raise GroupAborted if the rank's group failed on the
+    device (a collective timed out, or the group was aborted): the decode
+    loops call it after their host syncs. A no-op without tp."""
+    tp = params.get("tp")
+    if tp is not None:
+        tp.check()
+
+
+def rank_captured(params: Params) -> None:
+    """Under tp, this rank has captured its step's CUDA graph: wait there
+    for the ranks that share its device (`TPRank.captured`). Every rank
+    must call it at the same capture. A no-op without tp."""
+    tp = params.get("tp")
+    if tp is not None:
+        tp.captured()
+
+
 def gather_alignment(params: Params, align: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Under tp, the alignment buffer with every rank's heads: each rank
     wrote only the slots of the heads it holds into a zero buffer, so the
-    sum over the ranks is exact. Every rank must call it."""
+    sum over the ranks is exact. Every rank must call it. On a card it
+    waits for the sum and raises GroupAborted if the group failed: its
+    callers (the loops' ends, alignment_forward) hand the buffer to the
+    host at once, so the wait costs nothing and no failed sum goes on."""
     tp = params.get("tp")
-    return align if tp is None or align is None else tp.all_reduce_sum(align)
+    if tp is None or align is None:
+        return align
+    out = tp.all_reduce_sum(align)
+    if out.is_cuda:
+        torch.cuda.current_stream(out.device).synchronize()
+        tp.check()
+    return out
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:

@@ -50,7 +50,8 @@ NVCC_FLAGS = (
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend", "self_attend_q8")
+KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend", "self_attend_q8",
+           "tp_all_reduce")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 launches_by_device: dict[str, dict[str, int]] = {}
 _count_lock = threading.Lock()
@@ -61,6 +62,8 @@ _capture = threading.local()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # C signatures of the exported launchers (csrc/*.cu), all returning int
 _SIGNATURES = {
     # padded, basis fragments, mel_w, mel spans, out, batch, n_frames, n_mels, stream
@@ -78,6 +81,15 @@ _SIGNATURES = {
     "wk_self_attend": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # qi, q_scale, k, k_scale, v, v_scale, mask, out, batch*heads, s, stream
     "wk_self_attend_q8": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # the ranks' staging buffers and inboxes (host arrays of tp device
+    # pointers), tp, rank, ctrl, host words, x, y, elements, dtype, op,
+    # slot bytes, timeout ns, stream
+    "wk_tp_all_reduce": (_LP, _LP, _I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P),
+    # device, peer (no stream: set-up calls)
+    "wk_tp_enable_peer": (_I, _I),
+    # bytes, out host pointer, out device pointer
+    "wk_tp_host_alloc": (_L, ctypes.POINTER(_P), ctypes.POINTER(_P)),
+    "wk_tp_host_free": (_P,),
 }
 
 

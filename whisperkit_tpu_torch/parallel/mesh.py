@@ -8,11 +8,15 @@ device: every worker thread runs the port's single-device code on its own
 rows (dp, dcn) or on its own weight shard (tp, parallel/sharding.py), with
 the device made current. The tp ranks of one (dcn, dp) cell meet in a
 `TPGroup` (parallel/group.py); nothing else is shared between threads, so
-no collective can cross a dcn slice or a dp group. A dp or dcn thread's
-Whisper decode captures and replays its own CUDA graph of the step on its
-own device (decoding/graph.py), its noise drawn from its rows of the
-group's draws before each replay; a tp rank's decode stays eager, since
-its all-reduces are host barriers between the threads.
+no collective can cross a dcn slice or a dp group. On a card each mesh
+thread runs its call on a CUDA stream of its own (`MeshPlan.run`): a tp
+rank's device all-reduce waits on the device for its peers' launches, so
+a rank's waiting kernel must never sit on the stream in front of the
+kernels its peer has yet to run (on replicas of one card they would share
+the device's current stream). Every mesh thread's Whisper decode, dp or
+tp, captures and replays its own CUDA graph of the step on its own stream
+(decoding/graph.py), its noise drawn from its rows of the group's draws
+before each replay; a tp step's all-reduces are launches inside its graph.
 
   MeshPlan / make_mesh      the grid, `pad_batch`, the dcn-major row order
   MeshPlan.run              fn(group, rank) in every cell's thread
@@ -96,6 +100,7 @@ class MeshPlan:
         self.devices = [[list(cell) for cell in row] for row in devices]
         self.dcn, self.dp, self.tp = len(self.devices), len(self.devices[0]), len(self.devices[0][0])
         kw = {} if timeout is None else {"timeout": timeout}
+        self._streams: Optional[dict] = None
         self.groups: list[Optional[TPGroup]] = groups if groups is not None else [
             TPGroup(cell, **kw) if self.tp > 1 else None for cell in self.cells()
         ]
@@ -138,20 +143,48 @@ class MeshPlan:
         per = n // self.n_cells
         return [slice(g * per, (g + 1) * per) for g in range(self.n_cells)]
 
+    def _rank_streams(self) -> dict[tuple[int, int], torch.cuda.Stream]:
+        """One CUDA stream per mesh thread on a card, made together at the
+        plan's first run and kept; none for a mesh of one device."""
+        if self._streams is None:
+            cells = self.cells()
+            many = self.n_cells * self.tp > 1
+            self._streams = {
+                (g, r): torch.cuda.Stream(cells[g][r]) for g in range(self.n_cells) for r in range(self.tp)
+                if many and cells[g][r].type == "cuda"
+            }
+        return self._streams
+
     def run(self, fn: Callable[[int, int], Any]) -> list[list[Any]]:
         """fn(cell, rank) in one thread per mesh device, each with its device
-        current → results[cell][rank]. A failure anywhere aborts every tp
-        group and is raised here once all threads have ended."""
+        current and, on a card, its own stream current (ordered after the
+        caller's work on the device, and the caller's after it) →
+        results[cell][rank]. A failure anywhere aborts every tp group and
+        is raised here once all threads have ended."""
         for group in self.groups:
             if group is not None:
                 group.reset()
+        streams = self._rank_streams()
+        callers = {dev: torch.cuda.current_stream(dev) for dev in {self.cells()[g][r] for g, r in streams}}
+        # the caller's work so far, marked here: a rank that waited on the
+        # caller's stream itself could wait behind a peer's end-of-run wait
+        # there (below), and so behind the peer's collectives
+        started = {dev: stream.record_event() for dev, stream in callers.items()}
 
         def call(g: int, r: int):
             dev = self.cells()[g][r]
-            if dev.type == "cuda":
-                with torch.cuda.device(dev):
+            if dev.type != "cuda":
+                return fn(g, r)
+            with torch.cuda.device(dev):
+                stream = streams.get((g, r))
+                if stream is None:
                     return fn(g, r)
-            return fn(g, r)
+                stream.wait_event(started[dev])
+                try:
+                    with torch.cuda.stream(stream):
+                        return fn(g, r)
+                finally:
+                    callers[dev].wait_stream(stream)
 
         def abort() -> None:
             for group in self.groups:
@@ -277,21 +310,33 @@ class SharedDraws:
     numbers do not depend on the sharding. `batch` is the batch one device
     would draw for: rows the mesh pads in past it repeat its last row's
     draws. Shards step at their own pace; the draws are kept until the
-    object is dropped (one decode's worth)."""
+    object is dropped (one decode's worth). On a card a draw is made on the
+    drawing thread's stream and an event marks it; a reader's stream waits
+    for that event before it reads the draw."""
 
     def __init__(self, generator: torch.Generator, batch: int):
         self.generator, self.batch = generator, batch
         self._draws: list[torch.Tensor] = []
+        self._made: list[Optional[torch.cuda.Event]] = []  # each draw's event, on a card
         self._lock = threading.Lock()
 
     def _draw(self, k: int, shape: tuple) -> torch.Tensor:
         with self._lock:
             while len(self._draws) <= k:
-                self._draws.append(torch.rand(
+                draw = torch.rand(
                     (self.batch, *shape), generator=self.generator, device=self.generator.device,
                     dtype=torch.float32,
-                ))
-            return self._draws[k]
+                )
+                made = None
+                if draw.is_cuda:
+                    made = torch.cuda.Event()
+                    made.record(torch.cuda.current_stream(draw.device))
+                self._draws.append(draw)
+                self._made.append(made)
+            draw, made = self._draws[k], self._made[k]
+        if made is not None:
+            torch.cuda.current_stream(draw.device).wait_event(made)
+        return draw
 
     def rows(self, rows: slice) -> "RowDraws":
         return RowDraws(self, torch.arange(rows.start, rows.stop).clamp(max=self.batch - 1))

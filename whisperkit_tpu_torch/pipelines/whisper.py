@@ -343,11 +343,14 @@ class WhisperPipeline:
         return DecodeScalars(temperature, max_initial, ft, generator)
 
     def _sync(self, device: Optional[torch.device] = None) -> None:
-        """With ComputeOptions.sync_timings, wait for the device so the
-        surrounding stage stamp measures execution, not enqueue."""
+        """With ComputeOptions.sync_timings, wait for the calling thread's
+        stream on the device so the surrounding stage stamp measures
+        execution, not enqueue. Not the whole device: on replicas of one
+        card a tp peer's all-reduce may wait there for this rank's next
+        launch."""
         device = device or self.device
         if self.config.compute_options.sync_timings and device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
 
     def _mel(self, window: np.ndarray) -> torch.Tensor:
         """[n_mels, 3000] for one ≤30 s window. It uploads through
@@ -951,7 +954,10 @@ class WhisperPipeline:
         def decode(g: int, r: int):
             shard = _Shard(trees[g][r], plan.cells()[g][r], slices[g], draws, plan.rank(g, r))
             ck, cv, _ = encoded[g][r]
-            return self._decode_with_fallback(ck, cv, options, langs[slices[g]], window_index, shard), shard.timings
+            decodes = self._decode_with_fallback(ck, cv, options, langs[slices[g]], window_index, shard)
+            if shard.tp is not None:  # the decodes were read on the host: the group's collectives are done
+                shard.tp.check()
+            return decodes, shard.timings
 
         decoded = plan.run(decode)
         del encoded
