@@ -20,8 +20,9 @@ JAX package's, flag for flag (the reference's argument structs, snake-case
 one it exits 2, as the JAX CLI does; so does `tts --quantization w8a8`, a
 Whisper-encoder recipe, with the JAX CLI's message. `transcribe
 --profile-dir D` writes a `torch.profiler` trace of the whole batch, host
-and card, under D (core/signposts.py); with `--stream` or
-`--stream-simulated` it exits 2, as the JAX CLI does.
+and card, under D (core/signposts.py), the pipeline's stage spans in it as
+user annotations; with `--stream` or `--stream-simulated` it exits 2, as
+the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -115,7 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument(
         "--profile-dir", default=None,
         help="write a torch.profiler trace (host and card) of the whole "
-        "run to this directory",
+        "run to this directory; the pipeline's stage spans (transcribe, vad, "
+        "mel, encode, prefill, decode, readback, segments, ...) show in it as "
+        "user annotations beside the card's kernels",
     )
     t.add_argument("--report-format", nargs="*", default=["json"],
                    choices=["json", "srt", "vtt", "txt"])

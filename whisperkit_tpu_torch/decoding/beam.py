@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from whisperkit_tpu_torch.core.signposts import signpost
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
 from whisperkit_tpu_torch.decoding.graph import StepGraph
 from whisperkit_tpu_torch.models.whisper import (
@@ -231,7 +232,8 @@ def _advance(st: _Beam, stop_check_interval: int) -> None:
     parity runs eagerly and is captured, and the later ones replay."""
     while st.pos < st.total:
         if st.pos > st.sample_begin and (st.pos - st.sample_begin) % stop_check_interval == 0:
-            all_done = bool(st.done.all())  # the loop's one host sync, every K steps
+            with signpost("decode.stop_check", position=st.pos):
+                all_done = bool(st.done.all())  # the loop's one host sync, every K steps
             check_group(st.params)
             if all_done:
                 return

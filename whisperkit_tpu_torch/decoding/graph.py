@@ -18,7 +18,10 @@ captured step on the device's current stream and counts its kernels'
 launches (`ops/_build.recording`); `stats_by_device` counts captures and
 replays. A capture error raises: there is no eager fallback on the card.
 A graph lives for one decode call, so it never outlives the buffers it
-froze; `close()` frees its pool.
+froze; `close()` frees its pool. The warm-up, the capture (with the
+instantiation), the first replay and the release each run in a stage span
+of their own (`graph.warmup`, `graph.capture`, `graph.first_replay`,
+`graph.release`; core/signposts.py).
 
 Captures run one at a time in the process (a mesh runs one decode thread
 per device), each in "thread_local" mode: the mesh's other threads may
@@ -41,6 +44,7 @@ from typing import Callable
 
 import torch
 
+from whisperkit_tpu_torch.core.signposts import signpost
 from whisperkit_tpu_torch.ops import _build
 
 _capture_lock = threading.Lock()
@@ -89,8 +93,9 @@ class StepGraph:
         with torch.cuda.device(self.device):
             stream.wait_stream(current)
             with torch.cuda.stream(stream):
-                step()  # the warm-up: this position's step, run eagerly
-                with _capture_lock:
+                with signpost("graph.warmup"):
+                    step()  # the warm-up: this position's step, run eagerly
+                with signpost("graph.capture"), _capture_lock:
                     t0 = time.perf_counter()
                     self.graph.capture_begin(capture_error_mode="thread_local")
                     try:
@@ -106,11 +111,17 @@ class StepGraph:
                     self.graph.capture_end()  # ends the capture and instantiates the graph
             current.wait_stream(stream)
         self.record = record
+        self.replayed = False
         _add(self.device, captures=1, capture_s=t1 - t0, instantiate_s=time.perf_counter() - t1)
 
     def replay(self) -> None:
         with torch.cuda.device(self.device):
-            self.graph.replay()
+            if self.replayed:
+                self.graph.replay()
+            else:  # the first launch of an instantiated graph uploads it to the device
+                with signpost("graph.first_replay"):
+                    self.graph.replay()
+                self.replayed = True
         _build.add_launches(self.record)
         _add(self.device, replays=1)
 
@@ -119,5 +130,6 @@ class StepGraph:
         tp rank's replays may still wait on the device for a peer's, and
         destroying their graph then could hold this thread until they end
         while the peer's thread needs the interpreter to launch its own."""
-        torch.cuda.current_stream(self.device).synchronize()
-        self.graph.reset()
+        with signpost("graph.release"):
+            torch.cuda.current_stream(self.device).synchronize()
+            self.graph.reset()

@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 import torch
 
 from whisperkit_tpu_torch.text.tokenizer import SpecialTokens
+from whisperkit_tpu_torch.core.signposts import signpost
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
 from whisperkit_tpu_torch.decoding.graph import StepGraph
 from whisperkit_tpu_torch.decoding.sampler import sample_token
@@ -319,7 +320,8 @@ def _advance(st: _Decode, end: int, stop_check_interval: int) -> None:
     eagerly and is captured, and every later one replays the capture."""
     while st.pos < end:
         if st.pos > st.sample_begin and (st.pos - st.sample_begin) % stop_check_interval == 0:
-            all_done = bool(st.done.all())  # the loop's one host sync, every K steps
+            with signpost("decode.stop_check", position=st.pos):
+                all_done = bool(st.done.all())  # the loop's one host sync, every K steps
             check_group(st.params)
             if all_done:
                 return
@@ -506,7 +508,8 @@ def decode_loop_segmented(
     n_segments = -(-max_new_tokens // segment_tokens)
     for seg in range(n_segments):
         _advance(st, min(st.pos + segment_tokens, st.total), stop_check_interval)
-        done = st.done.tolist()
+        with signpost("decode.stop_check", position=st.pos):
+            done = st.done.tolist()
         check_group(st.params)
         if all(done):
             break

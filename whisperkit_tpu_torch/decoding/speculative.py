@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from whisperkit_tpu_torch.core.signposts import signpost
 from whisperkit_tpu_torch.decoding.filters import apply_suppress_blank, apply_timestamp_rules
 from whisperkit_tpu_torch.decoding.graph import StepGraph
 from whisperkit_tpu_torch.decoding.loop import DecodeLoopOutput, DecodeScalars, PrefillState, prefill_window
@@ -257,7 +258,8 @@ def speculative_decode_loop(
                 else:
                     graph.replay()
             # the loop's one host read, every few rounds
-            done, at = torch.stack([st.done[0].long(), st.pos]).tolist()
+            with signpost("decode.stop_check", position=at):
+                done, at = torch.stack([st.done[0].long(), st.pos]).tolist()
             stop = bool(done) or at >= total
     finally:
         if graph is not None:

@@ -53,6 +53,7 @@ from whisperkit_tpu_torch.audio.io import SAMPLE_RATE
 from whisperkit_tpu_torch.core.configurations import DecodingOptions
 from whisperkit_tpu_torch.core.logging import logging
 from whisperkit_tpu_torch.core.results import TranscriptionResult, TranscriptionSegment
+from whisperkit_tpu_torch.core.signposts import new_request, signpost
 from whisperkit_tpu_torch.text.segment_seeker import (
     WINDOW_FRAMES,
     find_seek_point_and_segments,
@@ -128,6 +129,7 @@ class _Window:
     index: int = 0
     seek_offset: int = 0
     callback: Optional[Callable[[str], Optional[bool]]] = None  # short requests
+    request: Optional[int] = None  # the request's id (core/signposts.new_request)
 
 
 @dataclasses.dataclass
@@ -137,6 +139,7 @@ class _Request:
     future: concurrent.futures.Future
     enqueued_at: float
     progress_callback: Optional[Callable[[str], Optional[bool]]] = None
+    request: Optional[int] = None  # the request's id (core/signposts.new_request)
 
 
 class BatchScheduler:
@@ -185,7 +188,7 @@ class BatchScheduler:
         # serialized on the collector thread: the pipeline object is not
         # thread-safe (timings, language cache, lazy mesh)
         self._queue.put(
-            _Request(audio, options, future, time.perf_counter(), progress_callback)
+            _Request(audio, options, future, time.perf_counter(), progress_callback, new_request())
         )
         return future
 
@@ -227,7 +230,7 @@ class BatchScheduler:
             return [
                 _Window(
                     req.audio, req.options, req.enqueued_at,
-                    future=req.future, callback=req.progress_callback,
+                    future=req.future, callback=req.progress_callback, request=req.request,
                 )
             ]
         if req.options.priority == "latency":
@@ -244,11 +247,13 @@ class BatchScheduler:
         content_frames = len(req.audio) // 160
         clips = pipe._prepare_seek_clips(req.options, content_frames)
         chunks = []
-        for clip_start_f, clip_end_f in clips:
-            region = req.audio[clip_start_f * 160 : clip_end_f * 160]
-            for c in chunker.chunk_all(region, max_chunk_length=WINDOW_SAMPLES):
-                c.seek_offset_index += clip_start_f * 160
-                chunks.append(c)
+        with signpost("vad", request=req.request) as span:
+            for clip_start_f, clip_end_f in clips:
+                region = req.audio[clip_start_f * 160 : clip_end_f * 160]
+                for c in chunker.chunk_all(region, max_chunk_length=WINDOW_SAMPLES):
+                    c.seek_offset_index += clip_start_f * 160
+                    chunks.append(c)
+            span.attrs["chunks"] = len(chunks)
         if not chunks:
             # e.g. clip_timestamps selecting an empty region: the pipeline's
             # own VAD path yields an empty result for zero chunks — mirror
@@ -279,50 +284,55 @@ class BatchScheduler:
         return [
             _Window(
                 c.audio_samples, req.options, req.enqueued_at,
-                parent=job, index=i, seek_offset=c.seek_offset_index,
+                parent=job, index=i, seek_offset=c.seek_offset_index, request=req.request,
             )
             for i, c in enumerate(chunks)
         ]
 
+    def _gather(self) -> None:
+        """Wait for work: block for the first unit unless windows are
+        pending, then gather more compatible work for up to max_wait_ms.
+        With a latency-class window pending the gather never BLOCKS (those
+        requests don't wait to batch) but the queue is still drained
+        non-blockingly — queued work must become visible to the
+        class-alternation logic in `_run`, or a latency stream would
+        starve everything sitting in the queue."""
+        if not self._pending:
+            req = self._queue.get()
+            if req is None:
+                return
+            try:
+                self._pending.extend(self._expand(req))
+            except Exception as e:
+                req.future.set_exception(e)
+                return
+        deadline = time.perf_counter() + self.max_wait_ms / 1000.0
+        while len(self._pending) < self.max_batch:
+            lat_pending = any(
+                w.options.priority == "latency" for w in self._pending
+            )
+            remaining = (
+                0.0 if lat_pending else deadline - time.perf_counter()
+            )
+            try:
+                if remaining <= 0:
+                    req = self._queue.get_nowait()
+                else:
+                    req = self._queue.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if req is None:
+                break
+            try:
+                self._pending.extend(self._expand(req))
+            except Exception as e:
+                req.future.set_exception(e)
+
     def _run(self) -> None:
         while self._running:
-            # refill: block for the first unit unless windows are pending
-            if not self._pending:
-                req = self._queue.get()
-                if req is None:
-                    continue
-                try:
-                    self._pending.extend(self._expand(req))
-                except Exception as e:
-                    req.future.set_exception(e)
-                    continue
-            # gather more compatible work for up to max_wait_ms. With a
-            # latency-class window pending the gather never BLOCKS (those
-            # requests don't wait to batch) but the queue is still drained
-            # non-blockingly — queued work must become visible to the
-            # class-alternation logic below, or a latency stream would
-            # starve everything sitting in the queue.
-            deadline = time.perf_counter() + self.max_wait_ms / 1000.0
-            while len(self._pending) < self.max_batch:
-                lat_pending = any(
-                    w.options.priority == "latency" for w in self._pending
-                )
-                remaining = (
-                    0.0 if lat_pending else deadline - time.perf_counter()
-                )
-                try:
-                    if remaining <= 0:
-                        req = self._queue.get_nowait()
-                    else:
-                        req = self._queue.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if req is None:
-                    break
-                try:
-                    self._pending.extend(self._expand(req))
-                except Exception as e:
-                    req.future.set_exception(e)
+            with signpost("batch.gather") as span:
+                self._gather()
+                span.attrs["pending"] = len(self._pending)
 
             if not self._pending:
                 # every gathered request expanded to zero windows (resolved
@@ -358,7 +368,13 @@ class BatchScheduler:
             taken = set(map(id, group))
             self._pending = [w for w in self._pending if id(w) not in taken]
             try:
-                self._process_group(group)
+                n = len(group)
+                with signpost("batch", windows=n, rows=self._bucket(n), pending=len(self._pending)) as span:
+                    # each window's queue wait: from its request's submit to this batch
+                    waits = [span.t0 - w.enqueued_at for w in group]
+                    span.attrs.update(wait_sum_s=sum(waits), wait_max_s=max(waits),
+                                      requests=tuple(w.request for w in group))
+                    self._process_group(group)
             except Exception as e:
                 for w in group:
                     fut = w.future or (w.parent.future if w.parent else None)
@@ -380,10 +396,12 @@ class BatchScheduler:
         audios = [w.audio for w in group] + [
             np.zeros(WINDOW_SAMPLES, np.float32)
         ] * (bucket - n)
-        mel_batch = pipe._mel_batch(audios)
+        with signpost("mel", windows=bucket):
+            mel_batch = pipe._mel_batch(audios)
 
         # pipe._encode honors the serving config (fused int8 cross-KV)
-        _, ck, cv = pipe._encode(mel_batch, options)
+        with signpost("encode", rows=bucket):
+            _, ck, cv = pipe._encode(mel_batch, options)
         # rows belong to DIFFERENT requests: each job detects its own
         # language (per-row argmax via the pipeline's shared resolution
         # ladder), and per-row prompts carry it into ONE shared batched
@@ -429,21 +447,24 @@ class BatchScheduler:
         self.batches_run += 1
         self.windows_run += n
         self.batch_windows.append(n)
-        for w, wd, language in zip(group, decodes, langs):
-            if w.parent is None:
-                self._finish_short(w, wd, language)
-                self.jobs_run += 1
-            else:
-                w.parent.decodes[w.index] = wd
-                w.parent.languages[w.index] = language
-                # the job's reported language is its FIRST window's (windows
-                # of one job can land in different batches in any order)
-                if w.index == 0 or w.parent.language is None:
-                    w.parent.language = language
-                self._emit_progress(w.parent)
-                if w.parent.complete and not w.parent.future.done():
-                    self._finish_long(w.parent)
+        with signpost("segments") as span:
+            segments = 0
+            for w, wd, language in zip(group, decodes, langs):
+                if w.parent is None:
+                    segments += self._finish_short(w, wd, language)
                     self.jobs_run += 1
+                else:
+                    w.parent.decodes[w.index] = wd
+                    w.parent.languages[w.index] = language
+                    # the job's reported language is its FIRST window's (windows
+                    # of one job can land in different batches in any order)
+                    if w.index == 0 or w.parent.language is None:
+                        w.parent.language = language
+                    self._emit_progress(w.parent)
+                    if w.parent.complete and not w.parent.future.done():
+                        segments += self._finish_long(w.parent)
+                        self.jobs_run += 1
+            span.attrs["segments"] = segments
 
     def _emit_progress(self, job: _LongJob) -> None:
         """Fire the job's progress callback for every window whose decode
@@ -510,7 +531,8 @@ class BatchScheduler:
             )
         return segments
 
-    def _finish_short(self, w: _Window, wd, language: str) -> None:
+    def _finish_short(self, w: _Window, wd, language: str) -> int:
+        """Resolve a short request's future; → its segments (0 on failure)."""
         try:
             window_frames = min(WINDOW_FRAMES, math.ceil(len(w.audio) / 160))
             segments = self._segments_for_window(
@@ -530,14 +552,17 @@ class BatchScheduler:
                     # the result still resolves (nothing left to cancel)
                     logging.debug(f"progress callback raised ({e!r}); ignoring")
             w.future.set_result(result)
+            return len(segments)
         except Exception as e:
             w.future.set_exception(e)
+            return 0
 
-    def _finish_long(self, job: _LongJob, partial: bool = False) -> None:
+    def _finish_long(self, job: _LongJob, partial: bool = False) -> int:
         """`partial=True` (progress-callback cancellation) resolves with the
-        contiguously decoded prefix; later-landing windows are ignored."""
+        contiguously decoded prefix; later-landing windows are ignored.
+        → the result's segments (0 where none resolves)."""
         if job.future.done():  # an earlier window's batch already failed it
-            return
+            return 0
         try:
             indices = range(job.emitted if partial else len(job.metas))
             all_segments: list[TranscriptionSegment] = []
@@ -565,5 +590,7 @@ class BatchScheduler:
             )
             result.timings.input_audio_seconds = job.audio_seconds
             job.future.set_result(result)
+            return len(all_segments)
         except Exception as e:
             job.future.set_exception(e)
+            return 0

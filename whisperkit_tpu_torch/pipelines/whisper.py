@@ -70,6 +70,7 @@ from whisperkit_tpu_torch.core.results import (
     TranscriptionResult,
     TranscriptionSegment,
 )
+from whisperkit_tpu_torch.core.signposts import new_request, signpost
 from whisperkit_tpu_torch.core.timings import TranscriptionTimings
 from whisperkit_tpu_torch.decoding.beam import beam_decode_loop
 from whisperkit_tpu_torch.decoding.filters import non_speech_token_ids, suppress_tokens_bias
@@ -344,10 +345,13 @@ class WhisperPipeline:
 
     def _sync(self, device: Optional[torch.device] = None) -> None:
         """With ComputeOptions.sync_timings, wait for the calling thread's
-        stream on the device so the surrounding stage stamp measures
+        stream on the device so the surrounding stage span measures
         execution, not enqueue. Not the whole device: on replicas of one
         card a tp peer's all-reduce may wait there for this rank's next
-        launch."""
+        launch. The stage spans (core/signposts.py) time host work: without
+        this wait a span around a launch ends once the launch is enqueued,
+        and the device's side of a stage comes from a trace, where each
+        span is a user annotation beside the device's activities."""
         device = device or self.device
         if self.config.compute_options.sync_timings and device.type == "cuda":
             torch.cuda.current_stream(device).synchronize()
@@ -446,10 +450,11 @@ class WhisperPipeline:
         numpy array of them (a mesh group's, gathered from every cell), those."""
         if isinstance(ck, np.ndarray):
             return ck[: (n_rows or None)]
-        probs = detect_language_logits(
-            self.params, ck, cv, dims=self.dims, special=self.tokenizer.special
-        )
-        return probs.cpu().numpy()[: (n_rows or None)]
+        with signpost("language", rows=(ck["q8"] if isinstance(ck, dict) else ck).shape[1]):
+            probs = detect_language_logits(
+                self.params, ck, cv, dims=self.dims, special=self.tokenizer.special
+            )
+            return probs.cpu().numpy()[: (n_rows or None)]
 
     def _detect_language_from_encoded(self, ck, cv, n_rows=None) -> str:
         """One masked decode step over all rows; languages ranked by mean
@@ -550,15 +555,15 @@ class WhisperPipeline:
         def get_prefill():
             nonlocal prefill
             if prefill is None:
-                t_pre = time.perf_counter()
-                prefill = prefill_window(
-                    params, cross_k, cross_v, prompt_arr,
-                    dims=self.dims, special=sp, sample_begin=len(prompt),
-                    max_new_tokens=max_new, sot_index=sot_index, alignment_heads=align_heads,
-                    quantize_self_kv=qskv,
-                )
-                self._sync(dev)
-                timings.prefill += time.perf_counter() - t_pre
+                with signpost("prefill", rows=b) as span:
+                    prefill = prefill_window(
+                        params, cross_k, cross_v, prompt_arr,
+                        dims=self.dims, special=sp, sample_begin=len(prompt),
+                        max_new_tokens=max_new, sot_index=sot_index, alignment_heads=align_heads,
+                        quantize_self_kv=qskv,
+                    )
+                    self._sync(dev)
+                timings.prefill += span.seconds
             else:
                 timings.prefill_cache_hits += 1
             return prefill
@@ -570,7 +575,6 @@ class WhisperPipeline:
         )
         results: list[Optional[_WindowDecode]] = [None] * b
         for rung, temperature in enumerate(options.temperatures):
-            t0 = time.perf_counter()
             draws = None if shard is None or rung not in shard.draws else shard.draws[rung].rows(shard.rows)
             scalars = self._decode_scalars(options, temperature, window_index * 101 + rung, draws)
             use_beam = options.beam_size > 1 and temperature == 0.0
@@ -581,87 +585,94 @@ class WhisperPipeline:
                 if shard is not None and shard.tp is not None:
                     # the tp ranks must stop at the same segment: the first reads the flag
                     should_stop = lambda: shard.tp.agree(lambda: flag.should_stop)  # noqa: E731
-            if use_beam:
-                out = beam_decode_loop(
-                    params, cross_k, cross_v, prompt_arr, suppress,
-                    scalars.max_initial_timestamp_index, beam_size=options.beam_size,
-                    length_penalty=options.length_penalty, **common,
-                )
-            elif (
+            # batch-1 latency mode: lossless draft-verify with prefills of its
+            # own, sized for a round's writes past the window's budget
+            speculative = not use_beam and (
                 params is self.params and self._draft_kv is not None and b == 1 and temperature == 0.0
                 and not capture and flag is None and not co.segmented_decode
-            ):
-                # batch-1 latency mode: lossless draft-verify with prefills of
-                # its own, sized for a round's writes past the window's budget
-                out = speculative_decode_loop(
-                    self.params, self.draft_params, cross_k, cross_v, *self._draft_kv,
-                    prompt_arr, suppress, scalars, draft_dims=self.draft_dims, **common,
-                )
-            elif flag is not None or co.segmented_decode:
-                out = decode_loop_segmented(
-                    params, cross_k, cross_v, prompt_arr, suppress, scalars,
-                    top_k=options.top_k, alignment_heads=align_heads, prefill=get_prefill(),
-                    should_stop=should_stop, compact=co.segmented_decode, **common,
-                )
-            else:
-                out = decode_loop(
-                    params, cross_k, cross_v, prompt_arr, suppress, scalars,
-                    top_k=options.top_k, alignment_heads=align_heads, prefill=get_prefill(), **common,
-                )
-            tokens_np = out.tokens.cpu().numpy()
-            lps_np = out.token_logprobs.cpu().numpy()
-            nsp_np = out.no_speech_prob.float().cpu().numpy()
-            align_np = None
-            if capture and use_beam:
-                # beam search does not capture in its loop: one teacher-forced
-                # pass over the winning hypotheses (openai timing.py style)
-                align_np = alignment_forward(
-                    params, cross_k, cross_v, out.tokens, dims=self.dims, alignment_heads=align_heads,
-                ).cpu().numpy()
-            elif capture:
-                # the rows past the loop's last position are zeros
-                align_np = out.alignment[: min(out.length + 1, out.alignment.shape[0])].cpu().numpy()
-            timings.decoding_loop += time.perf_counter() - t0
+            )
+            pre = None if use_beam or speculative else get_prefill()
+            with signpost("decode", rows=b, rung=rung) as loop_span:
+                if use_beam:
+                    out = beam_decode_loop(
+                        params, cross_k, cross_v, prompt_arr, suppress,
+                        scalars.max_initial_timestamp_index, beam_size=options.beam_size,
+                        length_penalty=options.length_penalty, **common,
+                    )
+                elif speculative:
+                    out = speculative_decode_loop(
+                        self.params, self.draft_params, cross_k, cross_v, *self._draft_kv,
+                        prompt_arr, suppress, scalars, draft_dims=self.draft_dims, **common,
+                    )
+                elif flag is not None or co.segmented_decode:
+                    out = decode_loop_segmented(
+                        params, cross_k, cross_v, prompt_arr, suppress, scalars,
+                        top_k=options.top_k, alignment_heads=align_heads, prefill=pre,
+                        should_stop=should_stop, compact=co.segmented_decode, **common,
+                    )
+                else:
+                    out = decode_loop(
+                        params, cross_k, cross_v, prompt_arr, suppress, scalars,
+                        top_k=options.top_k, alignment_heads=align_heads, prefill=pre, **common,
+                    )
+                loop_span.attrs["positions"] = int(out.length) - len(prompt)
+            with signpost("readback") as read_span:
+                tokens_np = out.tokens.cpu().numpy()
+                lps_np = out.token_logprobs.cpu().numpy()
+                nsp_np = out.no_speech_prob.float().cpu().numpy()
+                align_np = None
+                if capture and use_beam:
+                    # beam search does not capture in its loop: one teacher-forced
+                    # pass over the winning hypotheses (openai timing.py style)
+                    align_np = alignment_forward(
+                        params, cross_k, cross_v, out.tokens, dims=self.dims, alignment_heads=align_heads,
+                    ).cpu().numpy()
+                elif capture:
+                    # the rows past the loop's last position are zeros
+                    align_np = out.alignment[: min(out.length + 1, out.alignment.shape[0])].cpu().numpy()
+            rung_s = loop_span.seconds + read_span.seconds
+            timings.decoding_loop += rung_s
             if rung > 0:
-                timings.decoding_fallback += time.perf_counter() - t0
+                timings.decoding_fallback += rung_s
                 timings.total_decoding_fallbacks += b
 
             any_pending = False
-            for i in range(b):
-                if results[i] is not None:
-                    continue
-                row = tokens_np[i, len(prompt):]
-                eots = np.nonzero(row == sp.eot)[0]
-                n = int(eots[0]) if len(eots) else len(row)
-                sampled = row[:n].tolist()
-                lps = lps_np[i, len(prompt) : len(prompt) + n].tolist()
-                eot_lp = float(lps_np[i, len(prompt) + n]) if n < len(row) else 0.0
-                timings.total_decoding_loops += n + (1 if n < len(row) else 0)
-                avg_lp = (sum(lps) + eot_lp) / (n + 1) if n else eot_lp
-                text = self.tokenizer.decode(sampled)
-                cr = compression_ratio_text(text)
-                first_lp = lps[0] if lps else None
-                fallback = DecodingFallback.evaluate(
-                    logprob_threshold=options.logprob_threshold,
-                    first_token_logprob_threshold=options.first_token_log_prob_threshold,
-                    no_speech_threshold=options.no_speech_threshold,
-                    compression_ratio_threshold=options.compression_ratio_threshold,
-                    compression_ratio=cr,
-                    avg_logprob=avg_lp,
-                    first_token_logprob=first_lp,
-                    no_speech_prob=float(nsp_np[i]),
-                )
-                is_last_rung = rung == len(options.temperatures) - 1
-                if fallback is None or not fallback.need_fallback or is_last_rung:
-                    results[i] = _WindowDecode(
-                        tokens=sampled, logprobs=lps, avg_logprob=avg_lp,
-                        compression_ratio=cr, no_speech_prob=float(nsp_np[i]),
-                        temperature=temperature, language=langs[i],
-                        alignment=None if align_np is None else align_np[: len(prompt) + n + 1, i],
-                        sample_begin=len(prompt),
+            with signpost("fallback_eval", rows=b):
+                for i in range(b):
+                    if results[i] is not None:
+                        continue
+                    row = tokens_np[i, len(prompt):]
+                    eots = np.nonzero(row == sp.eot)[0]
+                    n = int(eots[0]) if len(eots) else len(row)
+                    sampled = row[:n].tolist()
+                    lps = lps_np[i, len(prompt) : len(prompt) + n].tolist()
+                    eot_lp = float(lps_np[i, len(prompt) + n]) if n < len(row) else 0.0
+                    timings.total_decoding_loops += n + (1 if n < len(row) else 0)
+                    avg_lp = (sum(lps) + eot_lp) / (n + 1) if n else eot_lp
+                    text = self.tokenizer.decode(sampled)
+                    cr = compression_ratio_text(text)
+                    first_lp = lps[0] if lps else None
+                    fallback = DecodingFallback.evaluate(
+                        logprob_threshold=options.logprob_threshold,
+                        first_token_logprob_threshold=options.first_token_log_prob_threshold,
+                        no_speech_threshold=options.no_speech_threshold,
+                        compression_ratio_threshold=options.compression_ratio_threshold,
+                        compression_ratio=cr,
+                        avg_logprob=avg_lp,
+                        first_token_logprob=first_lp,
+                        no_speech_prob=float(nsp_np[i]),
                     )
-                else:
-                    any_pending = True
+                    is_last_rung = rung == len(options.temperatures) - 1
+                    if fallback is None or not fallback.need_fallback or is_last_rung:
+                        results[i] = _WindowDecode(
+                            tokens=sampled, logprobs=lps, avg_logprob=avg_lp,
+                            compression_ratio=cr, no_speech_prob=float(nsp_np[i]),
+                            temperature=temperature, language=langs[i],
+                            alignment=None if align_np is None else align_np[: len(prompt) + n + 1, i],
+                            sample_begin=len(prompt),
+                        )
+                    else:
+                        any_pending = True
             if not any_pending:
                 break
         return results  # type: ignore[return-value]
@@ -679,28 +690,30 @@ class WhisperPipeline:
         options = decode_options or DecodingOptions()
         if isinstance(audio, (list, tuple)):
             return self._transcribe_batch(list(audio), options, callback)
-        t0 = time.perf_counter()
-        timings = TranscriptionTimings(pipeline_start=t0)
-        self.timings = timings
-        self._detected_language = None  # per call; never reused across files
-        if isinstance(audio, (str, Path)):
-            audio = load_audio(audio)
-            timings.audio_loading = time.perf_counter() - t0
-        audio = np.asarray(audio, np.float32)
-        timings.input_audio_seconds = max(len(audio) / SAMPLE_RATE, 1e-3)
+        # the request's root span: every stage span below carries its id
+        with signpost("transcribe", request=new_request()) as root:
+            timings = TranscriptionTimings(pipeline_start=root.t0)
+            self.timings = timings
+            self._detected_language = None  # per call; never reused across files
+            if isinstance(audio, (str, Path)):
+                audio = load_audio(audio)
+                timings.audio_loading = time.perf_counter() - root.t0
+            audio = np.asarray(audio, np.float32)
+            timings.input_audio_seconds = max(len(audio) / SAMPLE_RATE, 1e-3)
+            root.attrs["audio_s"] = len(audio) / SAMPLE_RATE
 
-        if self.params is None:
-            raise ModelsUnavailable("models not loaded")
+            if self.params is None:
+                raise ModelsUnavailable("models not loaded")
 
-        use_vad = (
-            options.chunking_strategy == ChunkingStrategy.VAD
-            and len(audio) > WINDOW_SAMPLES
-        )
-        if use_vad:
-            result = self._transcribe_vad_chunked(audio, options, callback)
-        else:
-            result = self._transcribe_array(audio, options, callback)
-        timings.full_pipeline = time.perf_counter() - t0
+            use_vad = (
+                options.chunking_strategy == ChunkingStrategy.VAD
+                and len(audio) > WINDOW_SAMPLES
+            )
+            if use_vad:
+                result = self._transcribe_vad_chunked(audio, options, callback)
+            else:
+                result = self._transcribe_array(audio, options, callback)
+        timings.full_pipeline = root.seconds
         result.timings = timings
         return result
 
@@ -745,36 +758,40 @@ class WhisperPipeline:
     def _transcribe_short_batch(self, audios: list, options: DecodingOptions) -> list:
         """Decode N ≤30 s clips as one batch, language resolved per row."""
         t0 = time.perf_counter()
-        mel_batch = self._mel_batch(audios)
-        _, ck, cv = self._encode(mel_batch, options)
+        with signpost("mel", windows=len(audios)):
+            mel_batch = self._mel_batch(audios)
+        with signpost("encode", rows=len(audios)):
+            _, ck, cv = self._encode(mel_batch, options)
         self._detected_language = None
         langs = self._group_languages(options, ck, cv, len(audios), per_row=True)
         decodes = self._decode_with_fallback(ck, cv, options, langs, 0)
         sp = self.tokenizer.special
         out = []
-        for a, wd in zip(audios, decodes):
-            window_frames = min(WINDOW_FRAMES, math.ceil(len(a) / 160))
-            if self._should_skip_silent(wd, options):
-                segments = []
-            else:
-                segments = find_seek_point_and_segments(
-                    tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
-                    time_offset=0.0, window_frames=window_frames, seek=0,
-                    decode_fn=self.tokenizer.decode, temperature=wd.temperature,
-                    avg_logprob=wd.avg_logprob, compression_ratio=wd.compression_ratio,
-                    no_speech_prob=wd.no_speech_prob,
-                ).segments
-                if options.word_timestamps and wd.alignment is not None:
-                    segments = self._add_word_timestamps(segments, wd, 0.0, window_frames)
-                for s in segments:
-                    s.language = wd.language
-            result = TranscriptionResult(
-                text="".join(s.text for s in segments).strip(),
-                segments=segments, language=wd.language,
-            )
-            result.timings.input_audio_seconds = len(a) / SAMPLE_RATE
-            result.timings.full_pipeline = time.perf_counter() - t0
-            out.append(result)
+        with signpost("segments") as span:
+            for a, wd in zip(audios, decodes):
+                window_frames = min(WINDOW_FRAMES, math.ceil(len(a) / 160))
+                if self._should_skip_silent(wd, options):
+                    segments = []
+                else:
+                    segments = find_seek_point_and_segments(
+                        tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
+                        time_offset=0.0, window_frames=window_frames, seek=0,
+                        decode_fn=self.tokenizer.decode, temperature=wd.temperature,
+                        avg_logprob=wd.avg_logprob, compression_ratio=wd.compression_ratio,
+                        no_speech_prob=wd.no_speech_prob,
+                    ).segments
+                    if options.word_timestamps and wd.alignment is not None:
+                        segments = self._add_word_timestamps(segments, wd, 0.0, window_frames)
+                    for s in segments:
+                        s.language = wd.language
+                result = TranscriptionResult(
+                    text="".join(s.text for s in segments).strip(),
+                    segments=segments, language=wd.language,
+                )
+                result.timings.input_audio_seconds = len(a) / SAMPLE_RATE
+                result.timings.full_pipeline = time.perf_counter() - t0
+                out.append(result)
+            span.attrs["segments"] = sum(len(r.segments) for r in out)
         return out
 
     def _vad_chunks(self, audio: np.ndarray, options: DecodingOptions) -> list:
@@ -793,9 +810,10 @@ class WhisperPipeline:
     ) -> TranscriptionResult:
         """VAD-chunk + batched decode in groups of `concurrent_worker_count`
         windows (reference: WhisperKit.swift:867-931)."""
-        t_chunk = time.perf_counter()
-        chunks = self._vad_chunks(audio, options)
-        self.timings.audio_processing += time.perf_counter() - t_chunk
+        with signpost("vad") as span:
+            chunks = self._vad_chunks(audio, options)
+            span.attrs["chunks"] = len(chunks)
+        self.timings.audio_processing += span.seconds
         self.timings.total_audio_processing_runs += 1
 
         plan = self._mesh()
@@ -817,7 +835,6 @@ class WhisperPipeline:
             # a dcn x dp multiple
             return min(plan.pad_batch(bucket(n_real, group)), group)
 
-        t_mel = time.perf_counter()
         windows = [
             audio[c.seek_offset_index : c.seek_offset_index + min(len(c.audio_samples), WINDOW_SAMPLES)]
             for c in chunks
@@ -828,10 +845,11 @@ class WhisperPipeline:
         pad_rows = bool(chunks) and n_last < gsize_of(n_last)
         if pad_rows:
             windows.append(np.zeros(WINDOW_SAMPLES, np.float32))
-        mels = self._mel_batch(windows) if windows else None
-        pad_mel = mels[len(chunks)] if pad_rows else None
-        self._sync()
-        self.timings.log_mels += time.perf_counter() - t_mel
+        with signpost("mel", windows=len(windows)) as span:
+            mels = self._mel_batch(windows) if windows else None
+            pad_mel = mels[len(chunks)] if pad_rows else None
+            self._sync()
+        self.timings.log_mels += span.seconds
         self.timings.total_log_mel_runs += len(chunks)
         metas = [
             (c.seek_offset_index, min(WINDOW_FRAMES, math.ceil(len(c.audio_samples) / 160)))
@@ -883,24 +901,25 @@ class WhisperPipeline:
 
         all_segments: list[TranscriptionSegment] = []
         sp = self.tokenizer.special
-        t_windowing = time.perf_counter()
-        for (start_sample, window_frames), wd in zip(metas, decodes):
-            if wd is None or self._should_skip_silent(wd, options):
-                continue
-            segs = find_seek_point_and_segments(
-                tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
-                time_offset=start_sample / SAMPLE_RATE, window_frames=window_frames,
-                seek=start_sample // 160, decode_fn=self.tokenizer.decode,
-                temperature=wd.temperature, avg_logprob=wd.avg_logprob,
-                compression_ratio=wd.compression_ratio, no_speech_prob=wd.no_speech_prob,
-                segment_id_start=len(all_segments),
-            ).segments
-            if options.word_timestamps and wd.alignment is not None:
-                segs = self._add_word_timestamps(segs, wd, start_sample / SAMPLE_RATE, window_frames)
-            for s in segs:
-                s.language = wd.language
-            all_segments.extend(self.window_post_process(start_sample // 160, window_frames, segs))
-        self.timings.decoding_windowing += time.perf_counter() - t_windowing
+        with signpost("segments") as span:
+            for (start_sample, window_frames), wd in zip(metas, decodes):
+                if wd is None or self._should_skip_silent(wd, options):
+                    continue
+                segs = find_seek_point_and_segments(
+                    tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
+                    time_offset=start_sample / SAMPLE_RATE, window_frames=window_frames,
+                    seek=start_sample // 160, decode_fn=self.tokenizer.decode,
+                    temperature=wd.temperature, avg_logprob=wd.avg_logprob,
+                    compression_ratio=wd.compression_ratio, no_speech_prob=wd.no_speech_prob,
+                    segment_id_start=len(all_segments),
+                ).segments
+                if options.word_timestamps and wd.alignment is not None:
+                    segs = self._add_word_timestamps(segs, wd, start_sample / SAMPLE_RATE, window_frames)
+                for s in segs:
+                    s.language = wd.language
+                all_segments.extend(self.window_post_process(start_sample // 160, window_frames, segs))
+            span.attrs["segments"] = len(all_segments)
+        self.timings.decoding_windowing += span.seconds
         language = self._majority_language(
             [wd.language for wd in decodes if wd is not None], options
         )
@@ -933,15 +952,16 @@ class WhisperPipeline:
             _, ck, cv = self._encode(parts[g][r], options, *tree)
             probs = None
             if need_probs:  # every rank runs the step: under tp it holds collectives
-                probs = detect_language_logits(
-                    trees[g][r], ck, cv, dims=self.dims, special=self.tokenizer.special,
-                ).cpu().numpy()
+                with signpost("language", rows=parts[g][r].shape[0]):
+                    probs = detect_language_logits(
+                        trees[g][r], ck, cv, dims=self.dims, special=self.tokenizer.special,
+                    ).cpu().numpy()
             self._sync(dev)
             return ck, cv, probs
 
-        t_enc = time.perf_counter()
-        encoded = plan.run(encode)
-        self.timings.encoding += time.perf_counter() - t_enc
+        with signpost("encode", rows=gsize) as span:
+            encoded = plan.run(encode)
+        self.timings.encoding += span.seconds
         self.timings.total_encoding_runs += n_real
         # the probabilities of every cell's rows stand in for the encoded rows
         probs = np.concatenate([cell[0][2] for cell in encoded]) if need_probs else None
@@ -996,11 +1016,11 @@ class WhisperPipeline:
             total_frames = (content_frames // WINDOW_FRAMES + 2) * WINDOW_FRAMES
             padded = np.zeros(total_frames * 160, np.float32)
             padded[: len(audio)] = audio
-            t_mel = time.perf_counter()
-            full_mel = log_mel_spectrogram(
-                self._upload_audio(padded), n_mels=self.dims.n_mels, n_frames=total_frames,
-            )
-            self.timings.log_mels += time.perf_counter() - t_mel
+            with signpost("mel", windows=total_frames // WINDOW_FRAMES) as span:
+                full_mel = log_mel_spectrogram(
+                    self._upload_audio(padded), n_mels=self.dims.n_mels, n_frames=total_frames,
+                )
+            self.timings.log_mels += span.seconds
             self.timings.total_log_mel_runs += 1
 
         all_segments: list[TranscriptionSegment] = []
@@ -1019,13 +1039,13 @@ class WhisperPipeline:
                 if full_mel is not None:
                     mel = full_mel[:, seek : seek + WINDOW_FRAMES][None]
                 else:
-                    t_mel = time.perf_counter()
-                    mel = self._mel(pad_or_trim(window))[None]
-                    self.timings.log_mels += time.perf_counter() - t_mel
+                    with signpost("mel", windows=1) as span:
+                        mel = self._mel(pad_or_trim(window))[None]
+                    self.timings.log_mels += span.seconds
                     self.timings.total_log_mel_runs += 1
-                t_enc = time.perf_counter()
-                _, ck, cv = self._encode(mel, options)
-                self.timings.encoding += time.perf_counter() - t_enc
+                with signpost("encode", rows=1) as span:
+                    _, ck, cv = self._encode(mel, options)
+                self.timings.encoding += span.seconds
                 self.timings.total_encoding_runs += 1
 
                 language = self._resolve_language(options, ck, cv)
@@ -1040,21 +1060,23 @@ class WhisperPipeline:
                     window_index += 1
                     continue
 
-                res = find_seek_point_and_segments(
-                    tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
-                    time_offset=seek / FRAMES_PER_SECOND, window_frames=window_frames,
-                    seek=seek, decode_fn=self.tokenizer.decode,
-                    temperature=wd.temperature, avg_logprob=wd.avg_logprob,
-                    compression_ratio=wd.compression_ratio,
-                    no_speech_prob=wd.no_speech_prob,
-                    segment_id_start=len(all_segments),
-                )
-                segs = res.segments
-                if options.word_timestamps and wd.alignment is not None:
-                    segs = self._add_word_timestamps(segs, wd, seek / FRAMES_PER_SECOND, window_frames)
-                for s in segs:
-                    s.language = wd.language
-                all_segments.extend(self.window_post_process(seek, window_frames, segs))
+                with signpost("segments") as span:
+                    res = find_seek_point_and_segments(
+                        tokens=wd.tokens, token_logprobs=wd.logprobs, special=sp,
+                        time_offset=seek / FRAMES_PER_SECOND, window_frames=window_frames,
+                        seek=seek, decode_fn=self.tokenizer.decode,
+                        temperature=wd.temperature, avg_logprob=wd.avg_logprob,
+                        compression_ratio=wd.compression_ratio,
+                        no_speech_prob=wd.no_speech_prob,
+                        segment_id_start=len(all_segments),
+                    )
+                    segs = res.segments
+                    if options.word_timestamps and wd.alignment is not None:
+                        segs = self._add_word_timestamps(segs, wd, seek / FRAMES_PER_SECOND, window_frames)
+                    for s in segs:
+                        s.language = wd.language
+                    all_segments.extend(self.window_post_process(seek, window_frames, segs))
+                    span.attrs["segments"] = len(segs)
 
                 advance = res.seek_advance_frames
                 if options.max_window_seek is not None:
