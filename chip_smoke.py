@@ -113,8 +113,9 @@ Phases, one line each; any failure exits non-zero:
      folder (tools/checkpoint.write_qwen3_tts_checkpoint), loaded through
      TTSPipeline.from_pretrained with every leaf equal, and
      `python -m whisperkit_tpu_torch.cli tts` on it in a child process (a
-     24 kHz WAV of frames x 1920 samples). No kernel of the port runs in
-     phases 19-20: their launch counts (the path `tts`) must all be 0
+     24 kHz WAV of frames x 1920 samples). No Whisper kernel of the port
+     runs in phases 19-20: their launch counts (the path `tts`) must all be
+     0 but the W8A16 product's, which the W8A16 frames must launch
  21. quantization divergence (eval/quant_delta.py) at large-v3 on phase
      4's tree: teacher_forced_divergence on the first 30 s window, 96
      tokens, every scheme of DEFAULT_SCHEMES (agreement, flips, bf16
@@ -186,6 +187,21 @@ Phases, one line each; any failure exits non-zero:
      (the accept path: more than one token a target pass). Tokens,
      log-probs, sums, `length` bit-equal, launches equal, captures (two
      for beam, one for speculative) and a replay per later step or round
+ 28. the W8A16 product's kernel (csrc/w8a16_matmul.cu), right after phase
+     3: at the decode step's shapes ([1280, 1280], [1280, 5120],
+     [5120, 1280] at rows 1, 8, 16, 32, 64, 128, 160; a tp column slice
+     [1280, 640] and row slice [2560, 1280] at 32 rows; a 3-d x) against
+     the float64 product of the same bf16 operands, within twice the plain
+     version's error; the folded bias, three products in one launch and two
+     replays of a captured graph bit-equal; a two-layer large-v3-wide
+     decoder launching it 6 times a layer for its 8 products in the prompt
+     pass and a step (none for the cross-KV projection), its step logits
+     against the plain version's; ptxas's registers and spills; in a
+     process of its own (W8A16_TIMES_ARG), device times of the kernel, the
+     plain version and torch.matmul on the dequantized weight (the
+     library), the bound, the row crossover (timed up to the kernel's 256
+     rows), and one large-v3 decode step's launches at 32 rows.
+     `python3 chip_smoke.py --w8a16` runs phases 1, 2 and 28 alone
 Phases 21-23 run after phase 15, while phase 4's tree and phase 13's
 pipeline are on the card (and TF32 is off, as in phases 1-15), then phases
 16-20 run; phases 25, 27 and 24's Whisper part run after phase 12, on
@@ -368,7 +384,8 @@ def phase_card(torch) -> tuple[str, str]:
     return name, card
 
 
-def phase_build() -> None:
+def phase_build() -> str:
+    """Build the kernels; print and return nvcc's `-Xptxas -v` report."""
     from whisperkit_tpu_torch.ops import _build
 
     res = _build.build(force=True)
@@ -378,6 +395,7 @@ def phase_build() -> None:
     for line in res.log.splitlines():
         if ("ptxas info" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
             say(f"  {line.strip()}")
+    return res.log
 
 
 def record(results: dict, card: str, key, err, tol, ms, plain_ms, bound_info, library_ms=None, extra="",
@@ -1239,7 +1257,7 @@ def phase_main_path(torch, card: str) -> dict:
     run = run_path(
         torch, "phase 4 bf16 path: large-v3 bf16 serving", pipe, audio, card,
         launched=("log_mel", "mha_encoder", "cross_attend_q8", "self_attend"),
-        per_layer=("cross_attend_q8", "self_attend"), idle=("self_attend_q8",),
+        per_layer=("cross_attend_q8", "self_attend"), idle=("self_attend_q8", "w8a16_matmul"),
         extra=f", init_params {t_init:.1f} s",
     )
     return {"counts": run["counts"], "pipe": pipe, "audio": audio, "graph": run["graph"], "wall": run["wall"]}
@@ -1267,8 +1285,8 @@ def phase_int8_path(torch, card: str, bf16_pipe, audio) -> dict:
     )
     run = run_path(
         torch, "phase 6 int8 path: large-v3 W8A16 + int8 cross-KV + int8 self-KV", pipe, audio, card,
-        launched=("log_mel", "mha_encoder", "cross_attend_q8", "self_attend_q8"),
-        per_layer=("cross_attend_q8", "self_attend_q8"), idle=("self_attend",),
+        launched=("log_mel", "mha_encoder", "cross_attend_q8", "self_attend_q8", "w8a16_matmul"),
+        per_layer=("cross_attend_q8", "self_attend_q8", "w8a16_matmul"), idle=("self_attend",),
         extra=f", quantize {t_quant:.3f} s",
     )
     say(f"  weights: W8A16 {q_bytes} bytes ({q_bytes / 2**30:.3f} GiB) vs bf16 {bf16_bytes} bytes "
@@ -1284,6 +1302,7 @@ def phase_step_parity(torch, label, pipe, audio, card) -> None:
     from whisperkit_tpu_torch.decoding.loop import encode_window, prefill_window
     from whisperkit_tpu_torch.models import whisper as model
     from whisperkit_tpu_torch.ops import attention_decode as ad
+    from whisperkit_tpu_torch.ops import quant
 
     dims, params, sp = pipe.dims, pipe.params, pipe.tokenizer.special
     q8_self = pipe.config.compute_options.quantize_self_kv
@@ -1301,7 +1320,9 @@ def phase_step_parity(torch, label, pipe, audio, card) -> None:
     kernel_logits = step()
     with mock.patch.object(model, "self_attend", ad.self_attend_reference), \
             mock.patch.object(model, "self_attend_q8", ad.self_attend_q8_reference), \
-            mock.patch.object(model, "cross_attend_q8", ad.cross_attend_q8_reference):
+            mock.patch.object(model, "cross_attend_q8", ad.cross_attend_q8_reference), \
+            mock.patch.object(quant, "w8a16_matmul", lambda x, qs, biases: [
+                quant.quantized_matmul_reference(x, q, b) for q, b in zip(qs, biases)]):
         plain_logits = step()
     err = max_abs(torch, kernel_logits, plain_logits)
     scale = float(plain_logits.abs().max())
@@ -1991,6 +2012,246 @@ def phase_search_graphs(torch, card: str, pipe, draft_params, draft_dims, audio,
 
 # phases 13-15: the request lengths cut from phase 4's audio, in seconds
 WAV_SECONDS = (120, 90, 60, 30)
+
+
+# --- phase 28: the W8A16 product's kernel (csrc/w8a16_matmul.cu) -----------
+
+# the decode step's W8A16 products at large-v3's widths ([in, out]): self
+# q/k/v/out and cross q/out at [1280, 1280], fc1, fc2; then one tp slice of
+# each kind (a column slice of a [1280, 1280] linear, a row slice of fc2)
+W8A16_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280))
+W8A16_TP_SHAPES = ((1280, 640), (2560, 1280))
+W8A16_ROWS = (1, 8, 16, 32, 64, 128, 160)
+# beyond the dispatch's rows, up to the kernel's: where the crossover lies
+W8A16_TIMED_ROWS = W8A16_ROWS + (192, 256)
+# weight sets a timed shape cycles through: over 100 MB, twice the 50 MB L2,
+# so every launch reads its codes from device memory as a decode step does
+W8A16_SET_BYTES = 100e6
+# the argument that runs phases 1, 2 and 28 alone, and its timing process
+W8A16_ARG = "--w8a16"
+W8A16_TIMES_ARG = "--w8a16-times"
+
+
+def w8a16_bytes(rows: int, k: int, n: int) -> int:
+    """The product's least traffic: the codes, the bf16 scales, x and y."""
+    return k * n + 2 * n + 2 * rows * k + 2 * rows * n
+
+
+def w8a16_case(torch, g, dev, k: int, n: int, sets: int = 1) -> list:
+    """`sets` random W8A16 weights [k, n] (quantize_weight of N(0, 0.05^2))
+    with random bf16 biases."""
+    from whisperkit_tpu_torch.ops import quant
+
+    out = []
+    for _ in range(sets):
+        q = quant.quantize_weight(torch.randn((k, n), generator=g, device=dev) * 0.05)
+        q["b"] = (torch.randn((n,), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        out.append(q)
+    return out
+
+
+def check_w8a16(torch, g, dev, k: int, n: int, rows: int, x_shape=None) -> dict:
+    """The kernel against the float64 product of the same bf16 operands, its
+    error beside the plain version's; the folded bias against the kernel's
+    product plus the bias, rounded (bit-equal)."""
+    from whisperkit_tpu_torch.ops import quant
+
+    q = w8a16_case(torch, g, dev, k, n)[0]
+    x = torch.randn(x_shape or (rows, k), generator=g, device=dev).to(torch.bfloat16)
+    w = quant.dequantize_weight(q, torch.bfloat16)
+    exact = x.double() @ w.double()
+    kernel, with_bias = quant.w8a16_matmul(x, [q, q], [None, q["b"]])
+    plain = quant.quantized_matmul_reference(x, q)
+    err, plain_err = max_abs(torch, kernel, exact), max_abs(torch, plain, exact)
+    if not bool(torch.isfinite(kernel.float()).all()) or not err <= 2 * plain_err:
+        fail(f"w8a16_matmul [{k}, {n}] x {tuple(x.shape)}: max error {err:.3e} against float64, "
+             f"more than twice the plain version's {plain_err:.3e}")
+    if not torch.equal(with_bias, kernel + q["b"]):
+        fail(f"w8a16_matmul [{k}, {n}] x {tuple(x.shape)}: the folded bias is not the product plus the bias")
+    return {"err": err, "plain_err": plain_err}
+
+
+def w8a16_graph_replays(torch, g, dev) -> bool:
+    """Two replays of a captured graph of the q/k/v launch and fc2 give the
+    eager call's bits."""
+    from whisperkit_tpu_torch.ops import quant
+
+    qs = w8a16_case(torch, g, dev, 1280, 1280, 3)
+    fc2 = w8a16_case(torch, g, dev, 5120, 1280)[0]
+    x = torch.randn((GROUP, 1, 1280), generator=g, device=dev).to(torch.bfloat16)
+    h = torch.randn((GROUP, 1, 5120), generator=g, device=dev).to(torch.bfloat16)
+    outs = {}
+
+    def run(i):
+        outs["qkv"] = quant.w8a16_matmul(x, qs, [q["b"] for q in qs])
+        outs["fc2"] = quant.w8a16_matmul(h, [fc2], [None])[0]
+
+    run(0)
+    eager = [t.clone() for t in (*outs["qkv"], outs["fc2"])]
+    graph = captured(torch, run, 1)
+    got = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        got.append([t.clone() for t in (*outs["qkv"], outs["fc2"])])
+    return all(torch.equal(a, b) for replay in got for a, b in zip(replay, eager))
+
+
+def w8a16_decoder_launches(torch, g, dev) -> dict:
+    """The W8A16 kernel's launches in a two-layer decoder of large-v3's
+    widths (random W8A16 weights, int8 cross-KV): the cross-KV projection
+    (GROUP x 1500 rows) takes the plain version; the prompt pass (GROUP x 3
+    rows) and one step (GROUP rows) take q, k and v in one launch and each
+    other product in one: 6 launches for 8 products a layer. The step's
+    logits against the same step with the plain version."""
+    from dataclasses import replace
+    from unittest import mock
+
+    from whisperkit_tpu_torch.models import whisper as model
+    from whisperkit_tpu_torch.ops import _build, quant
+
+    dims = replace(model.VARIANT_DIMS["large-v3"], n_audio_layer=1, n_text_layer=2)
+    params = quant.quantize_whisper_params(model.init_params(SEED, dims, torch.bfloat16, dev))
+    enc = torch.randn((GROUP, dims.n_audio_ctx, dims.n_audio_state), generator=g, device=dev).to(torch.bfloat16)
+    prompt = torch.randint(0, dims.n_vocab, (GROUP, 3), generator=g, device=dev)
+    token = torch.randint(0, dims.n_vocab, (GROUP, 1), generator=g, device=dev)
+    counts = {}
+
+    def step():
+        with torch.inference_mode():
+            _build.reset_launches()
+            ck, cv = model.compute_cross_kv_quantized(params, enc, dims)
+            counts["cross_kv"] = _build.launches["w8a16_matmul"]
+            kv_k, kv_v = model.init_kv_cache(dims, GROUP, 224, torch.bfloat16, dev)
+            model.decoder_forward(params, prompt, 0, kv_k, kv_v, ck, cv, dims)
+            counts["prompt"] = _build.launches["w8a16_matmul"] - counts["cross_kv"]
+            logits = model.decoder_forward(params, token, 3, kv_k, kv_v, ck, cv, dims)[:, -1]
+            counts["step"] = _build.launches["w8a16_matmul"] - counts["cross_kv"] - counts["prompt"]
+        return logits
+
+    kernel = step()
+    launched = dict(counts)
+    with mock.patch.object(quant, "w8a16_matmul", lambda x, qs, biases: [
+            quant.quantized_matmul_reference(x, q, b) for q, b in zip(qs, biases)]):
+        plain = step()
+    err, scale = max_abs(torch, kernel, plain), float(plain.abs().max())
+    want = {"cross_kv": 0, "prompt": 6 * dims.n_text_layer, "step": 6 * dims.n_text_layer}
+    if launched != want or not err <= 2.0 ** -4 * scale:
+        fail(f"w8a16_matmul in the decoder: launches {launched} (want {want}), step logits differ from the plain "
+             f"version's by {err:.3e} (max |logit| {scale:.3f})")
+    return {"launches": launched, "products_a_layer": 8, "logits_err": err, "logits_scale": scale}
+
+
+def phase_w8a16(torch, card: str, build_log: str) -> dict:
+    """Phase 28: the W8A16 kernel at the decode step's shapes and rows (and
+    a tp slice of each kind, a 3-d x, three products in one launch) against
+    the float64 product of the same bf16 operands, within twice the plain
+    version's error; the folded bias bit-equal; a captured graph's replays
+    bit-equal; ptxas's registers and spills; then (in a process of its own)
+    device times of the kernel, the plain version and torch.matmul on the
+    dequantized weight, the bound, and the row crossover (timed up to the
+    kernel's 256 rows)."""
+    from whisperkit_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    ptxas = [line.strip() for line in build_log.split("w8a16_matmul.cu:", 1)[-1].splitlines()
+             if "w8a16" in line or "Used" in line or "spill" in line][:40]
+    for line in ptxas:
+        say(f"phase 28 ptxas: {line}")
+    checks = {}
+    for k, n in W8A16_SHAPES + W8A16_TP_SHAPES:
+        for rows in (W8A16_ROWS if (k, n) in W8A16_SHAPES else (GROUP,)):
+            checks[f"{k}x{n}/{rows}"] = check_w8a16(torch, g, dev, k, n, rows)
+    checks["1280x1280/32x1 (3-d x)"] = check_w8a16(torch, g, dev, 1280, 1280, GROUP, (GROUP, 1, 1280))
+    qs = w8a16_case(torch, g, dev, 1280, 1280, 3)
+    x = torch.randn((GROUP, 1280), generator=g, device=dev).to(torch.bfloat16)
+    together = quant.w8a16_matmul(x, qs, [q["b"] for q in qs])
+    alone = [quant.w8a16_matmul(x, [q], [q["b"]])[0] for q in qs]
+    if not all(torch.equal(a, b) for a, b in zip(together, alone)):
+        fail("w8a16_matmul: three products in one launch differ from each alone")
+    if not w8a16_graph_replays(torch, g, dev):
+        fail("w8a16_matmul: a graph's replays differ from the eager call")
+    decoder = w8a16_decoder_launches(torch, g, dev)
+    say(f"phase 28 w8a16_matmul in a two-layer large-v3-wide decoder: launches {decoder['launches']} "
+        f"(8 products, 6 launches a layer); step logits within {decoder['logits_err']:.3e} of the plain "
+        f"version's (max |logit| {decoder['logits_scale']:.3f}) | {card}")
+    worst = max(checks.values(), key=lambda c: c["err"] / c["plain_err"])
+    say(f"phase 28 w8a16_matmul: {len(checks)} shapes x rows within 2x the plain version's error against "
+        f"float64 (worst ratio {worst['err'] / worst['plain_err']:.3f}); bias, siblings and graph replays "
+        f"bit-equal | {card}")
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), W8A16_TIMES_ARG],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"the W8A16 timing process exited {proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    times = json.loads(lines[-1])
+    for key, t in times["shapes"].items():
+        say(f"phase 28 w8a16_matmul {key} by device time: kernel {t['ms']:.4f} ms | plain {t['plain_ms']:.4f} ms "
+            f"| library {t['library_ms']:.4f} ms | bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of it) | {card}")
+    say(f"phase 28 w8a16_matmul crossover: {json.dumps(times['crossover'])}")
+    step = times["step"]
+    say(f"phase 28 w8a16_matmul in a large-v3 decode step at {GROUP} rows (32 layers; q/k/v, out, cross q, "
+        f"cross out, fc1, fc2: 6 launches a layer): kernel {step['ms']:.4f} ms, q/k/v as three launches {step['qkv_apart_ms']:.4f} ms, "
+        f"plain {step['plain_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms "
+        f"({100 * step['bound_ms'] / step['ms']:.1f}% of it) | {card}")
+    full = times["shapes"][f"1280x1280/{GROUP}"]
+    return {"max_abs_err": worst["err"], "plain_err": worst["plain_err"], "ms": full["ms"],
+            "plain_ms": full["plain_ms"], "library_ms": full["library_ms"], "bound_ms": full["bound_ms"],
+            "bound_by": full["bound_by"], "checks": checks, "decoder": decoder, "times": times, "ptxas": ptxas}
+
+
+def w8a16_times(torch) -> dict:
+    """Phase 28's timing process: by device time (profiler traces, 50 calls,
+    each on the next of enough weight sets to overflow the L2) the kernel,
+    the plain version (the dequant's multiply and cuBLAS's GEMM) and
+    torch.matmul on the dequantized weight, at every shape and row count of
+    the checks; the largest row count at which the kernel beats the plain
+    version; one decode step's launches at GROUP rows."""
+    from whisperkit_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    out = {"shapes": {}, "crossover": {}}
+    weights = {}
+    for k, n in W8A16_SHAPES + W8A16_TP_SHAPES:
+        weights[(k, n)] = w8a16_case(torch, g, dev, k, n, max(2, int(W8A16_SET_BYTES // (k * n)) + 1))
+    # the library's bf16 weights over as many bytes as the codes: out of the L2 too
+    deq = {(k, n): [quant.dequantize_weight(q) for q in qs[: max(2, int(W8A16_SET_BYTES // (2 * k * n)) + 1)]]
+           for (k, n), qs in weights.items()}
+    for (k, n), qs in weights.items():
+        for rows in (W8A16_TIMED_ROWS if (k, n) in W8A16_SHAPES else (GROUP,)):
+            x = torch.randn((rows, k), generator=g, device=dev).to(torch.bfloat16)
+            ws = deq[(k, n)]
+            t = {"ms": device_ms(torch, lambda i: quant.w8a16_matmul(x, [qs[i % len(qs)]], [None]), 50,
+                                 "w8a16_matmul"),
+                 "plain_ms": device_ms(torch, lambda i: quant.quantized_matmul_reference(x, qs[i % len(qs)]), 50),
+                 "library_ms": device_ms(torch, lambda i: torch.matmul(x, ws[i % len(ws)]), 50),
+                 **bound(w8a16_bytes(rows, k, n), 2 * rows * k * n)}
+            out["shapes"][f"{k}x{n}/{rows}"] = t
+        if (k, n) in W8A16_SHAPES:
+            wins = [r for r in W8A16_TIMED_ROWS
+                    if out["shapes"][f"{k}x{n}/{r}"]["ms"] < out["shapes"][f"{k}x{n}/{r}"]["plain_ms"]]
+            out["crossover"][f"{k}x{n}"] = {"kernel_faster_up_to_rows": max(wins, default=0),
+                                            "all_faster": len(wins) == len(W8A16_TIMED_ROWS)}
+    # one decode step at GROUP rows: each layer's six launches, q/k/v together
+    x = {1280: torch.randn((GROUP, 1280), generator=g, device=dev).to(torch.bfloat16),
+         5120: torch.randn((GROUP, 5120), generator=g, device=dev).to(torch.bfloat16)}
+    square = weights[(1280, 1280)]
+    qkv_ms = device_ms(torch, lambda i: quant.w8a16_matmul(x[1280], [square[(3 * i + j) % len(square)] for j in range(3)],
+                                                           [None] * 3), 50, "w8a16_matmul")
+    one = {key: out["shapes"][f"{k}x{n}/{GROUP}"] for key, (k, n) in
+           (("square", (1280, 1280)), ("fc1", (1280, 5120)), ("fc2", (5120, 1280)))}
+    per_layer = qkv_ms + 3 * one["square"]["ms"] + one["fc1"]["ms"] + one["fc2"]["ms"]
+    apart = 6 * one["square"]["ms"] + one["fc1"]["ms"] + one["fc2"]["ms"]
+    plain = 6 * one["square"]["plain_ms"] + one["fc1"]["plain_ms"] + one["fc2"]["plain_ms"]
+    step_bound = 6 * one["square"]["bound_ms"] + one["fc1"]["bound_ms"] + one["fc2"]["bound_ms"]
+    out["step"] = {"ms": 32 * per_layer, "qkv_ms": qkv_ms, "qkv_apart_ms": 32 * apart, "plain_ms": 32 * plain,
+                   "bound_ms": 32 * step_bound}
+    return out
 
 
 def sync(torch, device: str) -> None:
@@ -4728,6 +4989,9 @@ KERNEL_TABLE = (
      "whisperkit_tpu/ops/attention_decode.py:216", "int8"),
     # no pl.pallas_call: the psums that XLA inserts from the tp shardings
     ("tp_all_reduce", "whisperkit_tpu_torch/csrc/tp_all_reduce.cu", "whisperkit_tpu/parallel/sharding.py:13", "mesh"),
+    # no pl.pallas_call: XLA fuses W8A16's dequant into the matmul
+    ("w8a16_matmul", "whisperkit_tpu_torch/csrc/w8a16_matmul.cu", "whisperkit_tpu/ops/quant.py quantized_matmul",
+     "int8"),
 )
 
 
@@ -4778,13 +5042,25 @@ def main() -> None:
     if sys.argv[1:] == [TIMES_ARG]:
         say(json.dumps(traced_times(torch)))
         return
+    if sys.argv[1:] == [W8A16_TIMES_ARG]:
+        say(json.dumps(w8a16_times(torch)))
+        return
 
     name, card = phase_card(torch)
-    phase_build()
+    build_log = phase_build()
     if sys.argv[1:] == [MESH_ARG]:
         mesh_only(torch, name, card)
         return
+    if sys.argv[1:] == [W8A16_ARG]:
+        w8 = phase_w8a16(torch, card, build_log)
+        say(json.dumps({"phases": {"w8a16": w8}}))
+        say(f"card: {card}")
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        }}))
+        return
     kernel_results = phase_kernels(torch, card)
+    kernel_results["w8a16_matmul"] = phase_w8a16(torch, card, build_log)
     bf16 = phase_main_path(torch, card)
     phase_step_parity(torch, "phase 5 decoder step, bf16 cache", bf16["pipe"], bf16["audio"], card)
     int8 = phase_int8_path(torch, card, bf16["pipe"], bf16["audio"])
@@ -4835,7 +5111,8 @@ def main() -> None:
                                               phases["cli"])
         for key in ("argv", "reference"):
             phases["cli"].pop(key)
-        # phases 19-20: none of the Whisper kernels runs on the TTS path
+        # phases 19-20: none of the Whisper kernels runs on the TTS path;
+        # its W8A16 frames take the W8A16 product's
         from whisperkit_tpu_torch.ops import _build
         from whisperkit_tpu_torch.pipelines.tts import TTS_VARIANTS
 
@@ -4846,8 +5123,8 @@ def main() -> None:
         phases["tts_graph"] = phase_tts_graph(torch, card, tts_pipe)
         phases["tts_entry"] = phase_tts_entry(torch, card, tts_pipe, root / "tts")
         tts_counts = dict(_build.launches)
-        if any(tts_counts.values()):
-            fail(f"phases 19-20 launched Whisper kernels: {tts_counts}")
+        if any(n for k, n in tts_counts.items() if k != "w8a16_matmul") or not tts_counts["w8a16_matmul"]:
+            fail(f"phases 19-20 launched Whisper kernels, or their W8A16 frames not the W8A16 product: {tts_counts}")
         # phase 24 (e): diarization on phase 16's folder, TTS on phase 19's tree
         phases["mesh_speech"] = phase_mesh_speech(torch, card, bf16["audio"], root / "pyannote", tts_pipe.params,
                                                   TTS_VARIANTS["0.6b"])

@@ -785,4 +785,4 @@ def test_library_path_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build._library_path()
     assert {p.name for p in _build._sources()} == {
-        "attention_decode.cu", "mel.cu", "mha_encoder.cu", "tp_all_reduce.cu"}
+        "attention_decode.cu", "mel.cu", "mha_encoder.cu", "tp_all_reduce.cu", "w8a16_matmul.cu"}

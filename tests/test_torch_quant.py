@@ -147,6 +147,135 @@ def test_w8a8_integer_dot_is_exact():
 
 
 # ---------------------------------------------------------------------------
+# the W8A16 product's kernel: dispatch, registry, plain version, checks
+# ---------------------------------------------------------------------------
+
+MAX_ROWS = quant.W8A16_KERNEL_MAX_ROWS
+
+
+@pytest.mark.parametrize(
+    "device, dtype, rows, k, n, takes",
+    [
+        ("cuda", torch.bfloat16, 1, 1280, 1280, True),
+        ("cuda", torch.bfloat16, 32, 1280, 5120, True),
+        ("cuda", torch.bfloat16, MAX_ROWS, 5120, 1280, True),
+        ("cuda", torch.bfloat16, MAX_ROWS + 1, 1280, 1280, False),  # the encoder's side
+        ("cuda", torch.bfloat16, 32 * 1500, 1280, 1280, False),
+        ("cuda", torch.bfloat16, 0, 1280, 1280, False),
+        ("cpu", torch.bfloat16, 32, 1280, 1280, False),
+        ("cuda", torch.float32, 32, 1280, 1280, False),
+        ("cuda", torch.bfloat16, 32, 1280 + 32, 1280, False),  # off the kernel's tiles
+        ("cuda", torch.bfloat16, 32, 1280, 1280 + 32, False),
+        ("cuda", torch.bfloat16, 32, 1280, 640, True),  # a tp column slice
+        ("cuda", torch.bfloat16, 32, 640, 1280, True),  # a tp row slice
+    ],
+)
+def test_w8a16_dispatch_is_a_rule_of_shape_and_device(device, dtype, rows, k, n, takes):
+    """The kernel at and below W8A16_KERNEL_MAX_ROWS rows of a CUDA bf16
+    product on its tiles; the plain version above it, for every CPU
+    product, and off the tiles."""
+    assert quant.w8a16_kernel_takes(device, dtype, rows, k, n) is takes
+
+
+def test_w8a16_kernel_is_registered_and_unlaunched_on_the_cpu():
+    """`w8a16_matmul` is one of the counted kernels with a C signature; the
+    CPU runs the plain version, so its count stays 0."""
+    from whisperkit_tpu_torch.ops import _build
+
+    assert "w8a16_matmul" in _build.KERNELS and "wk_w8a16_matmul" in _build._SIGNATURES
+    _build.reset_launches()
+    q = quant.quantize_weight(_t(_weight((128, 64), 7)))
+    x = _t(np.random.default_rng(7).standard_normal((4, 128))).to(torch.bfloat16)
+    quant.quantized_matmul(x, q)
+    quant.w8a16_matmul(x, [q], [None])
+    assert _build.launches["w8a16_matmul"] == 0 and not _build.launches_by_device
+
+
+def _w8a16_case(case):
+    """(x bf16, W8A16 dict, bias or None) for each layout the decoder hands
+    the product: 2-d and 3-d x, a tp rank's column and row slices (contiguous
+    copies, as parallel/sharding cuts them), a bias."""
+    rng = np.random.default_rng(11)
+    q = quant.quantize_weight(_t(_weight((256, 128), 12)))
+    x_shape = {"3d": (4, 1, 256), "row_slice": (6, 128)}.get(case, (6, 256))
+    x = _t(rng.standard_normal(x_shape)).to(torch.bfloat16)
+    bias = None
+    if case == "column_slice":
+        q = {"w_q": q["w_q"][:, 64:].contiguous(), "scale": q["scale"][64:].contiguous()}
+    elif case == "row_slice":
+        q = {"w_q": q["w_q"][128:].contiguous(), "scale": q["scale"]}
+    elif case == "bias":
+        bias = _t(rng.standard_normal(128) * 0.1).to(torch.bfloat16)
+    return x, q, bias
+
+
+@pytest.mark.parametrize("case", ["2d", "3d", "column_slice", "row_slice", "bias"])
+def test_w8a16_plain_version_is_the_dequant_product_bit_for_bit(case):
+    """What the CPU runs for `quantized_matmul`, `w8a16_matmul` and `dense`
+    is x @ dequantize_weight(q, x.dtype), then `+ b` on the rounded product:
+    the arithmetic the kernel repeats."""
+    x, q, bias = _w8a16_case(case)
+    ref = x @ quant.dequantize_weight(q, x.dtype)
+    if bias is not None:
+        ref = ref + bias
+    assert ref.dtype == torch.bfloat16
+    for out in (quant.quantized_matmul(x, q, bias), quant.w8a16_matmul(x, [q], [bias])[0],
+                quant.quantized_matmul_reference(x, q, bias)):
+        assert out.shape == ref.shape and torch.equal(out, ref)
+    p = dict(q, **({"b": bias} if bias is not None else {}))
+    assert torch.equal(model.dense(x, p), ref)
+
+
+def test_w8a16_siblings_equal_each_product_alone():
+    """q, k and v of one input in one call (one launch on the card) give
+    each product's own result; `dense_siblings` falls back to `dense` for
+    float weights."""
+    rng = np.random.default_rng(13)
+    x = _t(rng.standard_normal((5, 1, 128))).to(torch.bfloat16)
+    ps = [dict(quant.quantize_weight(_t(_weight((128, 64), 20 + i))),
+               **({"b": _t(rng.standard_normal(64) * 0.1).to(torch.bfloat16)} if i != 1 else {})) for i in range(3)]
+    together = model.dense_siblings(x, ps)
+    assert all(torch.equal(a, model.dense(x, p)) for a, p in zip(together, ps))
+    floats = [{"w": _t(_weight((128, 64), 30 + i)).to(torch.bfloat16)} for i in range(3)]
+    assert all(torch.equal(a, x @ p["w"]) for a, p in zip(model.dense_siblings(x, floats), floats))
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["codes_int16", "codes_float", "codes_3d", "features", "columns", "scale_shape", "scale_f32", "bias_shape",
+     "x_f32", "four_products"],
+)
+def test_w8a16_wrapper_refuses_operands_it_does_not_take(bad):
+    """The wrapper checks dtypes and shapes before it chooses the kernel or
+    the plain version, so the CPU sees what the card would refuse."""
+    x = _t(np.random.default_rng(17).standard_normal((4, 128))).to(torch.bfloat16)
+    q = quant.quantize_weight(_t(_weight((128, 64), 18)))
+    qs, biases = [q], [None]
+    if bad == "codes_int16":
+        qs = [dict(q, w_q=q["w_q"].to(torch.int16))]
+    elif bad == "codes_float":
+        qs = [dict(q, w_q=q["w_q"].float())]
+    elif bad == "codes_3d":
+        qs = [dict(q, w_q=q["w_q"][None])]
+    elif bad == "features":
+        x = x[:, :64]
+    elif bad == "columns":
+        qs = [quant.quantize_weight(_t(_weight((128, 48), 19)))]
+    elif bad == "scale_shape":
+        qs = [dict(q, scale=q["scale"][:32])]
+    elif bad == "scale_f32":
+        qs = [dict(q, scale=q["scale"].float())]
+    elif bad == "bias_shape":
+        biases = [torch.zeros(32, dtype=torch.bfloat16)]
+    elif bad == "x_f32":
+        x = x.float()
+    else:
+        qs, biases = [q] * 4, [None] * 4
+    with pytest.raises((TypeError, ValueError)):
+        quant.w8a16_matmul(x, qs, biases)
+
+
+# ---------------------------------------------------------------------------
 # parameter trees
 # ---------------------------------------------------------------------------
 

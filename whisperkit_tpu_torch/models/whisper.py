@@ -277,11 +277,23 @@ def _product(x: torch.Tensor, p: Params, a8: bool = False, group=None) -> torch.
 def dense(x: torch.Tensor, p: Params, a8: bool = False) -> torch.Tensor:
     """Linear layer; dispatches on the weight's form like the JAX `dense`:
     "w_q4" → W4A16, "w_q" → W8A16 (W8A8 when `a8`), else the plain
-    product. `a8` is a no-op for unquantized and int4 weights."""
+    product. `a8` is a no-op for unquantized and int4 weights. W8A16 hands
+    the bias to `quantized_matmul`, whose kernel adds it to the rounded
+    product."""
+    if "w_q" in p and not a8:
+        return quant.quantized_matmul(x, p, p.get("b"))
     y = _product(x, p, a8)
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def dense_siblings(x: torch.Tensor, ps: Sequence[Params]) -> list:
+    """`dense(x, p)` for each p of `ps`, linears that share x: W8A16 ones
+    together (`quant.quantized_matmul_siblings`: one kernel launch)."""
+    if all("w_q" in p for p in ps):
+        return quant.quantized_matmul_siblings(x, list(ps), [p.get("b") for p in ps])
+    return [dense(x, p) for p in ps]
 
 
 def _dense_row(x: torch.Tensor, p: Params, a8: bool, tp) -> torch.Tensor:
@@ -711,9 +723,10 @@ def decoder_forward(
     for li, bp in enumerate(dec["blocks"]):
         kk, vv = _layer(kv_k, li), _layer(kv_v, li)
         h = layer_norm(x, bp["attn_ln"])
-        q = _split_heads(dense(h, bp["attn"]["q"]), n_head)
-        _self_kv_write(kk, _split_heads(dense(h, bp["attn"]["k"]), n_head), kv_at)
-        _self_kv_write(vv, _split_heads(dense(h, bp["attn"]["v"]), n_head), kv_at)
+        q, k, v = dense_siblings(h, [bp["attn"]["q"], bp["attn"]["k"], bp["attn"]["v"]])
+        q = _split_heads(q, n_head)
+        _self_kv_write(kk, _split_heads(k, n_head), kv_at)
+        _self_kv_write(vv, _split_heads(v, n_head), kv_at)
         if t == 1:
             attn = _self_attend_step(q, kk, vv, mask_row)
         else:

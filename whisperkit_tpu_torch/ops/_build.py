@@ -51,7 +51,7 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend", "self_attend_q8",
-           "tp_all_reduce")
+           "tp_all_reduce", "w8a16_matmul")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 launches_by_device: dict[str, dict[str, int]] = {}
 _count_lock = threading.Lock()
@@ -85,6 +85,9 @@ _SIGNATURES = {
     # pointers), tp, rank, ctrl, host words, x, y, elements, dtype, op,
     # slot bytes, timeout ns, stream
     "wk_tp_all_reduce": (_LP, _LP, _I, _I, _P, _P, _P, _P, _L, _I, _I, _L, _L, _P),
+    # x, rows, k, then for each of three products sharing x: codes, scale,
+    # bias (or null), out, n (0: no product), stream
+    "wk_w8a16_matmul": (_P, _I, _I, *(_P, _P, _P, _P, _I) * 3, _P),
     # device, peer (no stream: set-up calls)
     "wk_tp_enable_peer": (_I, _I),
     # bytes, out host pointer, out device pointer

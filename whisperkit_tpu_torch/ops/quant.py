@@ -13,9 +13,14 @@ Three schemes, with the JAX package's layouts and rounding points:
 
 `models/whisper.dense` dispatches on the keys. None of these products runs
 in a Pallas kernel in the JAX package (XLA fuses the dequant into the
-matmul), so here they are plain torch: the dequantized weight is formed per
-call and multiplied with `torch.matmul`. A fused-dequant GEMV and an int8
-GEMM are speed work for later (ROADMAP.md A.1).
+matmul). Here W8A16's product of a few rows (the decode step, the prompt
+pass, beam search and speculative verification) runs in a hand-written
+kernel, `w8a16_matmul` (csrc/w8a16_matmul.cu), that reads each int8 code
+once and dequantizes it in registers; `quantized_matmul` sends it a CUDA
+product of at most W8A16_KERNEL_MAX_ROWS rows. Larger products (the
+encoder's, the cross-KV projection's: compute-bound, the dequant amortised
+over 1,500 rows a window), W4A16 and W8A8 stay plain torch: the dequantized
+weight is formed per call and multiplied with `torch.matmul`.
 
 The speaker models' quantizer (`quantize_speaker_params`, with
 `quantize_conv_weight` for their convolutions) serves the W8A16 pyannote
@@ -30,6 +35,7 @@ from typing import Any
 
 import torch
 
+from whisperkit_tpu_torch.ops import _build
 from whisperkit_tpu_torch.ops.attention_decode import _int_dot
 
 Params = dict[str, Any]
@@ -72,9 +78,117 @@ def dequantize_weight(q: dict, dtype=torch.bfloat16) -> torch.Tensor:
     return q["w_q"] * q["scale"].to(dtype)[None, :]
 
 
-def quantized_matmul(x: torch.Tensor, q: dict) -> torch.Tensor:
-    """x [..., in] @ dequant(w), the weight dequantized in x's dtype."""
-    return x @ dequantize_weight(q, x.dtype)
+# The largest product, in rows of x (the product of its leading dims), that
+# `quantized_matmul` sends to the kernel on the card: the crossover with the
+# plain dequant and cuBLAS at large-v3's decoder shapes, [1280, 1280],
+# [1280, 5120] and [5120, 1280] (H100, chip_smoke.py phase 28): the kernel
+# is faster at 192 rows and slower at 256 on all three (PERF.md, the W8A16
+# row of the kernel table). It covers the greedy steps (8-32 rows), the
+# prompt pass (rows x the prompt), beam 5 (160) and speculative
+# verification.
+W8A16_KERNEL_MAX_ROWS = 192
+# the kernel's tiles: input features in stages of 64, output columns in
+# blocks of 64; the most rows it takes, and products that share x a launch
+W8A16_K_STEP = 64
+W8A16_N_BLOCK = 64
+W8A16_ROWS_TAKEN = 256
+W8A16_MAX_SIBLINGS = 3
+
+
+def w8a16_kernel_takes(device_type: str, dtype: torch.dtype, rows: int, k: int, n: int) -> bool:
+    """Whether `quantized_matmul` runs a product of `rows` rows of x with an
+    [k, n] W8A16 weight in the kernel: a CUDA bf16 product of at most
+    W8A16_KERNEL_MAX_ROWS rows whose weight fits the kernel's tiles. Every
+    other product, and every CPU product, takes the plain version."""
+    return (device_type == "cuda" and dtype == torch.bfloat16 and 0 < rows <= W8A16_KERNEL_MAX_ROWS
+            and k % W8A16_K_STEP == 0 and n % W8A16_N_BLOCK == 0)
+
+
+def quantized_matmul_reference(x: torch.Tensor, q: dict, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain W8A16 product: x [..., in] @ the weight dequantized in x's
+    dtype (`torch.matmul`), then `bias`, if given, added to the rounded
+    product."""
+    y = x @ dequantize_weight(q, x.dtype)
+    return y if bias is None else y + bias
+
+
+def _check_w8a16(x: torch.Tensor, qs: list, biases: list) -> None:
+    """Raise unless `w8a16_matmul` takes these operands, on any device."""
+    if len(biases) != len(qs) or not 1 <= len(qs) <= W8A16_MAX_SIBLINGS:
+        raise ValueError(f"w8a16_matmul takes 1-{W8A16_MAX_SIBLINGS} products with a bias entry each, "
+                         f"got {len(qs)} and {len(biases)}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"w8a16_matmul: x must be bfloat16, got {x.dtype}")
+    k = x.shape[-1]
+    rows = x.numel() // k if k else 0
+    if not 1 <= rows <= W8A16_ROWS_TAKEN or k % W8A16_K_STEP:
+        raise ValueError(f"w8a16_matmul takes 1-{W8A16_ROWS_TAKEN} rows of a multiple of {W8A16_K_STEP} "
+                         f"features, got {rows} x {k}")
+    for q, b in zip(qs, biases):
+        w, scale = q["w_q"], q["scale"]
+        if w.dtype != torch.int8 or scale.dtype != torch.bfloat16:
+            raise TypeError(f"w8a16_matmul: codes int8 and scale bfloat16, got {w.dtype} and {scale.dtype}")
+        if w.dim() != 2 or w.shape[0] != k or w.shape[1] % W8A16_N_BLOCK or tuple(scale.shape) != (w.shape[1],):
+            raise ValueError(f"w8a16_matmul: x has {k} features; codes {tuple(w.shape)}, scale "
+                             f"{tuple(scale.shape)} (columns a multiple of {W8A16_N_BLOCK})")
+        if b is not None and (b.dtype != torch.bfloat16 or tuple(b.shape) != (w.shape[1],)):
+            raise ValueError(f"w8a16_matmul: bias {b.dtype} {tuple(b.shape)} for {w.shape[1]} bfloat16 columns")
+
+
+def w8a16_matmul(x: torch.Tensor, qs: list, biases: list) -> list:
+    """x [..., in] bf16 @ dequant(w) for each W8A16 dict of `qs` (one to
+    W8A16_MAX_SIBLINGS products that share x, w [in, n_i] int8, scale [n_i]
+    bf16), each with its bias of `biases` (None, or bf16 [n_i], added after
+    the product's rounding and rounded again) → a [..., n_i] bf16 output
+    each: at most W8A16_ROWS_TAKEN rows, in a multiple of W8A16_K_STEP, each
+    n_i a multiple of W8A16_N_BLOCK. CUDA: csrc/w8a16_matmul.cu, one launch
+    for all of them (contiguous 16-byte aligned codes; x is copied when it
+    is not contiguous and 16-byte aligned); CPU: the plain version."""
+    _check_w8a16(x, qs, biases)
+    if not x.is_cuda:
+        return [quantized_matmul_reference(x, q, b) for q, b in zip(qs, biases)]
+    k = x.shape[-1]
+    rows = x.numel() // k
+    x2 = x.reshape(rows, k)
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+    args, outs = [], []
+    for q, b in zip(qs, biases):
+        w, scale = q["w_q"], q["scale"]
+        _build.check_cuda("w_q", w, torch.int8, 2)
+        _build.check_cuda("scale", scale, torch.bfloat16, 1)
+        if b is not None:
+            _build.check_cuda("bias", b, torch.bfloat16, 1)
+        if any(t is not None and t.device != x.device for t in (w, scale, b)):
+            raise ValueError(f"w8a16_matmul: x is on {x.device}, a weight is not")
+        if w.data_ptr() % 16 or scale.data_ptr() % 4 or (b is not None and b.data_ptr() % 4):
+            raise ValueError("w8a16_matmul: codes must be 16-byte aligned, scale and bias 4-byte aligned")
+        y = torch.empty((rows, w.shape[1]), dtype=torch.bfloat16, device=x.device)
+        outs.append(y)
+        args += [_build.ptr(w), _build.ptr(scale), _build.ptr(b) if b is not None else None, _build.ptr(y),
+                 w.shape[1]]
+    args += [None, None, None, None, 0] * (W8A16_MAX_SIBLINGS - len(qs))
+    _build.launch("w8a16_matmul", "wk_w8a16_matmul", x.device, _build.ptr(x2), rows, k, *args)
+    return [y.view(*x.shape[:-1], y.shape[1]) for y in outs]
+
+
+def quantized_matmul_siblings(x: torch.Tensor, qs: list, biases: list) -> list:
+    """`quantized_matmul` for products that share x (the decoder's q, k and
+    v): one kernel launch where the kernel takes every one of them, else
+    the plain version of each."""
+    k = x.shape[-1]
+    rows = x.numel() // k if k else 0
+    if all(w8a16_kernel_takes(x.device.type, x.dtype, rows, *q["w_q"].shape) for q in qs) and all(
+            b is None or b.dtype == x.dtype for b in biases):
+        return w8a16_matmul(x, qs, biases)
+    return [quantized_matmul_reference(x, q, b) for q, b in zip(qs, biases)]
+
+
+def quantized_matmul(x: torch.Tensor, q: dict, bias: torch.Tensor | None = None) -> torch.Tensor:
+    """x [..., in] @ dequant(w), the weight dequantized in x's dtype, plus
+    `bias` if given (added to the rounded product): in the kernel where
+    `w8a16_kernel_takes` the product, else the plain version."""
+    return quantized_matmul_siblings(x, [q], [bias])[0]
 
 
 def quantized_matmul_w8a8(x: torch.Tensor, q: dict, group=None) -> torch.Tensor:
