@@ -1,5 +1,6 @@
 """The port's stage spans (core/signposts.py) on the CPU: the span tree of
-a VAD-chunked transcription and of the batcher's batches, the ring's
+a VAD-chunked transcription, of the batcher's batches and of a TTS
+paragraph (`TTSPipeline.generate`), the ring's
 bound, and the profiler annotations that the spans enter only while a
 profiler session runs.
 
@@ -280,3 +281,44 @@ def test_spans_are_user_annotations_on_the_profilers_clock(tmp_path):
     for span in made:
         assert span.name in starts
         assert abs(starts[span.name] - (span.t0 * 1e6 + offset)) < 2000.0, span
+
+
+def test_tts_generate_records_its_stage_tree(monkeypatch):
+    """tts ⊃ tts.tokenize, tts.prefill, tts.frames ⊃ tts.stop_check (one a
+    segment of 16 frames), readback, tts.vocode, readback, tts.crossfade;
+    build_prompt_cache ⊃ tts.prefill; the frames stepped as `tts.frames`
+    counts them, and the loop's `TTSLoopOutput.steps`."""
+    from whisperkit_tpu_torch.models.qwen3_tts import TINY_TTS_DIMS
+    from whisperkit_tpu_torch.pipelines import tts as tts_module
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions, TTSPipeline
+
+    loop, outs = tts_module.tts_generate_loop, []
+    monkeypatch.setattr(tts_module, "tts_generate_loop", lambda *a, **k: outs.append(loop(*a, **k)) or outs[-1])
+
+    pipe = TTSPipeline(TINY_TTS_DIMS, seed=0, device="cpu")
+    options = GenerationOptions(max_new_tokens=20, seed=3)
+    sentence = "A quiet morning settled over the harbor while the old keeper counted boats and wrote the " \
+               "weather into his small notebook."
+    signposts.reset()
+    pipe.build_prompt_cache(options)
+    result = pipe.generate(f"{sentence} {sentence}", options)
+    spans = signposts.spans_between(0.0, time.perf_counter())
+    cache, root = [s for s in spans if s.parent is None]
+    assert cache.name == "tts.prompt_cache" and root.name == "tts"
+    (prefix,) = _children(spans, cache)
+    assert prefix.name == "tts.prefill" and prefix.attrs == {"rows": 1, "positions": cache.attrs["positions"],
+                                                             "cached": 0}
+    assert root.attrs == {"text_chars": 2 * len(sentence) + 1, "chunks": 2, "rows": 2}
+    assert all(s.request == root.request for s in spans if s is not cache and s is not prefix)
+    top = _children(spans, root)
+    assert [s.name for s in top] == ["tts.tokenize", "tts.prefill", "tts.frames", "readback", "tts.vocode",
+                                     "readback", "tts.crossfade"]
+    prefill, frames, vocode = top[1], top[2], top[4]
+    assert prefill.attrs == {"rows": 2, "positions": 1, "cached": cache.attrs["positions"]}
+    assert vocode.attrs == {"rows": 2, "frames": 20}
+    checks = _children(spans, frames)
+    assert [s.name for s in checks] == ["tts.stop_check"] * len(checks)
+    assert [s.attrs["frame"] for s in checks] == [16, 20][:len(checks)] and frames.attrs["frames"] == 20
+    assert [o.steps for o in outs] == [20]
+    t = result.timings
+    assert t.tokenize_seconds == top[0].seconds and t.chunks == 2

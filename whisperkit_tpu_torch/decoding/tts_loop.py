@@ -20,8 +20,9 @@ too: one launch from the host instead of thousands. On the CPU, and with
 `cuda_graph=False`, the same `_frame` runs eagerly. The host counts the
 frames, draws the sampler's noise into a buffer before each frame, and
 `tts_generate_loop` reads `done` once per `SEGMENT_FRAMES` frames to stop
-once every row is done. That gives the codes of one long segment: a done
-row only ever emits EOS frames. The frames a segment steps after every
+once every row is done (a `tts.stop_check` span, core/signposts.py, inside
+the loop's `tts.frames`, after its `tts.prefill`). That gives the codes of
+one long segment: a done row only ever emits EOS frames. The frames a segment steps after every
 row is done are then taken back: the returned `length` counts the frames
 up to the one that left every row done, as JAX's loop does, and the
 cache slots the later frames wrote are zeroed.
@@ -41,6 +42,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from whisperkit_tpu_torch.core.signposts import signpost
 from whisperkit_tpu_torch.models.qwen3_tts import (
     CODEC_EOS,
     CODEC_VOCAB,
@@ -80,7 +82,8 @@ class TTSLoopOutput(NamedTuple):
     codes: torch.Tensor  # [B, MAX, 16] int32 (code0 + 15 heads), EOS-padded
     n_frames: torch.Tensor  # [B] frames generated per row (before EOS)
     kv: tuple  # final KV cache (for prompt caching)
-    length: int  # frames stepped
+    length: int  # frames up to the one that left every row done (JAX's loop count)
+    steps: int = 0  # frames the loop ran on the device: `length` up to the end of its segment
 
 
 def apply_repetition_penalty(logits: torch.Tensor, counts: torch.Tensor, penalty) -> torch.Tensor:
@@ -303,28 +306,33 @@ def tts_generate_loop(
         trailing_text = torch.full((b, 1), dims.text_pad, dtype=torch.int64, device=dev)
     if step_cap is None:
         step_cap = torch.full((b,), max_new_tokens, dtype=torch.int64, device=dev)
-    state = tts_prefill_state(
-        params, prompt_embeds, trailing_text, step_cap, scalars.generator,
-        dims=dims, max_seq=max_seq, cached_kv=cached_kv, cached_len=cached_len, prompt_pad=prompt_pad,
-    )
-    try:
-        while state.step < max_new_tokens:
-            tts_generate_segment(
-                params, state, scalars, dims=dims, n_frames=min(SEGMENT_FRAMES, max_new_tokens - state.step),
-                top_k=top_k, cuda_graph=cuda_graph,
-            )
-            if bool(state.done.all()):  # the loop's one host read, every SEGMENT_FRAMES frames
-                break
-    finally:
-        tts_release(state)
-    codes = state.codes[:, :max_new_tokens]
-    n_frames = (codes[:, :, 0] != CODEC_EOS).sum(dim=1)
-    length = int(_frames_until_done(codes[:, :state.step, 0], state.step_cap))
-    # JAX's loop stops at the frame that leaves every row done; the frames
-    # stepped after it within the segment wrote slots JAX leaves at zero
-    for cache in state.kv:
-        cache[:, :, :, state.bos_slot + 1 + length:] = 0
-    return TTSLoopOutput(codes=codes, n_frames=n_frames, kv=state.kv, length=length)
+    with signpost("tts.prefill", rows=b, positions=p, cached=cached_len):
+        state = tts_prefill_state(
+            params, prompt_embeds, trailing_text, step_cap, scalars.generator,
+            dims=dims, max_seq=max_seq, cached_kv=cached_kv, cached_len=cached_len, prompt_pad=prompt_pad,
+        )
+    with signpost("tts.frames", rows=b) as span:
+        try:
+            while state.step < max_new_tokens:
+                tts_generate_segment(
+                    params, state, scalars, dims=dims, n_frames=min(SEGMENT_FRAMES, max_new_tokens - state.step),
+                    top_k=top_k, cuda_graph=cuda_graph,
+                )
+                with signpost("tts.stop_check", frame=state.step):
+                    all_done = bool(state.done.all())  # the loop's one host read, every SEGMENT_FRAMES frames
+                if all_done:
+                    break
+        finally:
+            tts_release(state)
+        codes = state.codes[:, :max_new_tokens]
+        n_frames = (codes[:, :, 0] != CODEC_EOS).sum(dim=1)
+        length = int(_frames_until_done(codes[:, :state.step, 0], state.step_cap))
+        # JAX's loop stops at the frame that leaves every row done; the frames
+        # stepped after it within the segment wrote slots JAX leaves at zero
+        for cache in state.kv:
+            cache[:, :, :, state.bos_slot + 1 + length:] = 0
+        span.attrs["frames"] = state.step
+    return TTSLoopOutput(codes=codes, n_frames=n_frames, kv=state.kv, length=length, steps=state.step)
 
 
 def _frames_until_done(code0: torch.Tensor, step_cap: torch.Tensor) -> torch.Tensor:

@@ -40,6 +40,7 @@ import torch
 from whisperkit_tpu_torch.audio.output import PlaybackStrategy, StreamingAudioOutput, crossfade, save_audio
 from whisperkit_tpu_torch.audio.output import play as play_audio
 from whisperkit_tpu_torch.core.device import DeviceLike, resolve_device
+from whisperkit_tpu_torch.core.signposts import new_request, signpost
 from whisperkit_tpu_torch.parallel.mesh import Devices, SharedDraws, make_mesh, resolve_devices, tree_to
 from whisperkit_tpu_torch.core.logging import logging
 from whisperkit_tpu_torch.decoding.tts_loop import (
@@ -489,80 +490,88 @@ class TTSPipeline:
         t_start = time.perf_counter()
         timings = SpeechTimings()
         self.timings = timings
+        with signpost("tts", request=new_request(), text_chars=len(text)) as root:
+            with signpost("tts.tokenize") as span:
+                chunks = (
+                    self.chunker.chunk(text, options.target_chunk_size, options.min_chunk_size)
+                    if options.chunking_strategy == "sentence"
+                    else [text]
+                )
+                if not chunks:
+                    return SpeechResult(audio=np.zeros(0, np.float32), text=text)
 
-        t0 = time.perf_counter()
-        chunks = (
-            self.chunker.chunk(text, options.target_chunk_size, options.min_chunk_size)
-            if options.chunking_strategy == "sentence"
-            else [text]
-        )
-        if not chunks:
-            return SpeechResult(audio=np.zeros(0, np.float32), text=text)
+                # prompt-cache hit: the prefix KV is restored instead of re-prefilled
+                cached_kv, cached_len = None, 0
+                if options.use_prompt_cache:
+                    hit = self.prompt_cache.get(options.voice, options.language, options.instruction)
+                    if hit is not None:
+                        cached_kv, cached_len = hit
+                tracks = [self._chunk_tracks(c, options) for c in chunks]
+                # the mesh pads the chunk rows to a dp multiple with copies of the
+                # last; the copies generate beside the others and are dropped
+                tracks += [tracks[-1]] * (self._plan.pad_batch(len(tracks)) - len(tracks))
+                if cached_len:
+                    # only the variable position (first text token + codecBOS) prefills
+                    rows = [(t[-1:], c[-1:]) for t, c, _, _ in tracks]
+                else:
+                    rows = [(t, c) for t, c, _, _ in tracks]
+                prompt_embeds, prompt_pad = self._embed_tracks(rows)
+                trailing_text = self._trailing_array([tr for _, _, tr, _ in tracks])
+                step_cap = torch.tensor([cap for _, _, _, cap in tracks], dtype=torch.int64, device=self.device)
+            root.attrs.update(chunks=len(chunks), rows=len(tracks))
+            timings.tokenize_seconds = span.seconds
+            timings.chunks = len(chunks)
 
-        # prompt-cache hit: the prefix KV is restored instead of re-prefilled
-        cached_kv, cached_len = None, 0
-        if options.use_prompt_cache:
-            hit = self.prompt_cache.get(options.voice, options.language, options.instruction)
-            if hit is not None:
-                cached_kv, cached_len = hit
-        tracks = [self._chunk_tracks(c, options) for c in chunks]
-        # the mesh pads the chunk rows to a dp multiple with copies of the
-        # last; the copies generate beside the others and are dropped
-        tracks += [tracks[-1]] * (self._plan.pad_batch(len(tracks)) - len(tracks))
-        if cached_len:
-            # only the variable position (first text token + codecBOS) prefills
-            rows = [(t[-1:], c[-1:]) for t, c, _, _ in tracks]
-        else:
-            rows = [(t, c) for t, c, _, _ in tracks]
-        prompt_embeds, prompt_pad = self._embed_tracks(rows)
-        trailing_text = self._trailing_array([tr for _, _, tr, _ in tracks])
-        step_cap = torch.tensor([cap for _, _, _, cap in tracks], dtype=torch.int64, device=self.device)
-        timings.tokenize_seconds = time.perf_counter() - t0
-        timings.chunks = len(chunks)
-
-        t0 = time.perf_counter()
-        loop_args = dict(
-            dims=self.dims, max_new_tokens=options.max_new_tokens, top_k=options.top_k, cached_len=cached_len,
-        )
-        scalars = self._scalars(options)
-        cells, slices = self._plan.cells(), self._plan.row_slices(len(tracks))
-        # the noise one device would draw for the real chunks; a copy row
-        # repeats the last real row's
-        draws = SharedDraws(scalars.generator, len(chunks))
-
-        def generate_rows(g: int, r: int):
-            dev, sl = cells[g][r], slices[g]
-            return tts_generate_loop(
-                self._replicas[dev], prompt_embeds[sl].to(dev), scalars._replace(generator=draws.rows(sl)),
-                cached_kv=None if cached_kv is None else tuple(t.to(dev) for t in cached_kv),
-                prompt_pad=prompt_pad[sl].to(dev), trailing_text=trailing_text[sl].to(dev),
-                step_cap=step_cap[sl].to(dev), **loop_args,
+            t0 = time.perf_counter()
+            loop_args = dict(
+                dims=self.dims, max_new_tokens=options.max_new_tokens, top_k=options.top_k, cached_len=cached_len,
             )
+            scalars = self._scalars(options)
+            cells, slices = self._plan.cells(), self._plan.row_slices(len(tracks))
+            # the noise one device would draw for the real chunks; a copy row
+            # repeats the last real row's
+            draws = SharedDraws(scalars.generator, len(chunks))
 
-        outs = [cell[0] for cell in self._plan.run(generate_rows)]
-        n_frames = np.concatenate([o.n_frames.cpu().numpy() for o in outs])[: len(chunks)]
-        timings.generate_seconds = time.perf_counter() - t0
-        timings.frames = int(n_frames.sum())
-        if progress:
-            progress(0.8)
+            def generate_rows(g: int, r: int):
+                dev, sl = cells[g][r], slices[g]
+                return tts_generate_loop(
+                    self._replicas[dev], prompt_embeds[sl].to(dev), scalars._replace(generator=draws.rows(sl)),
+                    cached_kv=None if cached_kv is None else tuple(t.to(dev) for t in cached_kv),
+                    prompt_pad=prompt_pad[sl].to(dev), trailing_text=trailing_text[sl].to(dev),
+                    step_cap=step_cap[sl].to(dev), **loop_args,
+                )
 
-        # vocoder: one batched call over each device's rows
-        t0 = time.perf_counter()
-        waves = np.concatenate([cell[0] for cell in self._plan.run(
-            lambda g, r: speech_decoder_forward(
-                self._replicas[cells[g][r]], outs[g].codes, self.dims).float().cpu().numpy()
-        )])
-        timings.vocode_seconds = time.perf_counter() - t0
-        # the first audible buffer exists once generation and vocoding end
-        timings.time_to_first_buffer = time.perf_counter() - t_start
+            outs = [cell[0] for cell in self._plan.run(generate_rows)]
+            with signpost("readback"):
+                n_frames = np.concatenate([o.n_frames.cpu().numpy() for o in outs])[: len(chunks)]
+            timings.generate_seconds = time.perf_counter() - t0
+            timings.frames = int(n_frames.sum())
+            if progress:
+                progress(0.8)
 
-        # ordered delivery + crossfade (reference :868-941)
-        pieces = [waves[i, :int(n_frames[i]) * SAMPLES_PER_FRAME] for i in range(len(chunks))]
-        audio = crossfade(pieces, OUTPUT_SAMPLE_RATE, options.crossfade_seconds)
-        timings.total_seconds = time.perf_counter() - t_start
-        if progress:
-            progress(1.0)
-        return SpeechResult(audio=audio, timings=timings, text=text)
+            # vocoder: one batched call over each device's rows
+            t0 = time.perf_counter()
+
+            def vocode(g: int, r: int) -> np.ndarray:
+                codes = outs[g].codes
+                with signpost("tts.vocode", rows=codes.shape[0], frames=codes.shape[1]):
+                    wave = speech_decoder_forward(self._replicas[cells[g][r]], codes, self.dims)
+                with signpost("readback"):
+                    return wave.float().cpu().numpy()
+
+            waves = np.concatenate([cell[0] for cell in self._plan.run(vocode)])
+            timings.vocode_seconds = time.perf_counter() - t0
+            # the first audible buffer exists once generation and vocoding end
+            timings.time_to_first_buffer = time.perf_counter() - t_start
+
+            # ordered delivery + crossfade (reference :868-941)
+            with signpost("tts.crossfade"):
+                pieces = [waves[i, :int(n_frames[i]) * SAMPLES_PER_FRAME] for i in range(len(chunks))]
+                audio = crossfade(pieces, OUTPUT_SAMPLE_RATE, options.crossfade_seconds)
+            timings.total_seconds = time.perf_counter() - t_start
+            if progress:
+                progress(1.0)
+            return SpeechResult(audio=audio, timings=timings, text=text)
 
     # -- prompt cache -------------------------------------------------------
 
@@ -571,10 +580,13 @@ class TTSPipeline:
         tokens: everything but the variable firstText + codecBOS position)
         once and keep its KV (reference: TTSKit.swift:609-683,
         Qwen3GenerateTask.swift:746-790)."""
-        text_track, codec_track, _, _ = self._chunk_tracks("", options)
-        embeds, _ = self._embed_tracks([(text_track[:-1], codec_track[:-1])])
-        plen = embeds.shape[1]
-        kv = tts_prefill(self.params, embeds, dims=self.dims, max_seq=plen)
+        with signpost("tts.prompt_cache", request=new_request()) as span:
+            text_track, codec_track, _, _ = self._chunk_tracks("", options)
+            embeds, _ = self._embed_tracks([(text_track[:-1], codec_track[:-1])])
+            plen = embeds.shape[1]
+            span.attrs.update(rows=1, positions=plen)
+            with signpost("tts.prefill", rows=1, positions=plen, cached=0):
+                kv = tts_prefill(self.params, embeds, dims=self.dims, max_seq=plen)
         self.prompt_cache.put(options.voice, options.language, options.instruction, kv, plen)
 
     # -- streaming playback -------------------------------------------------
