@@ -202,6 +202,22 @@ Phases, one line each; any failure exits non-zero:
      library), the bound, the row crossover (timed up to the kernel's 256
      rows), and one large-v3 decode step's launches at 32 rows.
      `python3 chip_smoke.py --w8a16` runs phases 1, 2 and 28 alone
+ 29. the Qwen3 decode glue's kernels (csrc/qwen3_decode.cu), right after
+     phase 28: add + RMSNorm, SwiGLU and the decode attention (q/k norms,
+     rotary, the cache write, GQA attention) against their plain versions
+     at the TTS frame's shapes, within the limits of
+     whisperkit_tpu_torch/tools/qwen3_decode_check.py (outputs within 1
+     bf16 ulp, the cache written bit-equal but at the norm's rounding
+     ties); the attention's graph replays bit-equal; the 0.6b W8A16
+     frame's talker and code-predictor logits through the kernels within
+     the plain path's own spread (its distance from float32 activations);
+     the launches of one replayed frame (103 decode attentions: 28 talker
+     layers and 15 passes of 5 code-predictor layers); ptxas's registers
+     and spills; in a process of its own (QWEN3_TIMES_ARG), each kernel's
+     and its plain version's device time, the bound, and one replayed
+     frame's wall, device busy and kernels with the kernels and with the
+     plain versions.
+     `python3 chip_smoke.py --qwen3-decode` runs phases 1, 2 and 29 alone
 Phases 21-23 run after phase 15, while phase 4's tree and phase 13's
 pipeline are on the card (and TF32 is off, as in phases 1-15), then phases
 16-20 run; phases 25, 27 and 24's Whisper part run after phase 12, on
@@ -2251,6 +2267,174 @@ def w8a16_times(torch) -> dict:
     step_bound = 6 * one["square"]["bound_ms"] + one["fc1"]["bound_ms"] + one["fc2"]["bound_ms"]
     out["step"] = {"ms": 32 * per_layer, "qkv_ms": qkv_ms, "qkv_apart_ms": 32 * apart, "plain_ms": 32 * plain,
                    "bound_ms": 32 * step_bound}
+    return out
+
+
+# the arguments that run phases 1, 2 and 29 alone, and its timing process
+QWEN3_ARG = "--qwen3-decode"
+QWEN3_TIMES_ARG = "--qwen3-decode-times"
+# the Qwen3 decode kernels' launches in one TTS frame (0.6b): an attention
+# and a SwiGLU a layer pass (28 talker layers, 15 passes of 5 code-predictor
+# layers), two add + norms a layer pass and one a forward (16 forwards)
+QWEN3_FRAME_LAUNCHES = {"qwen3_decode_attention": 103, "qwen3_swiglu": 103, "qwen3_add_rms_norm": 2 * 103 + 16}
+# talker caches a timed attention cycles through: over 100 MB, twice the L2
+QWEN3_CACHE_SETS = 28
+QWEN3_FRAME_REPLAYS = 16
+
+
+def qwen3_pipe(torch):
+    from whisperkit_tpu_torch.pipelines.tts import TTS_VARIANTS, TTSPipeline
+
+    with torch.inference_mode():
+        return TTSPipeline(TTS_VARIANTS["0.6b"], seed=SEED, quantize="w8a16", device="cuda")
+
+
+def qwen3_state(torch, pipe):
+    """The paragraph's frame state after its prefill (profile_tts's)."""
+    from whisperkit_tpu_torch.decoding.tts_loop import tts_prefill_state
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions
+    from whisperkit_tpu_torch.tools.profile_tts import VOCODE_FRAMES, frame_inputs
+
+    embeds, pad, trailing, caps = frame_inputs(pipe, GenerationOptions())
+    g = torch.Generator(device=pipe.device).manual_seed(SEED)
+    with torch.inference_mode():
+        return tts_prefill_state(pipe.params, embeds, trailing, caps, g, dims=pipe.dims,
+                                 max_seq=embeds.shape[1] + VOCODE_FRAMES + 1, prompt_pad=pad)
+
+
+def qwen3_frames(torch, pipe, st, n: int) -> None:
+    from whisperkit_tpu_torch.decoding.tts_loop import tts_generate_segment
+    from whisperkit_tpu_torch.pipelines.tts import GenerationOptions
+
+    options = GenerationOptions()
+    tts_generate_segment(pipe.params, st, pipe._scalars(options), dims=pipe.dims, n_frames=n, top_k=options.top_k)
+
+
+def qwen3_frame_launches(torch, pipe) -> dict:
+    """The kernels' launches a replayed frame: the first frame runs and is
+    captured, then QWEN3_FRAME_REPLAYS replays are counted."""
+    from whisperkit_tpu_torch.decoding.tts_loop import tts_release
+    from whisperkit_tpu_torch.ops import _build
+
+    st = qwen3_state(torch, pipe)
+    qwen3_frames(torch, pipe, st, 1)
+    _build.reset_launches()
+    qwen3_frames(torch, pipe, st, QWEN3_FRAME_REPLAYS)
+    torch.cuda.synchronize()
+    counts = {k: n / QWEN3_FRAME_REPLAYS for k, n in _build.launches.items() if n}
+    tts_release(st)
+    return counts
+
+
+def phase_qwen3_decode(torch, card: str, build_log: str) -> dict:
+    """Phase 29: the Qwen3 decode kernels against their plain versions at
+    the frame's shapes, the attention's graph replays, a frame's logits
+    against the plain path's spread, the launches of a replayed frame,
+    ptxas's report; then (in a process of its own) the device times."""
+    from whisperkit_tpu_torch.tools import qwen3_decode_check as check
+
+    dev = torch.device("cuda")
+    ptxas = [line.strip() for line in build_log.split("qwen3_decode.cu:", 1)[-1].splitlines()
+             if "qwen3" in line.lower() or "Used" in line or "spill" in line][:24]
+    for line in ptxas:
+        say(f"phase 29 ptxas: {line}")
+    results = check.check_all(dev)
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        say(f"phase 29 {name}: {json.dumps(r)}")
+    bad = check.failures(results)
+    if bad:
+        fail("phase 29: " + "; ".join(bad))
+    cases = check.cases(dev)
+    if not all(check.attention_graph_equal(c) for c in (cases[1], cases[-1])):
+        fail("phase 29: decode_attention's graph replays differ from its eager launch")
+    pipe = qwen3_pipe(torch)
+    frame = check.check_frame(pipe)
+    say(f"phase 29 frame logits through the kernels against the plain path: {json.dumps(frame)} | {card}")
+    bad = check.frame_failures(frame)
+    if bad:
+        fail("phase 29: " + "; ".join(bad))
+    launches = qwen3_frame_launches(torch, pipe)
+    say(f"phase 29 launches a replayed frame: {json.dumps(launches)}")
+    if any(launches.get(k) != n for k, n in QWEN3_FRAME_LAUNCHES.items()):
+        fail(f"phase 29: launches a frame {launches}, expected {QWEN3_FRAME_LAUNCHES}")
+    del pipe
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), QWEN3_TIMES_ARG],
+                          capture_output=True, text=True, timeout=900, cwd=REPO)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"the Qwen3 decode timing process exited {proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    times = json.loads(lines[-1])
+    for key, t in times["kernels"].items():
+        say(f"phase 29 {key} by device time: kernel {t['ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}, {100 * t['bound_ms'] / t['ms']:.1f}% of it) | {card}")
+    for form, f in times["frame"].items():
+        say(f"phase 29 a replayed 0.6b W8A16 frame, {form}: wall {f['wall_ms']:.3f} ms | device busy "
+            f"{f['busy_ms']:.3f} ms | {f['kernels']:.1f} kernels | top {json.dumps(f['top'])} | {card}")
+    return {"checks": results, "frame": frame, "launches": launches, "times": times, "ptxas": ptxas}
+
+
+def qwen3_decode_times(torch) -> dict:
+    """Phase 29's timing process: by device time (profiler traces, 50
+    calls) each kernel and its plain version at the frame's shapes (the
+    talker's attention cycling through QWEN3_CACHE_SETS caches, more than
+    the L2 holds, as the frame's 28 layers do), with the bound; then one
+    replayed frame of the 0.6b W8A16 paragraph with the kernels and with
+    the plain versions (`qwen3_decode_takes` patched to refuse): the wall
+    of QWEN3_FRAME_REPLAYS replays first (no trace yet in the process),
+    then a trace's device busy, kernels and top kernels a frame."""
+    from unittest import mock
+
+    from whisperkit_tpu_torch.decoding.tts_loop import tts_release
+    from whisperkit_tpu_torch.ops import qwen3_decode
+    from whisperkit_tpu_torch.tools import qwen3_decode_check as check
+    from whisperkit_tpu_torch.tools.profile_step import _top
+    from whisperkit_tpu_torch.tools.profile_tts import _busy, _device_trace
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {"kernels": {}, "frame": {}}
+    for rows, d in ((check.ROWS, check.D_MODEL), (2 * check.ROWS, check.D_MODEL)):
+        x, y = (torch.randn((rows, 1, d), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        w = torch.ones(d, device=dev, dtype=torch.bfloat16)
+        out["kernels"][f"add_rms_norm {rows}x{d}"] = {
+            "ms": device_ms(torch, lambda i: qwen3_decode.add_rms_norm(x, y, w, check.EPS), 50, "add_rms_norm"),
+            "plain_ms": device_ms(torch, lambda i: qwen3_decode.add_rms_norm_reference(x, y, w, check.EPS), 50),
+            **bound(8 * rows * d + 2 * d)}
+    gate, up = (torch.randn((check.ROWS, 1, check.D_FF), generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+    out["kernels"][f"swiglu {check.ROWS}x{check.D_FF}"] = {
+        "ms": device_ms(torch, lambda i: qwen3_decode.swiglu(gate, up), 50, "swiglu"),
+        "plain_ms": device_ms(torch, lambda i: qwen3_decode.swiglu_reference(gate, up), 50),
+        **bound(6 * gate.numel())}
+    for case in check.cases(dev):
+        sets = QWEN3_CACHE_SETS if case["kind"] == "talker" else 1
+        caches = [(case["cache_k"].clone(), case["cache_v"].clone()) for _ in range(sets)]
+        key = f"decode_attention {case['kind']} T{case['t']} slot {case['slot']}"
+        out["kernels"][key] = {
+            "ms": device_ms(torch, lambda i: check.run_attention(case, qwen3_decode.decode_attention,
+                                                                 caches[i % sets]), 50, "decode_attention"),
+            "plain_ms": device_ms(torch, lambda i: check.run_attention(
+                case, qwen3_decode.decode_attention_reference, caches[i % sets]), 50),
+            **bound(check.attention_bytes(case))}
+        del caches
+    pipe = qwen3_pipe(torch)
+    forms = {"kernels": qwen3_decode.qwen3_decode_takes, "plain": lambda *a, **k: False}
+    states = {}
+    for form, takes in forms.items():  # every wall before the first trace
+        with mock.patch.object(qwen3_decode, "qwen3_decode_takes", takes):
+            st = states[form] = qwen3_state(torch, pipe)
+            qwen3_frames(torch, pipe, st, 2)  # the first frame captured, one replay
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qwen3_frames(torch, pipe, st, QWEN3_FRAME_REPLAYS)
+            torch.cuda.synchronize()
+            out["frame"][form] = {"wall_ms": (time.perf_counter() - t0) * 1e3 / QWEN3_FRAME_REPLAYS}
+    for form, st in states.items():
+        device = _device_trace(lambda: qwen3_frames(torch, pipe, st, 2))
+        out["frame"][form].update(busy_ms=_busy(device) / 2, kernels=len(device) / 2, top=_top(device, 2)[:8])
+        tts_release(st)
     return out
 
 
@@ -4992,7 +5176,26 @@ KERNEL_TABLE = (
     # no pl.pallas_call: XLA fuses W8A16's dequant into the matmul
     ("w8a16_matmul", "whisperkit_tpu_torch/csrc/w8a16_matmul.cu", "whisperkit_tpu/ops/quant.py quantized_matmul",
      "int8"),
+    # no pl.pallas_call: XLA fuses the Qwen3 layer's glue into its products
+    *((key, "whisperkit_tpu_torch/csrc/qwen3_decode.cu", "whisperkit_tpu/models/qwen3_tts.py _qwen3_layers", "tts")
+      for key in QWEN3_FRAME_LAUNCHES),
 )
+
+
+def qwen3_kernel_results(phase: dict) -> dict:
+    """Phase 29's figures by kernel for the kernels line: the worst check
+    in bf16 ulps and the device times at the talker's shapes."""
+    prefixes = {"qwen3_add_rms_norm": "add_rms_norm", "qwen3_decode_attention": "attention",
+                "qwen3_swiglu": "swiglu"}
+    timed = {"qwen3_add_rms_norm": "add_rms_norm 4x1024", "qwen3_swiglu": "swiglu 4x3072",
+             "qwen3_decode_attention": "decode_attention talker T1 slot 205"}
+    out = {}
+    for key, prefix in prefixes.items():
+        worst = max(r["max_ulps"] for name, r in phase["checks"].items() if name.startswith(prefix))
+        t = phase["times"]["kernels"][timed[key]]
+        out[key] = {"max_ulps": worst, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "launches_a_frame": phase["launches"].get(key, 0)}
+    return out
 
 
 def mesh_only(torch, name: str, card: str) -> None:
@@ -5045,6 +5248,9 @@ def main() -> None:
     if sys.argv[1:] == [W8A16_TIMES_ARG]:
         say(json.dumps(w8a16_times(torch)))
         return
+    if sys.argv[1:] == [QWEN3_TIMES_ARG]:
+        say(json.dumps(qwen3_decode_times(torch)))
+        return
 
     name, card = phase_card(torch)
     build_log = phase_build()
@@ -5059,8 +5265,17 @@ def main() -> None:
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
         }}))
         return
+    if sys.argv[1:] == [QWEN3_ARG]:
+        qd = phase_qwen3_decode(torch, card, build_log)
+        say(json.dumps({"phases": {"qwen3_decode": {k: v for k, v in qd.items() if k != "checks"}}}))
+        say(f"card: {card}")
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        }}))
+        return
     kernel_results = phase_kernels(torch, card)
     kernel_results["w8a16_matmul"] = phase_w8a16(torch, card, build_log)
+    kernel_results.update(qwen3_kernel_results(phase_qwen3_decode(torch, card, build_log)))
     bf16 = phase_main_path(torch, card)
     phase_step_parity(torch, "phase 5 decoder step, bf16 cache", bf16["pipe"], bf16["audio"], card)
     int8 = phase_int8_path(torch, card, bf16["pipe"], bf16["audio"])
@@ -5123,8 +5338,10 @@ def main() -> None:
         phases["tts_graph"] = phase_tts_graph(torch, card, tts_pipe)
         phases["tts_entry"] = phase_tts_entry(torch, card, tts_pipe, root / "tts")
         tts_counts = dict(_build.launches)
-        if any(n for k, n in tts_counts.items() if k != "w8a16_matmul") or not tts_counts["w8a16_matmul"]:
-            fail(f"phases 19-20 launched Whisper kernels, or their W8A16 frames not the W8A16 product: {tts_counts}")
+        tts_kernels = ("w8a16_matmul", *QWEN3_FRAME_LAUNCHES)
+        if any(n for k, n in tts_counts.items() if k not in tts_kernels) or not all(tts_counts[k] for k in tts_kernels):
+            fail(f"phases 19-20 launched Whisper kernels, or their frames not the W8A16 product and the Qwen3 "
+                 f"decode kernels: {tts_counts}")
         # phase 24 (e): diarization on phase 16's folder, TTS on phase 19's tree
         phases["mesh_speech"] = phase_mesh_speech(torch, card, bf16["audio"], root / "pyannote", tts_pipe.params,
                                                   TTS_VARIANTS["0.6b"])

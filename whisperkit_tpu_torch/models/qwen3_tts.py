@@ -30,7 +30,11 @@ also takes its slot as a 0-d tensor on the device (the TTS frame loop's
 step, which a CUDA graph replays): it then writes K/V by `index_copy_` and
 attends the whole cache under the mask, as JAX does at every slot. None
 of this runs in a Pallas kernel in the JAX package: the products are
-`torch.matmul`, the vocoder `F.conv1d` and `F.conv_transpose1d`. Code2Wav's float32 is IEEE float32 on the card
+`torch.matmul` (W8A16 ones of a few rows the port's W8A16 kernel), the
+vocoder `F.conv1d` and `F.conv_transpose1d`. On the card the talker's frame
+step and the code predictor's passes run each layer's norms, rotary,
+attention and SwiGLU in the kernels of ops/qwen3_decode.py
+(`_qwen3_layers`). Code2Wav's float32 is IEEE float32 on the card
 whatever the process's TF32 flags (`core.device.ieee_float32` on its entry
 points; cuDNN's TF32, on by default, moves the samples by ~7e-4); the
 backbone and code predictor run in bfloat16, or in float32 at the
@@ -42,14 +46,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from whisperkit_tpu_torch.core.device import DeviceLike, ieee_float32, resolve_device
-from whisperkit_tpu_torch.ops import quant
+from whisperkit_tpu_torch.ops import quant, qwen3_decode
+# the layer's plain norm and rotary, under the JAX package's names
+from whisperkit_tpu_torch.ops.qwen3_decode import rms_norm, rope as _rope  # noqa: F401
 
 Params = dict[str, Any]
 
@@ -389,12 +395,6 @@ def _layer(blocks: Params, li: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """JAX's x32 * rsqrt(mean(x32²) + eps) * g32, cast back to x's dtype;
-    `F.rms_norm` computes it so (one kernel on the card)."""
-    return F.rms_norm(x.float(), (x.shape[-1],), g.float(), eps).to(x.dtype)
-
-
 @functools.lru_cache(maxsize=None)
 def _rope_freqs(theta: float, half: int, device: torch.device) -> torch.Tensor:
     """JAX's `1 / theta ** (arange(half) / half)`: float64 on the host,
@@ -408,15 +408,6 @@ def _rope_angles(positions: torch.Tensor, theta: float, dh: int) -> tuple[torch.
     angles = positions[:, :, None].float() * _rope_freqs(theta, dh // 2, positions.device)
     cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
     return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
-
-
-def _rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x [B, T, H, Dh]; rotary on half-split pairs (HF rotate_half), in
-    float32: [x1·cos − x2·sin, x2·cos + x1·sin], as x·[cos, cos] + [x2, x1]·[−sin, sin]
-    (the same products and sums)."""
-    half = x.shape[-1] // 2
-    x32 = x.float()
-    return (x32 * cos + torch.cat([x32[..., half:], x32[..., :half]], dim=-1) * sin).to(x.dtype)
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
@@ -442,6 +433,37 @@ def _mm_f32(x: torch.Tensor, w) -> torch.Tensor:
     return x.float() @ w.float()
 
 
+def _mm_siblings(x: torch.Tensor, ws: list) -> list:
+    """x @ w for each weight of `ws`, products that share x: W8A16 dicts in
+    one `quant.quantized_matmul_siblings` call (one kernel launch on the
+    card), any other weights one `_mm` each."""
+    if all(isinstance(w, dict) and "w_q" in w for w in ws):
+        return quant.quantized_matmul_siblings(x, ws, [None] * len(ws))
+    return _mm_each(x, ws)
+
+
+def _mm_each(x: torch.Tensor, ws: list) -> list:
+    """x @ w for each weight of `ws`, one `_mm` each."""
+    return [_mm(x, w) for w in ws]
+
+
+class _LayerOps(NamedTuple):
+    """The glue of a layer pass: the plain versions, or the kernels of
+    ops/qwen3_decode.py with the products that share an input in one
+    launch."""
+
+    add_norm: Callable
+    products: Callable
+    attention: Callable
+    swiglu: Callable
+
+
+_PLAIN_OPS = _LayerOps(qwen3_decode.add_rms_norm_reference, _mm_each, qwen3_decode.decode_attention_reference,
+                       qwen3_decode.swiglu_reference)
+_DECODE_OPS = _LayerOps(qwen3_decode.add_rms_norm, _mm_siblings, qwen3_decode.decode_attention,
+                        qwen3_decode.swiglu)
+
+
 def _qwen3_layers(
     blocks: Params,  # stacked [L, ...] block params
     x: torch.Tensor,  # [B, T, D]
@@ -457,6 +479,7 @@ def _qwen3_layers(
     rope_theta: float,
     qk_norm: bool,
     layer_scale: bool,
+    final_norm: torch.Tensor,  # [D]: the stack's last RMSNorm
     rms_eps: float = 1e-6,
 ) -> torch.Tensor:
     """The Qwen3-family layer stack shared by the backbone, the code
@@ -465,50 +488,38 @@ def _qwen3_layers(
     and softmax) → SwiGLU, with optional LayerScale residuals. Each layer
     writes its K/V at slots [pos_offset, pos_offset + T) of its cache and
     attends keys [0, pos_offset + T), or, at a tensor slot, every key of
-    the cache. Returns x after the last layer."""
-    b, t, _ = x.shape
-    h, kvh, dh = n_head, n_kv_head, head_dim
-    rep = h // kvh
-    at_tensor = isinstance(pos_offset, torch.Tensor)
-    if at_tensor:
-        slots = pos_offset + torch.arange(t, device=x.device)
-        end = kv_k.shape[3]
-    else:
-        end = pos_offset + t
-    cos, sin = _rope_angles(positions, rope_theta, dh)
+    the cache. Returns rms_norm(x after the last layer, final_norm).
+
+    Each residual add is taken with the RMSNorm after it. A stack that
+    `qwen3_decode.qwen3_decode_takes` (on the card: bf16, one or two
+    positions a row, the TTS frame's talker step and code-predictor passes)
+    runs that glue in the kernels of ops/qwen3_decode.py, eight launches a
+    layer pass with W8A16 weights: add + norm, q/k/v, attention, wo, add +
+    norm, gate/up, SwiGLU, down. Every other stack runs their plain
+    versions, the same ops at the same rounding points."""
+    ops = _DECODE_OPS if qwen3_decode.qwen3_decode_takes(
+        x.device.type, (x.dtype, kv_k.dtype, final_norm.dtype), t=x.shape[1], n_head=n_head, n_kv_head=n_kv_head,
+        head_dim=head_dim, n_keys=mask.shape[-1], d_model=x.shape[-1], qk_norm=qk_norm,
+        layer_scale=layer_scale) else _PLAIN_OPS
+    cos, sin = _rope_angles(positions, rope_theta, head_dim)
+    mlp = None
     for li in range(kv_k.shape[0]):
         bp = _layer(blocks, li)
-        hthin = rms_norm(x, bp["ln1"], rms_eps)
-        q = _mm(hthin, bp["wq"]).reshape(b, t, h, dh)
-        k = _mm(hthin, bp["wk"]).reshape(b, t, kvh, dh)
-        v = _mm(hthin, bp["wv"]).reshape(b, t, kvh, dh)
-        if qk_norm:
-            q = rms_norm(q, bp["qnorm"], rms_eps)
-            k = rms_norm(k, bp["knorm"], rms_eps)
-        q = _rope(q, cos, sin)
-        k = _rope(k, cos, sin)
-        if at_tensor:
-            kv_k[li].index_copy_(2, slots, k.transpose(1, 2))
-            kv_v[li].index_copy_(2, slots, v.transpose(1, 2))
-        else:
-            kv_k[li, :, :, pos_offset:end] = k.transpose(1, 2)
-            kv_v[li, :, :, pos_offset:end] = v.transpose(1, 2)
-        # each KV head repeated for its `rep` query heads: [B, H, S, Dh]
-        kfull = kv_k[li, :, :, None, :end].expand(b, kvh, rep, end, dh).reshape(b, h, end, dh)
-        vfull = kv_v[li, :, :, None, :end].expand(b, kvh, rep, end, dh).reshape(b, h, end, dh)
-        scores = (q.transpose(1, 2).float() @ kfull.float().transpose(-1, -2)) / math.sqrt(dh)
-        probs = torch.softmax(scores + mask, dim=-1).to(vfull.dtype)
-        out = (probs @ vfull).transpose(1, 2).reshape(b, t, h * dh)
+        x, hthin = ops.add_norm(x, mlp, bp["ln1"], rms_eps)
+        q, k, v = ops.products(hthin, [bp["wq"], bp["wk"], bp["wv"]])
+        out = ops.attention(
+            q, k, v, bp["qnorm"] if qk_norm else None, bp["knorm"] if qk_norm else None, cos, sin, kv_k[li],
+            kv_v[li], pos_offset, mask, n_head=n_head, n_kv_head=n_kv_head, eps=rms_eps,
+        )
         attn = _mm(out, bp["wo"])
         if layer_scale:
             attn = attn * bp["attn_scale"].to(attn.dtype)
-        x = x + attn
-        hthin = rms_norm(x, bp["ln2"], rms_eps)
-        mlp = _mm(F.silu(_mm(hthin, bp["w_gate"])) * _mm(hthin, bp["w_up"]), bp["w_down"])
+        x, hthin = ops.add_norm(x, attn, bp["ln2"], rms_eps)
+        gate, up = ops.products(hthin, [bp["w_gate"], bp["w_up"]])
+        mlp = _mm(ops.swiglu(gate, up), bp["w_down"])
         if layer_scale:
             mlp = mlp * bp["mlp_scale"].to(mlp.dtype)
-        x = x + mlp
-    return x
+    return ops.add_norm(x, mlp, final_norm, rms_eps)[1]
 
 
 def _causal_mask(pos_offset: int, t: int, device) -> torch.Tensor:
@@ -565,12 +576,11 @@ def code_decoder_forward(
     if key_invalid is not None:
         inv = key_invalid[:, None, None, :n_keys] & (key_pos != query_pos)[None, None]
         mask = mask + torch.where(inv, -math.inf, 0.0)
-    x = _qwen3_layers(
+    hidden = _qwen3_layers(
         params["blocks"], embeds, positions, mask, pos_offset, kv_k, kv_v,
         n_head=dims.n_head, n_kv_head=dims.n_kv_head, head_dim=dims.head_dim,
-        rope_theta=dims.rope_theta, qk_norm=True, layer_scale=False,
+        rope_theta=dims.rope_theta, qk_norm=True, layer_scale=False, final_norm=params["ln_f"],
     )
-    hidden = rms_norm(x, params["ln_f"])
     logits = _mm(hidden, params["code0_head"]).float()
     return logits, hidden
 
@@ -592,12 +602,11 @@ def code_predictor_forward(
     b, t, _ = embeds.shape
     positions = (pos_offset + torch.arange(t, device=embeds.device)[None, :]).expand(b, t)
     mask = _causal_mask(pos_offset, t, embeds.device)[None, None]
-    x = _qwen3_layers(
+    return _qwen3_layers(
         mc["blocks"], embeds, positions, mask, pos_offset, kv_k, kv_v,
         n_head=dims.cp_head, n_kv_head=dims.cp_kv_head, head_dim=dims.cp_head_dim,
-        rope_theta=dims.cp_rope_theta, qk_norm=True, layer_scale=False,
+        rope_theta=dims.cp_rope_theta, qk_norm=True, layer_scale=False, final_norm=mc["ln_f"],
     )
-    return rms_norm(x, mc["ln_f"])
 
 
 def sample_topk(
@@ -743,12 +752,11 @@ def _c2w_conv_stack(c2w: Params, hidden: torch.Tensor, dims: Code2WavDims) -> to
 
 
 def _c2w_layers(c2w: Params, emb, positions, mask, pos_offset, kv_k, kv_v, dims: Code2WavDims):
-    hidden = _qwen3_layers(
+    return _qwen3_layers(
         c2w["blocks"], emb, positions, mask, pos_offset, kv_k, kv_v,
         n_head=dims.n_head, n_kv_head=dims.n_kv_head, head_dim=dims.head_dim,
-        rope_theta=dims.rope_theta, qk_norm=False, layer_scale=True, rms_eps=dims.rms_eps,
+        rope_theta=dims.rope_theta, qk_norm=False, layer_scale=True, final_norm=c2w["ln_f"], rms_eps=dims.rms_eps,
     )
-    return rms_norm(hidden, c2w["ln_f"], dims.rms_eps)
 
 
 def _code2wav(c2w: Params, codes: torch.Tensor, dims: Code2WavDims) -> torch.Tensor:

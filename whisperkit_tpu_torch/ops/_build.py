@@ -51,7 +51,7 @@ NVCC_FLAGS = (
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 KERNELS = ("log_mel", "mha_encoder", "cross_attend_q8", "cross_attend_q8_probs", "self_attend", "self_attend_q8",
-           "tp_all_reduce", "w8a16_matmul")
+           "tp_all_reduce", "w8a16_matmul", "qwen3_add_rms_norm", "qwen3_decode_attention", "qwen3_swiglu")
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 launches_by_device: dict[str, dict[str, int]] = {}
 _count_lock = threading.Lock()
@@ -88,6 +88,15 @@ _SIGNATURES = {
     # x, rows, k, then for each of three products sharing x: codes, scale,
     # bias (or null), out, n (0: no product), stream
     "wk_w8a16_matmul": (_P, _I, _I, *(_P, _P, _P, _P, _I) * 3, _P),
+    # x, y (or null), g, s (or null), h, rows, features, eps, stream
+    "wk_qwen3_add_rms_norm": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # gate, up, out, elements, stream
+    "wk_qwen3_swiglu": (_P, _P, _P, _L, _P),
+    # q, k, v, qnorm, knorm, cos, sin, cache k, cache v, slot pointer (or
+    # null), slot, mask, mask strides of row and position, out, batch, T, H,
+    # KVH, S, keys, eps, score scale, stream
+    "wk_qwen3_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                                  _I, _F, _F, _P),
     # device, peer (no stream: set-up calls)
     "wk_tp_enable_peer": (_I, _I),
     # bytes, out host pointer, out device pointer
